@@ -1,0 +1,85 @@
+"""MaskModule: moving-object probability from per-frame cost volumes
+(``monorec_tpu/models/mask_module.py::MaskModule``).
+
+A weight-shared encoder runs over each single-frame cost volume (frames
+folded into the batch), encoder features are fused by an element-wise max
+across frames, and a decoder with skips from the fused CV features and the
+ResNet features predicts a 1-channel sigmoid mask. The reference's dropout
+(p=0.5) acts in training only, which this port does not do yet; in eval it
+is the identity. ``SimpleMaskModule`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from monorec_tpu_torch.models.layers import ConvLReLU, Upconv
+from monorec_tpu_torch.models.resnet import ENCODER_CHANNELS
+
+Tensor = torch.Tensor
+
+_ENC_CH_TAIL = (48, 64, 96, 96)
+_DEC_CH = (96, 96, 64, 48)
+
+
+class MaskModule(nn.Module):
+    def __init__(self, depth_steps: int = 32,
+                 feature_channels: Sequence[int] = ENCODER_CHANNELS):
+        super().__init__()
+        c = (depth_steps,) + _ENC_CH_TAIL
+        d = _DEC_CH
+        feat = feature_channels
+        self.enc = nn.ModuleList(
+            [nn.Sequential(ConvLReLU(c[0], c[0], 3), ConvLReLU(c[0], c[0], 3))]
+            + [
+                nn.Sequential(nn.MaxPool2d(2), ConvLReLU(c[i - 1], c[i], 3), ConvLReLU(c[i], c[i], 3))
+                for i in range(1, 5)
+            ]
+        )
+        self.dec = nn.ModuleList(
+            [
+                nn.Sequential(
+                    Upconv(c[4] + feat[3], d[0]),
+                    ConvLReLU(d[0] + c[3] + feat[2], d[0], 3),
+                    ConvLReLU(d[0], d[0], 3),
+                ),
+                nn.Sequential(
+                    Upconv(d[0], d[0]),
+                    ConvLReLU(d[0] + c[2] + feat[1], d[1], 3),
+                    ConvLReLU(d[1], d[1], 3),
+                ),
+                nn.Sequential(
+                    Upconv(d[1], d[1]),
+                    ConvLReLU(d[1] + c[1] + feat[0], d[2], 3),
+                    ConvLReLU(d[2], d[2], 3),
+                ),
+                nn.Sequential(
+                    Upconv(d[2], d[2]),
+                    ConvLReLU(d[2] + c[0], d[3], 3),
+                    ConvLReLU(d[3], d[3], 3),
+                ),
+            ]
+        )
+        self.classifier = nn.Sequential(nn.Conv2d(d[3], 1, 1), nn.Sigmoid())
+
+    def forward(self, single_frame_cvs: Tensor, image_features: Sequence[Tensor]) -> Tensor:
+        """single_frame_cvs (B, F, D, H, W), image_features NCHW -> mask (B, 1, H, W)."""
+        b, n_frames = single_frame_cvs.shape[:2]
+        x = single_frame_cvs.flatten(0, 1)
+        fused = []
+        for stage in self.enc:
+            x = stage(x)
+            fused.append(x.unflatten(0, (b, n_frames)).amax(dim=1))
+
+        # Decoder H/16 -> H: each stage upsamples, then takes the fused CV
+        # features of its scale and, below full resolution, the ResNet
+        # features of that scale (layer2, layer1, stem).
+        x = torch.cat([fused[4], image_features[3]], 1)
+        for i, (up, conv_a, conv_b) in enumerate(self.dec):
+            x = up(x)
+            skips = [fused[3 - i]] + ([image_features[2 - i]] if i < 3 else [])
+            x = conv_b(conv_a(torch.cat(skips + [x], 1)))
+        return self.classifier(x)

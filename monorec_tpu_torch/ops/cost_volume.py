@@ -1,0 +1,265 @@
+"""Plane-sweep photometric cost volume (``monorec_tpu/ops/cost_volume.py``).
+
+For every depth hypothesis d (linear in inverse depth, far -> near) and
+every source frame f, warp frame f onto the keyframe through the pinhole
+homography of d, score the match with SSIM (3x3 window) reduced by a
+channel-weighted 3x3 patch SAD, and fuse the frames with an
+exp(-alpha * (sad - min_d sad)^2) sharpness weight.
+
+Two paths compute it:
+  * the sweep path: per-(b, f, d) 3x3 homographies, the fused scoring
+    ``plane_sweep_sad`` (the CUDA kernel on CUDA tensors, its plain version
+    on CPU tensors), then ``_score_and_fuse``;
+  * the plain path: backproject -> project -> ``grid_sample``, as the
+    reference's ``_cost_volume_single``. It serves what the sweep cannot:
+    a per-pixel ``cv_depths`` override and ``sfcv_mult_mask=False``, which
+    needs the warped values; ``plain=True`` forces it for A/B checks.
+
+Layout: images NCHW, frames (B, F, C, H, W); the fused cost volume is
+(B, D, H, W) and the per-frame ones (B, F, D, H, W), hypotheses in the
+channel dimension. Everything runs under ``torch.no_grad()``, as the
+reference computes the cost volume.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from monorec_tpu_torch import geometry
+from monorec_tpu_torch.ops.plane_sweep import (
+    box_sum_3x3,
+    photometric_difference,
+    plane_sweep_sad,
+)
+from monorec_tpu_torch.ops.sampling import bilinear_sample
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class CostVolumeConfig:
+    depth_steps: int = 32
+    patch_size: int = 3
+    channel_weights: Tuple[float, ...] = (5 / 32, 16 / 32, 11 / 32)
+    alpha: float = 10.0
+    # use_ssim: 1 -> SSIM, 2 -> 0.85*SSIM + 0.15*L1, 0 -> raw L1,
+    # -1 -> 3x3-avg-pooled L1 (the reference's "else" branch).
+    use_ssim: int = 1
+    sfcv_mult_mask: bool = True
+    not_center_cv: bool = False
+
+    @property
+    def border_radius(self) -> int:
+        return self.patch_size // 2 + 1
+
+
+def border_mask(height: int, width: int, border_radius: int, device=None,
+                dtype=torch.float32) -> Tensor:
+    """(H, W) mask: 1 in the interior, 0 within border_radius of the edge."""
+    m = torch.zeros(height, width, dtype=dtype, device=device)
+    m[border_radius : height - border_radius, border_radius : width - border_radius] = 1.0
+    return m
+
+
+def plane_sweep_homographies(
+    keyframe_intrinsics: Tensor,  # (B, 4, 4)
+    keyframe_pose: Tensor,  # (B, 4, 4)
+    frame_intrinsics: Tensor,  # (B, F, 4, 4)
+    frame_poses: Tensor,  # (B, F, 4, 4)
+    inv_depths: Tensor,  # (D,)
+    height: int,
+    width: int,
+) -> Tensor:
+    """Fold the warp pipeline into per-(b, f, d) 3x3 homographies (B, F, D, 3, 3).
+
+    Output pixel p = (x, y, 1) maps to source s = M p with xs = s0/s2 and
+    ys = s1/s2 directly in align_corners=False pixel units: the reference's
+    project -> normalize by (W-1, H-1) -> (u - .5) * 2 -> grid_sample
+    unnormalization composed into M, normalized so that M[2, 2] == 1.
+    Computed and returned in float64: the scoring evaluates M - I, whose
+    digits a float32 M near the identity has already lost.
+    """
+    keyframe_intrinsics, keyframe_pose, frame_intrinsics, frame_poses, inv_depths = (
+        t.to(torch.float64) for t in (
+            keyframe_intrinsics, keyframe_pose, frame_intrinsics, frame_poses, inv_depths
+        )
+    )
+    inv_k = geometry.invert_intrinsics(keyframe_intrinsics)[:, :3, :3]
+    rel = geometry.invert_pose(frame_poses) @ keyframe_pose[:, None]  # (B, F, 4, 4)
+    kt = frame_intrinsics @ rel
+    a = kt[:, :, :3, :3] @ inv_k[:, None]  # (B, F, 3, 3)
+    t = kt[:, :, :3, 3]  # (B, F, 3)
+    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=a.dtype, device=a.device)
+    m = a[:, :, None] + inv_depths[None, None, :, None, None] * (
+        t[:, :, None, :, None] * e3
+    )  # (B, F, D, 3, 3)
+    sx = width / (width - 1)
+    sy = height / (height - 1)
+    row0 = sx * m[..., 0, :] - 0.5 * m[..., 2, :]
+    row1 = sy * m[..., 1, :] - 0.5 * m[..., 2, :]
+    m = torch.stack([row0, row1, m[..., 2, :]], dim=-2)
+    return m / m[..., 2:3, 2:3]
+
+
+def _score_and_fuse(
+    sad: Tensor,  # (B, F, D, H, W)
+    valid: Tensor,  # (B, F, H, W)
+    cfg: CostVolumeConfig,
+) -> Tuple[Tensor, Tensor]:
+    """Frame fusion (reference ``monorec_model.py:250-269``).
+
+    Returns fused (B, D, H, W) and per-frame CVs (B, F, D, H, W).
+    """
+    d_steps = sad.shape[2]
+    sfcv = (1.0 - 2.0 * sad) * valid[:, :, None]
+    sharp = torch.exp(-cfg.alpha * (sad - sad.amin(dim=2, keepdim=True)) ** 2)
+    # A frame whose hypotheses all score alike (a flat cost curve) gets a
+    # weight ~1e-5 that depends on the squares of SAD differences ~1e-3, so
+    # float32 rounding of the SADs moves the fused CV at such pixels by up to
+    # ~2e-4 (256x512, D=32, against float64); the per-frame CVs do not mix.
+    weight = (1.0 - (sharp.sum(dim=2) - 1.0) / (d_steps - 1)) * valid  # (B, F, H, W)
+    weight_sum = weight.sum(dim=1)  # (B, H, W)
+    fused = (sad * weight[:, :, None]).sum(dim=1)  # (B, D, H, W)
+    nonzero = (weight_sum > 0)[:, None]
+    fused = torch.where(nonzero, fused / torch.where(nonzero, weight_sum[:, None], 1.0), fused)
+    if not cfg.not_center_cv:
+        fused = 1.0 - 2.0 * fused
+    return torch.where(nonzero, fused, 0.0), sfcv
+
+
+def _sweep_path_ok(keyframe: Tensor, cfg: CostVolumeConfig, cv_depths) -> bool:
+    """What the fused scoring can serve: shared hypotheses, masked per-frame
+    CVs, the 3x3 patch and one weight per channel of an RGB image."""
+    return (
+        cv_depths is None
+        and cfg.sfcv_mult_mask
+        and cfg.patch_size == 3
+        and keyframe.shape[1] == len(cfg.channel_weights) == 3
+    )
+
+
+def _cost_volume_sweep(keyframe, keyframe_intrinsics, keyframe_pose, frames,
+                       frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min, cfg):
+    b, c, h, w = keyframe.shape
+    f = frames.shape[1]
+    d = cfg.depth_steps
+    inv_depths = torch.linspace(
+        float(inv_depth_max), float(inv_depth_min), d,
+        dtype=torch.float64, device=keyframe.device,
+    )
+    homs = plane_sweep_homographies(
+        keyframe_intrinsics, keyframe_pose, frame_intrinsics, frame_poses,
+        inv_depths, h, w,
+    ).reshape(b * f, d, 3, 3)
+    cw = tuple(float(x) / cfg.patch_size**2 for x in cfg.channel_weights)
+    sad, wmask, cov = plane_sweep_sad(
+        frames.reshape(b * f, c, h, w).contiguous(),
+        keyframe.contiguous(),
+        homs.contiguous(),
+        border_radius=cfg.border_radius,
+        frames_per_image=f,
+        use_ssim=cfg.use_ssim,
+        channel_weights=cw,
+    )
+    bmask = border_mask(h, w, cfg.border_radius, keyframe.device)
+    valid = bmask * (wmask != 0).to(bmask.dtype).amin(dim=1)  # (N, H, W)
+    fused, sfcv = _score_and_fuse(sad.reshape(b, f, d, h, w), valid.reshape(b, f, h, w), cfg)
+    return fused, sfcv, cov.reshape(b, f * d).sum(dim=-1)
+
+
+def _cost_volume_plain(keyframe, keyframe_intrinsics, keyframe_pose, frames,
+                       frame_intrinsics, frame_poses, depths, cfg):
+    """The reference pipeline (``_cost_volume_single``), batched over (B, F)."""
+    b, c, h, w = keyframe.shape
+    f = frames.shape[1]
+    d = depths.shape[1]
+    cam = geometry.backproject(
+        depths, geometry.invert_intrinsics(keyframe_intrinsics), h, w
+    )  # (B, D, 4, HW)
+    rel = geometry.invert_pose(frame_poses) @ keyframe_pose[:, None]  # (B, F, 4, 4)
+    coords = geometry.project(
+        cam[:, None], frame_intrinsics[:, :, None], rel[:, :, None], h, w
+    ).clamp(-2.0, 2.0)  # (B, F, D, H, W, 2)
+    grid = coords.reshape(b * f, d * h, w, 2)
+
+    warped = bilinear_sample(frames.reshape(b * f, c, h, w), grid)
+    warped = warped.reshape(b, f, c, d, h, w).transpose(2, 3)  # (B, F, D, C, H, W)
+    bmask = border_mask(h, w, cfg.border_radius, keyframe.device, keyframe.dtype)
+    warped_b = bilinear_sample(bmask.expand(b * f, 1, h, w), grid).reshape(b, f, d, h, w)
+    # A pixel is valid only if its reprojection hits the interior at ALL
+    # hypotheses (reference ``monorec_model.py:219``).
+    valid = bmask * (warped_b != 0).to(bmask.dtype).amin(dim=2)  # (B, F, H, W)
+
+    key = keyframe[:, None, None].expand(b, f, d, c, h, w)
+    diff = photometric_difference(
+        warped.reshape(-1, c, h, w), key.reshape(-1, c, h, w), cfg.use_ssim
+    )
+    cw = [float(x) / cfg.patch_size**2 for x in cfg.channel_weights]
+    weighted = cw[0] * diff[:, 0]
+    for ci in range(1, c):
+        weighted = weighted + cw[ci] * diff[:, ci]
+    sad = box_sum_3x3(weighted).reshape(b, f, d, h, w)
+
+    fused, sfcv = _score_and_fuse(sad, valid, cfg)
+    if not cfg.sfcv_mult_mask:
+        any_nonzero = (warped != 0).any(dim=3)
+        all_equal = (warped == key).all(dim=3)
+        sfcv = (1.0 - 2.0 * sad) * (any_nonzero | all_equal).to(sad.dtype)
+    return fused, sfcv, torch.zeros(b, dtype=keyframe.dtype, device=keyframe.device)
+
+
+def compute_cost_volume(
+    keyframe: Tensor,
+    keyframe_intrinsics: Tensor,
+    keyframe_pose: Tensor,
+    frames: Tensor,
+    frame_intrinsics: Tensor,
+    frame_poses: Tensor,
+    inv_depth_max: float,
+    inv_depth_min: float,
+    cfg: CostVolumeConfig = CostVolumeConfig(),
+    cv_depths: Optional[Tensor] = None,
+    plain: bool = False,
+    return_coverage: bool = False,
+):
+    """Batched plane-sweep cost volume.
+
+    Args:
+      keyframe: (B, C, H, W) in [-0.5, 0.5].
+      keyframe_intrinsics / keyframe_pose: (B, 4, 4).
+      frames: (B, F, C, H, W); frame_intrinsics / frame_poses: (B, F, 4, 4).
+      inv_depth_max / inv_depth_min: the sweep runs from the first to the
+        second (the model passes its smaller inverse depth first).
+      cv_depths: optional (B, D, H, W) per-pixel depth override.
+      plain: force the plain path (otherwise taken only where the sweep
+        path cannot serve the configuration).
+      return_coverage: also return per-sample uncovered-pixel counts (B,),
+        always 0 here: both paths have full reach.
+
+    Returns:
+      fused (B, D, H, W) and per-frame (B, F, D, H, W) cost volumes, plus
+      coverage if requested.
+    """
+    with torch.no_grad():
+        if plain or not _sweep_path_ok(keyframe, cfg, cv_depths):
+            if cv_depths is None:
+                b, _, h, w = keyframe.shape
+                depths = geometry.depth_hypotheses(
+                    inv_depth_max, inv_depth_min, cfg.depth_steps, keyframe.device,
+                    keyframe.dtype,
+                )[None, :, None, None].expand(b, -1, h, w)
+            else:
+                depths = cv_depths
+            out = _cost_volume_plain(
+                keyframe, keyframe_intrinsics, keyframe_pose, frames,
+                frame_intrinsics, frame_poses, depths, cfg,
+            )
+        else:
+            out = _cost_volume_sweep(
+                keyframe, keyframe_intrinsics, keyframe_pose, frames,
+                frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min, cfg,
+            )
+    return out if return_coverage else out[:2]
