@@ -1,0 +1,151 @@
+"""Reader of the reference's JSON configs (``configs/**/*.json``) for the
+port: the counterpart of ``monorec_tpu/config/parser.py``, which the port
+cannot import (it imports the flax model).
+
+It maps ``arch.args`` onto ``MonoRecConfig``, ``loss``, ``metrics``,
+``optimizer`` and ``lr_scheduler`` onto their ported counterparts and
+``data_loader`` onto the port's loader, applies the CLI's key-path
+overrides (``--lr`` -> ``optimizer.args.lr``), and lays out the run
+directory ``<save_dir>/models/<name>/<timestamp>`` with a snapshot of the
+config. Whatever a config asks for that is not ported yet raises, naming
+it; reference knobs with no meaning here (``num_workers``) are ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import sys
+from datetime import datetime
+from functools import reduce
+from operator import getitem
+from pathlib import Path
+from typing import Any, Dict, Optional, Sequence
+
+from monorec_tpu_torch.models.monorec import MonoRecConfig
+
+logger = logging.getLogger(__name__)
+
+_MODEL_KEYS = {f.name for f in dataclasses.fields(MonoRecConfig)} - {"plain_cost_volume"}
+# JAX-config knobs the port does not have yet, with the value that is
+# equivalent to leaving them out.
+_NOT_PORTED_MODEL_KEYS = {
+    "simple_mask": False, "mask_use_cv": True, "mask_use_feats": True, "no_cv": False,
+    "freeze_module": [], "cv_warp_dtype": "float32", "compute_dtype": "float32",
+}
+_LOADER_KEYS = {"batch_size", "shuffle", "validation_split", "num_workers", "drop_last"}
+
+
+def load_config(config_path: Optional[str] = None, resume: Optional[str] = None,
+                overrides: Optional[Dict[str, Any]] = None) -> Dict:
+    """The config dict: from ``config_path``, or from the ``config.json``
+    beside a ``resume`` checkpoint (updated by ``config_path`` if given),
+    with ``overrides`` ({"optimizer.args.lr": 1e-4, ...}) applied."""
+    if resume is not None:
+        with open(Path(resume).parent / "config.json") as f:
+            config = json.load(f)
+        if config_path is not None:
+            with open(config_path) as f:
+                config.update(json.load(f))
+    elif config_path is None:
+        raise ValueError("a config file is required (pass -c config.json)")
+    else:
+        with open(config_path) as f:
+            config = json.load(f)
+    for keypath, value in (overrides or {}).items():
+        if value is not None:
+            keys = keypath.split(".")
+            reduce(getitem, keys[:-1], config)[keys[-1]] = value
+    if config.get("precision", "exact") != "exact":
+        raise NotImplementedError(
+            f"precision policy {config['precision']!r} is not ported yet (ROADMAP item 6b)")
+    return config
+
+
+def make_run_dir(config: Dict) -> Path:
+    """``<save_dir>/models/<name>/<timestamp>`` (``trainer.timestamp_replacement``
+    fixes the last part), created, with the config written into it."""
+    section = config.get("trainer", {})
+    save_dir = Path(section.get("save_dir", config.get("save_dir", "saved/")))
+    ts = section.get("timestamp_replacement", datetime.now().strftime(r"%m%d_%H%M%S"))
+    run_dir = save_dir / "models" / config.get("name", "run") / ts
+    run_dir.mkdir(parents=True, exist_ok=True)
+    with open(run_dir / "config.json", "w") as f:
+        json.dump(config, f, indent=4)
+    return run_dir
+
+
+def build_model_config(arch_args: Dict) -> MonoRecConfig:
+    """``arch.args`` of a ``MonoRecModel`` block -> ``MonoRecConfig``."""
+    kwargs = {}
+    for key, value in arch_args.items():
+        if key in _MODEL_KEYS:
+            if key == "inv_depth_min_max":
+                value = tuple(value)
+            elif key in ("pretrain_mode", "use_ssim", "pretrain_dropout_mode"):
+                value = int(value)
+            kwargs[key] = value
+        elif key in _NOT_PORTED_MODEL_KEYS and value != _NOT_PORTED_MODEL_KEYS[key]:
+            raise NotImplementedError(f"arch.args.{key}={value!r} is not ported yet")
+    for key in ("checkpoint_location", "mask_cp_loc", "depth_cp_loc", "imagenet_weights"):
+        if arch_args.get(key):
+            raise NotImplementedError(
+                f"arch.args.{key}: loading weights from checkpoints is not ported yet")
+    cfg = MonoRecConfig(**kwargs)
+    warn_if_frozen_random_encoder(cfg)
+    return cfg
+
+
+def warn_if_frozen_random_encoder(cfg: MonoRecConfig) -> None:
+    """The reference freezes an ImageNet-PRETRAINED encoder; the port loads
+    no encoder weights yet, so a frozen encoder is a random one. Shout."""
+    if not cfg.freeze_resnet:
+        return
+    msg = ("freeze_resnet=True but the ResNet encoder weights are RANDOM: the port loads no "
+           "ImageNet or checkpoint weights yet. The reference freezes an ImageNet-pretrained "
+           "encoder (monorec_model.py:98-111,616-619); training this way will not reproduce "
+           "it. Set \"freeze_resnet\": false in the model args to train the encoder instead.")
+    logger.warning(msg)
+    print(f"\n{'!' * 70}\nWARNING: {msg}\n{'!' * 70}\n", file=sys.stderr)
+
+
+def build_data_loader(block: Dict, device):
+    """A ``data_loader`` block -> the port's ``DataLoader`` on ``device``."""
+    from monorec_tpu_torch.data.loader import DataLoader
+    from monorec_tpu_torch.data.synthetic import SyntheticSweepDataset
+
+    kind, args = block["type"], dict(block.get("args", {}))
+    if kind == "KittiOdometryDataloader":
+        raise NotImplementedError(
+            "KittiOdometryDataloader is not ported yet: the port has no KITTI data path "
+            "(ROADMAP item 7c); use SyntheticSweepDataloader")
+    if kind != "SyntheticSweepDataloader":
+        raise NotImplementedError(f"data loader '{kind}' is not ported yet")
+    dataset = SyntheticSweepDataset(**{k: v for k, v in args.items() if k not in _LOADER_KEYS})
+    return DataLoader(dataset, batch_size=args.get("batch_size", 1),
+                      shuffle=args.get("shuffle", True),
+                      validation_split=args.get("validation_split", 0.0),
+                      drop_last=args.get("drop_last", True), device=device)
+
+
+def build_loss(config: Dict):
+    from monorec_tpu_torch.losses import LOSSES
+
+    name = config["loss"]
+    if name not in LOSSES:
+        raise NotImplementedError(f"loss '{name}' is not ported yet (ported: {sorted(LOSSES)})")
+    return LOSSES[name]
+
+
+def build_metrics(config: Dict) -> Sequence:
+    from monorec_tpu_torch.metrics import get_metric
+
+    return [get_metric(name) for name in config.get("metrics", [])]
+
+
+def build_optimizer(config: Dict, params, steps_per_epoch: int):
+    from monorec_tpu_torch.train.state import make_optimizer
+
+    return make_optimizer(params, config.get("optimizer"), config.get("lr_scheduler"),
+                          steps_per_epoch)

@@ -1,13 +1,19 @@
-"""MonoRec composition (``monorec_tpu/models/monorec.py``): the eval forward.
+"""MonoRec composition (``monorec_tpu/models/monorec.py``).
 
 cost volume (no grad) -> ResNet pyramid of keyframe + 0.5 -> MaskModule on
 the per-frame CVs -> mask-attenuated CV -> DepthModule -> affine inverse
-depth ``(1 - p) * lo + p * hi``. Pretrain modes 0-3 are supported in their
-eval form; the train-mode branches (mask dropout, mode-1 random CV-mask
-dropout) and augmentation are not ported yet, so ``forward`` computes the
-eval forward in either module mode. The JAX config's ``no_cv``,
-``mask_use_cv``, ``mask_use_feats`` and ``simple_mask`` are not ported yet
-either.
+depth ``(1 - p) * lo + p * hi``. ``forward(batch, train=False,
+generator=None)``: the eval forward for pretrain modes 0-3, and the train
+forward of modes 1 and 3 (mode 1 with the random CV-mask dropout, in both
+``pretrain_dropout_mode``s; the depth-flip augmentation with the revert of
+every output), whose random draws come from ``generator``. Not ported yet:
+the train forward of modes 0 and 2 (mask dropout), the mask
+augmentation, and the JAX config's ``no_cv``, ``mask_use_cv``,
+``mask_use_feats``, ``simple_mask`` and ``freeze_module``.
+
+With ``freeze_resnet`` (the default, as in the JAX config) the encoder's
+parameters do not require gradients and it runs under ``torch.no_grad()``,
+the counterpart of the JAX package's ``stop_gradient`` on the features.
 
 Batch contract (NCHW tensors; ``data.synthetic.batch_to_torch`` builds it):
   keyframe             (B, 3, H, W)   in [-0.5, 0.5]
@@ -31,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from monorec_tpu_torch.models.augmentation import conditional_hflip, sample_flip_conditions
 from monorec_tpu_torch.models.depth_module import DepthModule
 from monorec_tpu_torch.models.mask_module import MaskModule
 from monorec_tpu_torch.models.resnet import ResNetEncoder
@@ -43,13 +50,20 @@ Batch = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class MonoRecConfig:
-    """Static model configuration (the eval subset of the JAX config)."""
+    """Static model configuration (the ported subset of the JAX config)."""
 
     inv_depth_min_max: Tuple[float, float] = (0.33, 0.0025)
     cv_depth_steps: int = 32
-    # 0: full network; 1: depth only (zero cv_mask in eval);
-    # 2: mask only; 3: depth with mvobj_mask as cv_mask.
+    # 0: full network; 1: depth only (random cv_mask dropout in training,
+    # zero cv_mask in eval); 2: mask only; 3: depth with mvobj_mask as cv_mask.
     pretrain_mode: int = 0
+    # Mode 1 in training: the CV mask is Bernoulli(pretrain_dropout) /
+    # pretrain_dropout, drawn per 8x8 block (pretrain_dropout_mode 0) or per
+    # sample (1).
+    pretrain_dropout: float = 0.0
+    pretrain_dropout_mode: int = 0
+    augmentation: Optional[str] = None  # None | "depth"
+    freeze_resnet: bool = True
     use_mono: bool = True
     use_stereo: bool = False
     use_ssim: int = 1
@@ -121,6 +135,10 @@ class MonoRec(nn.Module):
             self.depth_module = DepthModule(cfg.cv_depth_steps, cfg.depth_large_model)
         if generator is not None:
             init_weights(self, generator)
+        if cfg.freeze_resnet:
+            self._feature_extractor.requires_grad_(False)
+        if cfg.augmentation not in (None, "depth"):
+            raise ValueError(f"augmentation {cfg.augmentation!r} is not ported yet")
         self.to(device)
 
     def cost_volume(self, batch: Batch, return_coverage: bool = False):
@@ -137,40 +155,80 @@ class MonoRec(nn.Module):
             return_coverage=return_coverage,
         )
 
+    def features(self, keyframe: Tensor):
+        """ResNet pyramid of keyframe + 0.5 (the reference feeds [0, 1])."""
+        if self.config.freeze_resnet:
+            with torch.no_grad():
+                return self._feature_extractor(keyframe + 0.5)
+        return self._feature_extractor(keyframe + 0.5)
+
     def depth(self, cost_volume: Tensor, keyframe: Tensor, image_features):
         """4-scale inverse depth, affine-mapped to [inv_depth_min_max[1], [0]]."""
         lo, hi = self.config.inv_depth_min_max[1], self.config.inv_depth_min_max[0]
         preds = self.depth_module(cost_volume, keyframe, image_features)
         return [(1.0 - p) * lo + p * hi for p in preds]
 
-    def forward(self, batch: Batch) -> Dict[str, Any]:
+    def _cv_mask_dropout(self, keyframe: Tensor, generator: torch.Generator) -> Tensor:
+        """Mode 1's training CV mask (``monorec_tpu/models/monorec.py:285-301``)."""
+        cfg = self.config
+        b, _, h, w = keyframe.shape
+        keep_p = cfg.pretrain_dropout
+        shape = (b, 1, h // 8, w // 8) if cfg.pretrain_dropout_mode == 0 else (b, 1, 1, 1)
+        draw = torch.bernoulli(torch.full(shape, keep_p), generator=generator)
+        mask = (draw / max(keep_p, 1e-8)).to(keyframe.device, keyframe.dtype)
+        if cfg.pretrain_dropout_mode == 0:
+            return mask.repeat_interleave(8, 2).repeat_interleave(8, 3)
+        return mask.expand(b, 1, h, w)
+
+    def forward(self, batch: Batch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         cfg = self.config
         keyframe = batch["keyframe"]
         b, _, h, w = keyframe.shape
         out: Dict[str, Any] = {}
+        if train and cfg.has_mask_module:
+            raise NotImplementedError(
+                f"the train forward of pretrain mode {cfg.pretrain_mode} (mask dropout) is "
+                "not ported yet")
+        if train and generator is None:
+            raise ValueError("the train forward draws from a generator; pass one")
 
         cv, sfcv, out["cv_uncovered"] = self.cost_volume(batch, return_coverage=True)
+
+        flip = None
+        if cfg.augmentation == "depth" and train:
+            flip = sample_flip_conditions(generator, b)
+            keyframe, cv, sfcv = (conditional_hflip(t, flip) for t in (keyframe, cv, sfcv))
         out["cost_volume"] = cv
         out["single_frame_cvs"] = sfcv
 
-        feats = self._feature_extractor(keyframe + 0.5)
+        feats = self.features(keyframe)
         out["image_features"] = feats
 
         if cfg.pretrain_mode in (0, 2):
             cv_mask = self.att_module(sfcv, feats)
         elif cfg.pretrain_mode == 1:
-            cv_mask = keyframe.new_zeros(b, 1, h, w)
+            cv_mask = (self._cv_mask_dropout(keyframe, generator) if train
+                       else keyframe.new_zeros(b, 1, h, w))
         else:
-            cv_mask = batch["mvobj_mask"]
+            cv_mask = batch["mvobj_mask"].detach()
         out["cv_mask"] = cv_mask
 
+        if cfg.pretrain_mode != 2:
+            masked_cv = (1.0 - cv_mask) * cv
+            out["cost_volume"] = masked_cv
+            out["predicted_inverse_depths"] = self.depth(masked_cv, keyframe, feats)
+
+        if flip is not None:  # train forward: modes 1 and 3, both with depth
+            # Revert: orient every output like the un-augmented inputs.
+            for key in ("cost_volume", "single_frame_cvs", "cv_mask"):
+                out[key] = conditional_hflip(out[key], flip)
+            out["predicted_inverse_depths"] = [
+                conditional_hflip(p, flip) for p in out["predicted_inverse_depths"]]
+
         if cfg.pretrain_mode == 2:
-            out["result"] = cv_mask
-            return out
-        masked_cv = (1.0 - cv_mask) * cv
-        out["cost_volume"] = masked_cv
-        preds = self.depth(masked_cv, keyframe, feats)
-        out["predicted_inverse_depths"] = preds
-        out["result"] = preds[0]
-        out["mask"] = cv_mask
+            out["result"] = out["cv_mask"]
+        else:
+            out["result"] = out["predicted_inverse_depths"][0]
+            out["mask"] = out["cv_mask"]
         return out

@@ -32,14 +32,10 @@ def _window_avg(xp: Tensor, gaussian: bool) -> Tensor:
     return F.conv2d(xp, k.expand(c, 1, 3, 3), groups=c)
 
 
-def ssim(
-    x: Tensor,
-    y: Tensor,
-    pad_reflection: bool = True,
-    gaussian_average: bool = False,
-    comp_mode: bool = False,
-) -> Tensor:
-    """SSIM distance between (N, C, H, W) batches; output has the same shape."""
+def ssim_pre_clamp(x: Tensor, y: Tensor, pad_reflection: bool = True,
+                   gaussian_average: bool = False) -> Tensor:
+    """``1 - n/d``, the SSIM distance before its clamp, of (N, C, H, W)
+    batches; output has the same shape."""
     mode = "reflect" if pad_reflection else "constant"
     xp = F.pad(x, (1, 1, 1, 1), mode=mode)
     yp = F.pad(y, (1, 1, 1, 1), mode=mode)
@@ -50,6 +46,18 @@ def ssim(
     sigma_xy = _window_avg(xp * yp, gaussian_average) - mu_x * mu_y
     n = (2.0 * mu_x * mu_y + _C1) * (2.0 * sigma_xy + _C2)
     d = (mu_x * mu_x + mu_y * mu_y + _C1) * (sigma_x + sigma_y + _C2)
+    return 1.0 - n / d
+
+
+def ssim(
+    x: Tensor,
+    y: Tensor,
+    pad_reflection: bool = True,
+    gaussian_average: bool = False,
+    comp_mode: bool = False,
+) -> Tensor:
+    """SSIM distance between (N, C, H, W) batches; output has the same shape."""
+    v = ssim_pre_clamp(x, y, pad_reflection, gaussian_average)
     if not comp_mode:
-        return torch.clamp((1.0 - n / d) / 2.0, 0.0, 1.0)
-    return torch.clamp(1.0 - n / d, 0.0, 1.0) / 2.0
+        return torch.clamp(v / 2.0, 0.0, 1.0)
+    return torch.clamp(v, 0.0, 1.0) / 2.0

@@ -1,15 +1,18 @@
-"""The CUDA kernel against its plain version on the card, at small and ragged
-shapes. Marked ``cuda``: each test skips where no CUDA device is visible and
+"""The CUDA kernels against their plain versions on the card, at small and
+ragged shapes. Marked ``cuda``: each test skips where no CUDA device is visible and
 runs on a GPU machine with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repository's conftest.py imports JAX, which that machine need not have).
 ``chip_smoke.py`` runs the same comparison at full size.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
+from monorec_tpu_torch.ops import grid_warp as gw
+from monorec_tpu_torch.ops import photo_error as pe
 from monorec_tpu_torch.ops import plane_sweep
 from monorec_tpu_torch.ops.cost_volume import (
     CostVolumeConfig,
@@ -57,3 +60,75 @@ def test_cost_volume_kernel_path_matches_cpu(cuda):
     cpu = compute_cost_volume(*(batch_to_torch(nb, "cpu")[k] for k in _KEYS), 0.0025, 0.33, cfg)
     for g, c in zip(gpu, cpu):
         assert (g.cpu() - c).abs().max().item() <= SAD_TOL
+
+
+def _warp_inputs(h, w, device, n=2, c=3, seed=0):
+    """Images and pixel coordinates with a depth edge (a jump in x), integer
+    fractions (every third row) and samples far outside the image."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    dx = np.where(ys > h // 2, 9.4, 1.3) + 0.1 * np.sin(xs / 5.0)
+    dx = np.where(ys % 3 == 0, np.round(dx), dx)
+    dy = np.where(xs < w // 4, -40.0, 0.6)
+    x = np.stack([xs + dx + 0.37 * i for i in range(n)]).astype(np.float32)
+    y = np.stack([ys + dy for _ in range(n)]).astype(np.float32)
+    images = rng.uniform(1.0, 2.0, (n, c, h, w)).astype(np.float32)
+    cot = rng.uniform(-1.0, 1.0, (n, c, h, w)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (images, x, y, cot)]
+
+
+@pytest.mark.parametrize("h,w", [(21, 45), (32, 128)])  # ragged and whole tiles
+def test_grid_warp_kernel_matches_plain_version(cuda, h, w):
+    images, xs, ys, cot = _warp_inputs(h, w, cuda)
+    before = (gw.grid_warp.launches, gw.grid_warp_jac.launches, gw.grid_warp_grad.launches)
+    out = gw.grid_warp(images, xs, ys)
+    jout, jx, jy = gw.grid_warp_jac(images, xs, ys)
+    gx, gy = gw.grid_warp_grad(images, xs, ys, cot)
+    torch.cuda.synchronize()
+    assert (gw.grid_warp.launches, gw.grid_warp_jac.launches, gw.grid_warp_grad.launches) == tuple(
+        b + 1 for b in before)
+    ref = gw.grid_warp_reference(images, xs, ys)
+    _, rjx, rjy = gw.grid_warp_jac_reference(images, xs, ys)
+    rgx, rgy = gw.grid_warp_grad_reference(images, xs, ys, cot)
+    assert (out - ref).abs().max().item() <= 2e-4  # tests/test_grid_warp.py:51
+    assert torch.equal(jout, out)
+    assert torch.equal(out[:, 0] == 0, ref[:, 0] == 0)  # the exact-zero invalid mask
+    assert (out[:, :, :, : w // 4 - 1] == 0).all()  # far outside: exactly 0.0
+    for got, want in ((jx, rjx), (jy, rjy), (gx, rgx), (gy, rgy)):
+        assert (got - want).abs().max().item() <= 2e-5  # tests/test_grid_warp.py:298
+
+
+def test_warp_pixels_gradient_on_the_card(cuda):
+    images, xs, ys, cot = _warp_inputs(32, 128, cuda)
+    x, y = xs.clone().requires_grad_(), ys.clone().requires_grad_()
+    before = gw.grid_warp_jac.launches
+    (gw.warp_pixels(images, x, y) * cot).sum().backward()
+    assert gw.grid_warp_jac.launches == before + 1
+    rgx, rgy = gw.grid_warp_grad_reference(images, xs, ys, cot)
+    assert (x.grad - rgx).abs().max().item() <= 2e-5
+    assert (y.grad - rgy).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("h,w", [(21, 45), (32, 128)])  # ragged and whole tiles
+def test_photo_error_kernels_match_plain_version(cuda, h, w):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.uniform(0.0, 1.0, (3, 3, h, w)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.uniform(0.0, 1.0, (3, 3, h, w)).astype(np.float32)).to(cuda)
+    x[0, :, :3, :5] = -1.0  # invalid-pixel values of the loss
+    cot = torch.from_numpy(rng.uniform(-1, 1, (3, h, w)).astype(np.float32)).to(cuda)
+    before = (pe.photo_error_fwd.launches, pe.photo_error_bwd.launches)
+    out = pe.photo_error_fwd(x, y)
+    gx = pe.photo_error_bwd(x, y, cot)
+    torch.cuda.synchronize()
+    assert (pe.photo_error_fwd.launches, pe.photo_error_bwd.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    ref = pe.photo_error_reference(x, y)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)  # tests/test_photo_error.py:44
+    xr = x.clone().requires_grad_()
+    (rgx,) = torch.autograd.grad((pe.photo_error_reference(xr, y) * cot).sum(), xr)
+    torch.testing.assert_close(gx, rgx, rtol=1e-3, atol=2e-5)  # tests/test_photo_error.py:62
+    yg = y.clone().requires_grad_()
+    xg = x.clone().requires_grad_()
+    (pe.photo_error(xg, yg) * cot).sum().backward()
+    torch.testing.assert_close(xg.grad, gx, rtol=0, atol=0)
+    assert yg.grad is None
