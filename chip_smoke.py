@@ -8,8 +8,9 @@ the CUDA toolkit. It builds the port's CUDA kernels from the sources in the
 checkout, then:
 
 1. device: name, versions, ``nvidia-smi`` name and power limit;
-2. build: compiles ``plane_sweep_sad.cu``, ``grid_warp.cu`` and
-   ``photo_error.cu`` (nvcc, sm_90a), one nvcc each, all started together;
+2. build: compiles ``plane_sweep_sad.cu``, ``grid_warp.cu``,
+   ``photo_error.cu`` and ``warp_plane_sweep.cu`` (nvcc, sm_90a), one nvcc
+   each, all started together;
 3. kernel vs plain: ``plane_sweep_sad`` against ``plane_sweep_sad_reference``
    on the same GPU tensors at B=8, F=2, 256x512, D=32, for every use_ssim
    mode and two motions; times both;
@@ -41,7 +42,24 @@ checkout, then:
    then times steps with the kernels and with the loss's plain versions
    (CUDA events), splits a step into forward, loss, backward and
    optimizer, and reads the device's busy share and largest kernels over
-   5 steps from a torch.profiler trace.
+   5 steps from a torch.profiler trace;
+11. K1 on bf16 sources (the serving policy's cost volume) against its
+   plain version on the upcast sources, as phase 3; reports its distance
+   to the float32 kernel on the same values and times the three;
+12. K2 on bf16 images (the serving policy's loss warp), all three modes,
+   with phase 7's inputs, gates and timings;
+13. K4 (``warp_plane_sweep``), float32 and bf16 sources, at N=16, D=32,
+   3x256x512 against its plain version, timed; then the cost volume with
+   ``sfcv_mult_mask=False`` (the path K4 serves), float32 and bf16, against
+   its plain path run in float64, as phase 4;
+14. the serving forward: the inference entry point under ``--precision
+   serving`` answers phase 6's requests; ``result`` against the exact
+   forward, K1 on bf16 sources once per request and never on float32, and
+   both forwards timed in turns;
+15. serving training: phase 10's trainer with ``"precision": "serving"``
+   takes 6 steps and a validation pass; checks as phase 10 with the bf16
+   kernels' launch counts, then times the step against the exact step in
+   turns, splits it, and reads its busy share from a profiler trace.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records, the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
@@ -74,7 +92,19 @@ PE_BWD_RTOL, PE_BWD_ATOL = 1e-3, 2e-5  # tests/test_photo_error.py:62
 LOSS_RTOL = 5e-4  # PARITY.md row 9, full-chain reprojection
 TRAIN_STEPS = 6
 PROFILED_STEPS = 5
-SOURCES = ("plane_sweep_sad", "grid_warp", "photo_error")
+SOURCES = ("plane_sweep_sad", "grid_warp", "photo_error", "warp_plane_sweep")
+# K4 against its plain version: the same float32 operations in the same
+# order, so equal bit for bit is expected; the budget allows a last-bit
+# difference of a displacement (~2e-6 px times a value range of 1) and, for
+# bf16, one rounding step (2^-9 at |value| <= 0.5).
+K4_TOL = {"float32": 1e-5, "bfloat16": 2.0**-8}
+SERVING_CV_TOL = 5e-3  # bf16 sources vs the exact CV (tests/test_pallas_kernel.py:117)
+UNET_REL = 2e-2  # bf16 U-Nets vs float32, mean |diff| / mean |ref| (tests/test_models.py)
+# A per-frame CV with sfcv_mult_mask=False keeps a pixel by warped != 0, an
+# exact test: where a tap weight is exactly 0 in float32 but ~1e-7 in
+# float64 (a source coordinate on a pixel boundary), the two disagree.
+# Reported, and allowed at up to this share of the per-frame CV.
+ALT_VALID_SHARE = 1e-4
 
 
 def log(msg: str) -> None:
@@ -158,10 +188,15 @@ def loss_batch(dev, tz: float, seed: int):
     return bt, preds
 
 
-def phase_loss_warp(dev, card: str):
-    """Phase 7: K2 against its plain version at the main path's shapes;
-    returns the kernels' records and the inputs of the last motion."""
+def phase_loss_warp(dev, card: str, dtype=None):
+    """Phases 7 (float32 images) and 12 (bf16 images): K2 against its plain
+    version at the main path's shapes; returns the kernels' records (keys
+    with ``_bf16`` for bf16) and the float32 inputs of the last motion."""
     import torch
+
+    dtype = torch.float32 if dtype is None else dtype
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    phase = "[12 loss warp, bf16]" if suffix else "[7 loss warp]"
 
     from monorec_tpu_torch.losses.common import (
         loss_warp_grids,
@@ -181,43 +216,44 @@ def phase_loss_warp(dev, card: str):
                                 tiled["keyframe_pose"], tiled["keyframe_intrinsics"])
         xs, ys = pixel_coordinates(grids.reshape(n, H, W, 2), H, W)
         images = (tiled["frames"] + 1.5).reshape(n, 3, H, W).contiguous()
+        src = images.to(dtype)
         cot = torch.empty_like(images).uniform_(-1.0, 1.0, generator=torch.Generator(dev).manual_seed(1))
-        out = gw.grid_warp(images, xs, ys)
-        jout, jx, jy = gw.grid_warp_jac(images, xs, ys)
-        gx, gy = gw.grid_warp_grad(images, xs, ys, cot)
+        out = gw.grid_warp(src, xs, ys)
+        jout, jx, jy = gw.grid_warp_jac(src, xs, ys)
+        gx, gy = gw.grid_warp_grad(src, xs, ys, cot)
         torch.cuda.synchronize()
-        ref, rjx, rjy = gw.grid_warp_jac_reference(images, xs, ys)
-        rgx, rgy = gw.grid_warp_grad_reference(images, xs, ys, cot)
+        ref, rjx, rjy = gw.grid_warp_jac_reference(src, xs, ys)  # on src.float()
+        rgx, rgy = gw.grid_warp_grad_reference(src, xs, ys, cot)
         e_val = (out - ref).abs().max().item()
         e_jac = max((jx - rjx).abs().max().item(), (jy - rjy).abs().max().item(),
                     (jout - ref).abs().max().item())
         e_grad = max((gx - rgx).abs().max().item(), (gy - rgy).abs().max().item())
         zeros, rzeros = out[:, 0] == 0, ref[:, 0] == 0
         mism = (zeros != rzeros).sum().item()
-        log(f"[7 loss warp] tz={tz}, N={n}, 3x{H}x{W}: max|diff| values {e_val:.3e}, Jacobian "
+        log(f"{phase} tz={tz}, N={n}, 3x{H}x{W}: max|diff| values {e_val:.3e}, Jacobian "
             f"{e_jac:.3e}, gradient {e_grad:.3e}; exact-zero (invalid) samples "
             f"{zeros.sum().item()} of {zeros.numel()}, mismatches {mism}")
         if not (torch.isfinite(out).all() and torch.isfinite(jx).all() and torch.isfinite(gx).all()
                 and e_val <= WARP_TOL and e_jac <= JAC_TOL and e_grad <= JAC_TOL and mism == 0
                 and zeros.any()):
-            raise AssertionError(f"grid_warp disagrees with its plain version (tz={tz})")
+            raise AssertionError(f"grid_warp{suffix} disagrees with its plain version (tz={tz})")
         for k, e in zip(errs, (e_val, e_jac, e_grad)):
             errs[k] = max(errs[k], e)
         del out, jout, jx, jy, gx, gy, ref, rjx, rjy, rgx, rgy
 
     timing = {
-        "grid_warp": in_turns(lambda: gw.grid_warp(images, xs, ys),
-                              lambda: gw.grid_warp_reference(images, xs, ys), 20, 3),
-        "grid_warp_jac": in_turns(lambda: gw.grid_warp_jac(images, xs, ys),
-                                  lambda: gw.grid_warp_jac_reference(images, xs, ys), 20, 3),
-        "grid_warp_grad": in_turns(lambda: gw.grid_warp_grad(images, xs, ys, cot),
-                                   lambda: gw.grid_warp_grad_reference(images, xs, ys, cot), 20, 3),
+        "grid_warp": in_turns(lambda: gw.grid_warp(src, xs, ys),
+                              lambda: gw.grid_warp_reference(src, xs, ys), 20, 3),
+        "grid_warp_jac": in_turns(lambda: gw.grid_warp_jac(src, xs, ys),
+                                  lambda: gw.grid_warp_jac_reference(src, xs, ys), 20, 3),
+        "grid_warp_grad": in_turns(lambda: gw.grid_warp_grad(src, xs, ys, cot),
+                                   lambda: gw.grid_warp_grad_reference(src, xs, ys, cot), 20, 3),
     }
     for k, (k_ms, p_ms, turns) in timing.items():
-        log(f"[7 loss warp] {k} time at N={n}, 3x{H}x{W}, tz=0.5 (plain, kernel, kernel, plain): "
-            f"{', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs plain "
+        log(f"{phase} {k}{suffix} time at N={n}, 3x{H}x{W}, tz=0.5 (plain, kernel, kernel, "
+            f"plain): {', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs plain "
             f"{p_ms:.3f} ms on {card}")
-    return {k: {"max_abs_err": errs[k], "ms": timing[k][0], "plain_ms": timing[k][1]}
+    return {k + suffix: {"max_abs_err": errs[k], "ms": timing[k][0], "plain_ms": timing[k][1]}
             for k in errs}, (images, xs, ys, tiled)
 
 
@@ -314,34 +350,44 @@ def phase_loss(dev, card: str) -> None:
         raise AssertionError("depth_loss with the kernels disagrees with its plain versions")
 
 
-def launch_counts() -> dict:
-    from monorec_tpu_torch.ops import grid_warp, photo_error, plane_sweep
+def _counted() -> dict:
+    """Each kernel wrapper by name; each counts its launches on float32
+    sources in ``.launches`` and, where it takes bf16, in ``.launches_bf16``."""
+    from monorec_tpu_torch.ops import grid_warp, photo_error, plane_sweep, warp_sweep
 
-    return {
-        "plane_sweep_sad": plane_sweep.plane_sweep_sad.launches,
-        "grid_warp": grid_warp.grid_warp.launches,
-        "grid_warp_jac": grid_warp.grid_warp_jac.launches,
-        "grid_warp_grad": grid_warp.grid_warp_grad.launches,
-        "photo_error_fwd": photo_error.photo_error_fwd.launches,
-        "photo_error_bwd": photo_error.photo_error_bwd.launches,
-    }
+    return {"plane_sweep_sad": plane_sweep.plane_sweep_sad, "grid_warp": grid_warp.grid_warp,
+            "grid_warp_jac": grid_warp.grid_warp_jac, "grid_warp_grad": grid_warp.grid_warp_grad,
+            "warp_plane_sweep": warp_sweep.warp_plane_sweep,
+            "photo_error_fwd": photo_error.photo_error_fwd,
+            "photo_error_bwd": photo_error.photo_error_bwd}
+
+
+def launch_counts() -> dict:
+    counts = {}
+    for name, fn in _counted().items():
+        counts[name] = fn.launches
+        if hasattr(fn, "launches_bf16"):
+            counts[name + "_bf16"] = fn.launches_bf16
+    return counts
 
 
 def reset_counts() -> None:
-    from monorec_tpu_torch.ops import grid_warp, photo_error, plane_sweep
-
-    for fn in (plane_sweep.plane_sweep_sad, grid_warp.grid_warp, grid_warp.grid_warp_jac,
-               grid_warp.grid_warp_grad, photo_error.photo_error_fwd,
-               photo_error.photo_error_bwd):
+    for fn in _counted().values():
         fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
 
 
-def phase_training(dev, card: str, run_dir) -> dict:
-    """Phase 10: the stage-1 trainer of the CLI, on monorec_depth.json with
-    synthetic data; returns the launch counts of its run."""
-    import torch
+def only(**nonzero) -> dict:
+    """The launch counts that are ``nonzero`` and 0 for every other kernel."""
+    return dict(dict.fromkeys(launch_counts(), 0), **nonzero)
 
+
+def stage1_trainer(dev, run_dir, precision: str):
+    """The CLI's stage-1 trainer on monorec_depth.json under ``precision``,
+    with synthetic data at the operating point."""
     from monorec_tpu_torch.cli.train import build_trainer
+    from monorec_tpu_torch.precision import set_precision
 
     with open("configs/train/monorec/monorec_depth.json") as f:
         config = json.load(f)
@@ -350,110 +396,102 @@ def phase_training(dev, card: str, run_dir) -> dict:
                              "args": {**data, "length": TRAIN_STEPS * B, "shuffle": True}}
     config["val_data_loader"] = {"type": "SyntheticSweepDataloader",
                                  "args": {**data, "length": B, "shuffle": False, "seed": 1}}
-    config["trainer"].update(epochs=1, len_epoch=TRAIN_STEPS, log_step=1, save_dir=str(run_dir),
-                             tensorboard=False)
-    trainer = build_trainer(config, dev)
+    config["trainer"].update(epochs=1, len_epoch=TRAIN_STEPS, log_step=1,
+                             save_dir=f"{run_dir}/{precision}", tensorboard=False)
+    config["precision"] = precision
+    set_precision(precision, expect_rebuild=True)  # every earlier model is rebuilt or set aside
+    return build_trainer(config, dev)
+
+
+def train_main_path(trainer, tag: str, bf: str) -> dict:
+    """Six steps and a validation pass through ``trainer.train()``, the main
+    path, with the counts set to 0 just before; ``bf`` ("" or "_bf16")
+    names the kernels of the policy's dtype. Returns the launch counts."""
+    import torch
+
     model = trainer.model
     depth0 = {k: p.detach().clone() for k, p in model.depth_module.named_parameters()}
     enc0 = {k: p.detach().clone() for k, p in model._feature_extractor.named_parameters()}
     n_val = len(trainer.valid_data_loader)
-
     reset_counts()
     log_ = trainer.train()  # the main path
     counts = launch_counts()
-    expected = {"plane_sweep_sad": TRAIN_STEPS + n_val, "grid_warp": n_val,
-                "grid_warp_jac": TRAIN_STEPS, "grid_warp_grad": 0,
-                "photo_error_fwd": 2 * (TRAIN_STEPS + n_val), "photo_error_bwd": TRAIN_STEPS}
+    expected = only(**{"plane_sweep_sad" + bf: TRAIN_STEPS + n_val, "grid_warp" + bf: n_val,
+                       "grid_warp_jac" + bf: TRAIN_STEPS,
+                       "photo_error_fwd": 2 * (TRAIN_STEPS + n_val),
+                       "photo_error_bwd": TRAIN_STEPS})
     lines = [json.loads(s) for s in trainer.log_path.read_text().splitlines()]
     losses = [r["loss"] for r in lines]
     moved = sum(not torch.equal(p, depth0[k]) for k, p in model.depth_module.named_parameters())
     enc_same = all(torch.equal(p, enc0[k]) for k, p in model._feature_extractor.named_parameters())
-    log(f"[10 training] {TRAIN_STEPS} steps + {n_val} validation batch(es) through the CLI's "
+    log(f"{tag} {TRAIN_STEPS} steps + {n_val} validation batch(es) through the CLI's "
         f"trainer (monorec_depth.json: pretrain_mode 1, depth flip, frozen encoder, amsgrad, "
-        f"StepLR), B={B}, {H}x{W}, F={F}, D={D}: losses {', '.join(f'{x:.5f}' for x in losses)}; "
+        f"StepLR), B={B}, {H}x{W}, F={F}, D={D}, precision {trainer.config['precision']} "
+        f"(compute {model.config.compute_dtype}, CV sources {model.config.cv_warp_dtype}): "
+        f"losses {', '.join(f'{x:.5f}' for x in losses)}; "
         f"val_loss {log_.get('val_loss', float('nan')):.5f}; depth-module tensors moved {moved} of "
-        f"{len(depth0)}, encoder unchanged {enc_same}; launches {counts} (expected {expected})")
+        f"{len(depth0)}, encoder unchanged {enc_same}; launches "
+        f"{ {k: v for k, v in counts.items() if v} } (expected the same, every other kernel 0)")
     if not (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses)
             and moved == len(depth0) and enc_same and counts == expected):
-        raise AssertionError("stage-1 training through the entry point failed its checks")
+        raise AssertionError(f"{tag} training through the entry point failed its checks")
+    return counts
 
-    # Per-step launch counts, step times with the kernels and with the loss's
-    # plain versions, in turns.
-    batches = [b for _, b in zip(range(3), trainer.data_loader)]
-    alpha = trainer._alpha(1)
 
-    def step_ms(n_steps: int):
-        times = []
-        for i in range(n_steps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            before = launch_counts()
-            start.record()
-            trainer.train_step(batches[i % len(batches)], alpha)
-            end.record()
-            end.synchronize()
-            delta = {k: v - before[k] for k, v in launch_counts().items()}
-            times.append((start.elapsed_time(end), delta))
-        return times
+def step_times(trainer, batches, alpha, n_steps: int, policy: str):
+    """CUDA-event times of ``n_steps`` train steps under ``policy`` (the loss
+    warp reads the policy at each call), each with its launch counts."""
+    import torch
 
-    step_ms(1)
-    turns = []
-    for path in ("plain", "kernel", "kernel", "plain"):
-        with plain_loss_kernels() if path == "plain" else contextlib.nullcontext():
-            turns.append((path, step_ms(5)))
-    want = {"plane_sweep_sad": 1, "grid_warp": 0, "grid_warp_jac": 1, "grid_warp_grad": 0,
-            "photo_error_fwd": 2, "photo_error_bwd": 1}
-    for path, times in turns:
-        for _, delta in times:
-            if delta != (want if path == "kernel" else dict(want, grid_warp_jac=0,
-                                                            photo_error_fwd=0,
-                                                            photo_error_bwd=0)):
-                raise AssertionError(f"a {path} step launched {delta}")
-    med = {p: statistics.median(t for path, ts in turns if path == p for t, _ in ts)
-           for p in ("kernel", "plain")}
-    log(f"[10 training] median step (CUDA events, 10 steps each, in turns plain, kernel, kernel, "
-        f"plain) with the kernels {med['kernel']:.3f} ms = {B * 1e3 / med['kernel']:.2f} "
-        f"keyframes/s; with the loss's plain versions {med['plain']:.3f} ms = "
-        f"{B * 1e3 / med['plain']:.2f} keyframes/s on {card}; per-step launches {want}")
-    log("    per-step ms: " + "; ".join(
-        f"{path} " + ", ".join(f"{t:.2f}" for t, _ in ts) for path, ts in turns))
+    from monorec_tpu_torch.precision import set_precision
 
-    # Layer split of a step: forward, loss, backward, optimizer.
-    def split(n_steps: int):
-        rows = []
-        for i in range(n_steps):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-            batch = batches[i % len(batches)]
-            torch.cuda.synchronize()
-            ev[0].record()
-            out = model(batch, train=True, generator=trainer.generator)
-            ev[1].record()
-            loss_dict = trainer.loss_fn({**batch, **out}, alpha, None, ())
-            ev[2].record()
-            trainer.optimizer.zero_grad(set_to_none=True)
-            loss_dict["loss"].backward()
-            ev[3].record()
-            trainer.optimizer.step()
-            ev[4].record()
-            ev[4].synchronize()
-            rows.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
-        return [statistics.median(c) for c in zip(*rows)]
+    set_precision(policy, expect_rebuild=True)
+    times = []
+    for i in range(n_steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        before = launch_counts()
+        start.record()
+        trainer.train_step(batches[i % len(batches)], alpha)
+        end.record()
+        end.synchronize()
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        times.append((start.elapsed_time(end), delta))
+    return times
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    k_split = split(5)
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    with plain_loss_kernels():
-        p_split = split(5)
-    names = ("forward", "loss", "backward", "optimizer")
-    log(f"[10 training] step split, medians of 5 (CUDA events), kernels: " + ", ".join(
-        f"{n} {t:.3f}" for n, t in zip(names, k_split)) + " ms; plain versions: " + ", ".join(
-        f"{n} {t:.3f}" for n, t in zip(names, p_split)) + f" ms; peak memory {peak:.2f} GiB")
 
-    # Device busy share and the largest kernels, from one torch.profiler
-    # trace of PROFILED_STEPS steps after an untimed profiled one: the window
-    # runs from the host's start of the first timed step to the end of the
-    # last device activity, and the busy time is the union of the device
-    # activities (kernels, copies, fills) in it.
+def step_split(trainer, batches, alpha, n_steps: int):
+    """Medians of forward, loss, backward and optimizer (CUDA events)."""
+    import torch
+
+    model = trainer.model
+    rows = []
+    for i in range(n_steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        batch = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        out = model(batch, train=True, generator=trainer.generator)
+        ev[1].record()
+        loss_dict = trainer.loss_fn({**batch, **out}, alpha, None, ())
+        ev[2].record()
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss_dict["loss"].backward()
+        ev[3].record()
+        trainer.optimizer.step()
+        ev[4].record()
+        ev[4].synchronize()
+        rows.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
+    return [statistics.median(c) for c in zip(*rows)]
+
+
+def profile_steps(tag: str, trainer, batches, alpha, step_median: float) -> None:
+    """Device busy share and the largest kernels, from one torch.profiler
+    trace of PROFILED_STEPS steps after an untimed profiled one: the window
+    runs from the host's start of the first timed step to the end of the
+    last device activity, and the busy time is the union of the device
+    activities (kernels, copies, fills) in it."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -465,9 +503,13 @@ def phase_training(dev, card: str, run_dir) -> dict:
     events = prof.events()
     t0 = min(e.time_range.start for e in events
              if e.name == "chip_smoke_step_1" and e.device_type == DeviceType.CPU)
+    # A host-side range (record_function, Optimizer.step#Adam.step) is also
+    # traced on the device as an annotation spanning its kernels and the
+    # gaps between them: it is not device activity.
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                    if e.device_type == DeviceType.CUDA and e.time_range.end > t0
-                   and not e.name.startswith("chip_smoke_step_"))
+                   and e.name not in host_names)
     t1 = max(end for _, end, _ in spans)
     busy, reach, per_name = 0.0, t0, {}
     for start, end, kname in spans:
@@ -476,11 +518,306 @@ def phase_training(dev, card: str, run_dir) -> dict:
         per_name[kname] = per_name.get(kname, 0.0) + (end - start)
     busy_ms = busy / 1e3 / PROFILED_STEPS
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[10 training] torch.profiler, {PROFILED_STEPS} steps with the kernels: device busy "
+    log(f"{tag} torch.profiler, {PROFILED_STEPS} steps with the kernels: device busy "
         f"{busy_ms:.3f} ms per step = {100.0 * busy / (t1 - t0):.1f}% of the profiled window "
         f"({(t1 - t0) / 1e3 / PROFILED_STEPS:.3f} ms per step) and "
-        f"{100.0 * busy_ms / med['kernel']:.1f}% of the unprofiled median step above; largest, "
+        f"{100.0 * busy_ms / step_median:.1f}% of the unprofiled median step; largest, "
         f"ms per step: " + "; ".join(f"{k[:60]} {v / 1e3 / PROFILED_STEPS:.3f}" for k, v in top))
+
+
+STEP_NAMES = ("forward", "loss", "backward", "optimizer")
+
+
+def phase_training(dev, card: str, run_dir):
+    """Phase 10: the exact stage-1 trainer of the CLI; returns the launch
+    counts of its run and (trainer, batches, alpha) for phase 15."""
+    import torch
+
+    trainer = stage1_trainer(dev, run_dir, "exact")
+    counts = train_main_path(trainer, "[10 training]", "")
+
+    # Per-step launch counts, step times with the kernels and with the loss's
+    # plain versions, in turns.
+    batches = [b for _, b in zip(range(3), trainer.data_loader)]
+    alpha = trainer._alpha(1)
+    step_times(trainer, batches, alpha, 1, "exact")
+    turns = []
+    for path in ("plain", "kernel", "kernel", "plain"):
+        with plain_loss_kernels() if path == "plain" else contextlib.nullcontext():
+            turns.append((path, step_times(trainer, batches, alpha, 5, "exact")))
+    want = only(plane_sweep_sad=1, grid_warp_jac=1, photo_error_fwd=2, photo_error_bwd=1)
+    for path, times in turns:
+        for _, delta in times:
+            if delta != (want if path == "kernel" else only(plane_sweep_sad=1)):
+                raise AssertionError(f"a {path} step launched {delta}")
+    med = {p: statistics.median(t for path, ts in turns if path == p for t, _ in ts)
+           for p in ("kernel", "plain")}
+    log(f"[10 training] median step (CUDA events, 10 steps each, in turns plain, kernel, kernel, "
+        f"plain) with the kernels {med['kernel']:.3f} ms = {B * 1e3 / med['kernel']:.2f} "
+        f"keyframes/s; with the loss's plain versions {med['plain']:.3f} ms = "
+        f"{B * 1e3 / med['plain']:.2f} keyframes/s on {card}; per-step launches "
+        f"{ {k: v for k, v in want.items() if v} }")
+    log("    per-step ms: " + "; ".join(
+        f"{path} " + ", ".join(f"{t:.2f}" for t, _ in ts) for path, ts in turns))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    k_split = step_split(trainer, batches, alpha, 5)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    with plain_loss_kernels():
+        p_split = step_split(trainer, batches, alpha, 5)
+    log(f"[10 training] step split, medians of 5 (CUDA events), kernels: " + ", ".join(
+        f"{n} {t:.3f}" for n, t in zip(STEP_NAMES, k_split)) + " ms; plain versions: " + ", ".join(
+        f"{n} {t:.3f}" for n, t in zip(STEP_NAMES, p_split)) + f" ms; peak memory {peak:.2f} GiB")
+    profile_steps("[10 training]", trainer, batches, alpha, med["kernel"])
+    return counts, (trainer, batches, alpha)
+
+
+def phase_serving_training(dev, card: str, run_dir, exact) -> dict:
+    """Phase 15: the stage-1 trainer under the serving policy; its step
+    against the exact one of phase 10 in turns. Returns the launch counts
+    of its main path."""
+    import torch
+
+    trainer = stage1_trainer(dev, run_dir, "serving")
+    counts = train_main_path(trainer, "[15 serving training]", "_bf16")
+    batches = [b for _, b in zip(range(3), trainer.data_loader)]
+    alpha = trainer._alpha(1)
+    ex_trainer, ex_batches, ex_alpha = exact
+    step_times(trainer, batches, alpha, 1, "serving")
+    turns = []
+    for policy in ("exact", "serving", "serving", "exact"):
+        if policy == "exact":
+            turns.append((policy, step_times(ex_trainer, ex_batches, ex_alpha, 5, "exact")))
+        else:
+            turns.append((policy, step_times(trainer, batches, alpha, 5, "serving")))
+    wants = {"serving": only(plane_sweep_sad_bf16=1, grid_warp_jac_bf16=1, photo_error_fwd=2,
+                             photo_error_bwd=1),
+             "exact": only(plane_sweep_sad=1, grid_warp_jac=1, photo_error_fwd=2,
+                           photo_error_bwd=1)}
+    for policy, times in turns:
+        for _, delta in times:
+            if delta != wants[policy]:
+                raise AssertionError(f"a {policy} step launched {delta}")
+    med = {p: statistics.median(t for q, ts in turns if q == p for t, _ in ts)
+           for p in ("serving", "exact")}
+    log(f"[15 serving training] median step (CUDA events, 10 steps each, in turns exact, "
+        f"serving, serving, exact): serving {med['serving']:.3f} ms = "
+        f"{B * 1e3 / med['serving']:.2f} keyframes/s, exact {med['exact']:.3f} ms = "
+        f"{B * 1e3 / med['exact']:.2f} keyframes/s on {card}; per-step launches "
+        f"{ {k: v for k, v in wants['serving'].items() if v} }")
+    log("    per-step ms: " + "; ".join(
+        f"{p} " + ", ".join(f"{t:.2f}" for t, _ in ts) for p, ts in turns))
+    torch.cuda.reset_peak_memory_stats(dev)
+    s_split = step_split(trainer, batches, alpha, 5)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[15 serving training] step split, medians of 5 (CUDA events): " + ", ".join(
+        f"{n} {t:.3f}" for n, t in zip(STEP_NAMES, s_split)) + f" ms; peak memory {peak:.2f} GiB")
+    profile_steps("[15 serving training]", trainer, batches, alpha, med["serving"])
+    return counts
+
+
+def sweep_batch(dev, tz: float):
+    """Phase 3's sweep inputs: sources (N, 3, H, W), keyframes, homographies."""
+    import torch
+
+    from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
+    from monorec_tpu_torch.ops.cost_volume import plane_sweep_homographies
+
+    bt = batch_to_torch(make_batch(B, H, W, F, stereo=False, mask=False, tz=tz), dev)
+    inv_depths = torch.linspace(0.0025, 0.33, D, dtype=torch.float64, device=dev)
+    homs = plane_sweep_homographies(
+        bt["keyframe_intrinsics"], bt["keyframe_pose"], bt["intrinsics"], bt["poses"],
+        inv_depths, H, W,
+    ).reshape(B * F, D, 3, 3).contiguous()
+    return bt["frames"].reshape(B * F, 3, H, W).contiguous(), bt["keyframe"], homs
+
+
+def phase_sweep_bf16(dev, card: str) -> dict:
+    """Phase 11: K1 on bf16 sources against its plain version (on the
+    upcast sources), and its distance to the float32 kernel on the same
+    values; times bf16 kernel, float32 kernel and plain version in turns."""
+    import torch
+
+    from monorec_tpu_torch.ops import plane_sweep
+
+    max_err, max_vs_f32 = 0.0, 0.0
+    for tz in MOTIONS:
+        images, keyframes, homs = sweep_batch(dev, tz)
+        src = images.to(torch.bfloat16)
+        for mode in MODES:
+            sad, wmask, cov = plane_sweep.plane_sweep_sad(src, keyframes, homs, 2, F, mode)
+            sad32, wmask32, _ = plane_sweep.plane_sweep_sad(src.float(), keyframes, homs, 2, F,
+                                                             mode)
+            torch.cuda.synchronize()
+            rsad, rwmask, _ = plane_sweep.plane_sweep_sad_reference(src, keyframes, homs, 2, F,
+                                                                    mode)
+            err = (sad - rsad).abs().max().item()
+            vs_f32 = max((sad - sad32).abs().max().item(), (wmask - wmask32).abs().max().item())
+            mism = ((wmask != 0) != (rwmask != 0)).sum().item()
+            log(f"[11 kernel, bf16 sources] tz={tz} use_ssim={mode}: max|sad diff| vs plain "
+                f"{err:.3e}; vs the float32 kernel on the same values {vs_f32:.3e}; wmask!=0 "
+                f"mismatches {mism}")
+            if not (torch.isfinite(sad).all() and err <= SAD_TOL and mism == 0
+                    and (cov == 0).all()):
+                raise AssertionError(f"plane_sweep_sad on bf16 sources disagrees with its plain "
+                                     f"version (tz={tz}, use_ssim={mode})")
+            max_err, max_vs_f32 = max(max_err, err), max(max_vs_f32, vs_f32)
+            del sad, wmask, sad32, wmask32, rsad, rwmask
+    images, keyframes, homs = sweep_batch(dev, 0.0)
+    src = images.to(torch.bfloat16)
+    bf16 = lambda: plane_sweep.plane_sweep_sad(src, keyframes, homs, 2, F, 1)  # noqa: E731
+    f32 = lambda: plane_sweep.plane_sweep_sad(images, keyframes, homs, 2, F, 1)  # noqa: E731
+    plain = lambda: plane_sweep.plane_sweep_sad_reference(src, keyframes, homs, 2, F, 1)  # noqa: E731
+    turns = [("plain", cuda_ms(plain, 3)), ("bf16", cuda_ms(bf16, 20)), ("f32", cuda_ms(f32, 20)),
+             ("f32", cuda_ms(f32, 20)), ("bf16", cuda_ms(bf16, 20)), ("plain", cuda_ms(plain, 3))]
+    ms = {k: statistics.mean(t for n, t in turns if n == k) for k in ("bf16", "f32", "plain")}
+    log(f"[11 kernel, bf16 sources] time at N={B * F}, D={D}, {H}x{W}, use_ssim=1 (plain, bf16, "
+        f"f32, f32, bf16, plain): {', '.join(f'{t:.3f}' for _, t in turns)} ms; bf16 sources "
+        f"{ms['bf16']:.3f} ms, float32 sources {ms['f32']:.3f} ms, plain {ms['plain']:.3f} ms "
+        f"on {card}; max|diff| to the float32 kernel on the upcast sources {max_vs_f32:.3e}")
+    return {"max_abs_err": max_err, "ms": ms["bf16"], "plain_ms": ms["plain"]}
+
+
+def phase_warp_sweep(dev, card: str) -> dict:
+    """Phase 13: K4 against its plain version, then the cost volume it
+    serves against the plain path in float64; returns the records of both
+    dtypes, with the launches of the cost-volume runs."""
+    import torch
+
+    from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
+    from monorec_tpu_torch.ops import warp_sweep
+    from monorec_tpu_torch.ops.cost_volume import CostVolumeConfig, compute_cost_volume
+
+    images, _, homs = sweep_batch(dev, 0.5)
+    records = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        src = images.to(dtype)
+        warped, wmask, cov = warp_sweep.warp_plane_sweep(src, homs, 2)
+        torch.cuda.synchronize()
+        rwarped, rwmask, _ = warp_sweep.warp_plane_sweep_reference(src, homs, 2)
+        err = (warped.float() - rwarped.float()).abs().max().item()
+        unequal = (warped != rwarped).sum().item()
+        zeros = ((warped == 0) != (rwarped == 0)).sum().item()
+        m_err = (wmask - rwmask).abs().max().item()
+        mism = ((wmask != 0) != (rwmask != 0)).sum().item()
+        log(f"[13 warp sweep] {name} sources, N={B * F}, D={D}, 3x{H}x{W}: warped "
+            f"{tuple(warped.shape)} {warped.dtype}, max|diff| {err:.3e} ({unequal} of "
+            f"{warped.numel()} elements not bit-equal), exact-zero mismatches {zeros}; wmask "
+            f"max|diff| {m_err:.3e}, wmask!=0 mismatches {mism}")
+        if not (warped.dtype == dtype and torch.isfinite(warped).all() and err <= K4_TOL[name]
+                and zeros == 0 and mism == 0 and (cov == 0).all()):
+            raise AssertionError(f"warp_plane_sweep ({name}) disagrees with its plain version")
+        del warped, wmask, rwarped, rwmask
+        k_ms, p_ms, turns = in_turns(lambda: warp_sweep.warp_plane_sweep(src, homs, 2),
+                                     lambda: warp_sweep.warp_plane_sweep_reference(src, homs, 2),
+                                     10, 2)
+        log(f"[13 warp sweep] {name} time (plain, kernel, kernel, plain): "
+            f"{', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs plain "
+            f"{p_ms:.3f} ms on {card}")
+        key = "warp_plane_sweep" + ("_bf16" if name == "bfloat16" else "")
+        records[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+    del images, homs, src
+    torch.cuda.empty_cache()
+
+    # The cost volume K4 serves, against its plain path in float64.
+    bt = batch_to_torch(make_batch(B, H, W, F, stereo=False, mask=False, tz=0.5), dev)
+    args = [bt[k] for k in ("keyframe", "keyframe_intrinsics", "keyframe_pose",
+                            "frames", "intrinsics", "poses")]
+    for name in ("float32", "bfloat16"):
+        cfg = CostVolumeConfig(depth_steps=D, sfcv_mult_mask=False, warp_dtype=name)
+        reset_counts()
+        fused, sfcv = compute_cost_volume(*args, 0.0025, 0.33, cfg)  # the K4 path
+        counts = launch_counts()
+        bf = "_bf16" if name == "bfloat16" else ""
+        if counts != only(**{"warp_plane_sweep" + bf: 1}):
+            raise AssertionError(f"the sfcv_mult_mask=False cost volume launched {counts}")
+        records["warp_plane_sweep" + bf]["launches"] = counts["warp_plane_sweep" + bf]
+        # The plain path (which ignores warp_dtype) in float32, on the sources
+        # as the policy quantizes them: its own error against the exact answer
+        # bounds what the fused CV's conditioning makes of that quantization.
+        q_args = list(args)
+        q_args[3] = args[3].to(torch.bfloat16).float() if bf else args[3]
+        pf, ps = compute_cost_volume(*q_args, 0.0025, 0.33, cfg, plain=True)
+        e64, e32_64, alt = [0.0, 0.0], [0.0, 0.0], 0
+        for b in range(B):  # float64 one sample at a time, to bound memory
+            f64, s64 = compute_cost_volume(*(a[b : b + 1].double() for a in args), 0.0025, 0.33,
+                                           cfg, plain=True)
+            agree = (sfcv[b : b + 1] != 0) == (s64 != 0)
+            alt += (~agree).sum().item()
+            e64[0] = max(e64[0], (fused[b : b + 1] - f64).abs().max().item())
+            e64[1] = max(e64[1], (sfcv[b : b + 1] - s64).abs()[agree].max().item())
+            e32_64[0] = max(e32_64[0], (pf[b : b + 1] - f64).abs().max().item())
+            e32_64[1] = max(e32_64[1], (ps[b : b + 1] - s64).abs().max().item())
+        tol = SAD_TOL if name == "float32" else SERVING_CV_TOL
+        fused_tol = max(tol, 2.0 * e32_64[0])
+        log(f"[13 warp sweep] cost volume, sfcv_mult_mask=False, {name} sources: max|diff| fused "
+            f"/ sfcv: K4 path vs plain float64 {e64[0]:.3e} / {e64[1]:.3e} (sfcv where both keep "
+            f"the pixel; they disagree on {alt} of {sfcv.numel()}); plain float32 "
+            f"{'on the bf16-quantized sources ' if bf else ''}vs float64 {e32_64[0]:.3e} / "
+            f"{e32_64[1]:.3e} (sfcv everywhere); fused gate {fused_tol:.3e}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not (torch.isfinite(fused).all() and torch.isfinite(sfcv).all() and e64[1] <= tol
+                and e64[0] <= fused_tol and alt <= ALT_VALID_SHARE * sfcv.numel()):
+            raise AssertionError(f"the K4 cost volume ({name}) is off")
+        del fused, sfcv, pf, ps
+    cfg = CostVolumeConfig(depth_steps=D, sfcv_mult_mask=False)
+    k_ms, p_ms, turns = in_turns(lambda: compute_cost_volume(*args, 0.0025, 0.33, cfg),
+                                 lambda: compute_cost_volume(*args, 0.0025, 0.33, cfg, plain=True),
+                                 3, 2)
+    log(f"[13 warp sweep] cost volume, sfcv_mult_mask=False, float32, B={B}, D={D}, {H}x{W} "
+        f"(plain path, K4 path, K4 path, plain path): {', '.join(f'{t:.3f}' for t in turns)} ms; "
+        f"K4 path {k_ms:.3f} ms vs plain path {p_ms:.3f} ms on {card}")
+    return records
+
+
+def mean_rel(got, ref) -> float:
+    return ((got - ref).abs().mean() / ref.abs().mean()).item()
+
+
+def phase_serving_forward(dev, card: str, requests) -> dict:
+    """Phase 14: the inference entry point under ``--precision serving``;
+    returns the launch counts of its main path."""
+    import torch
+
+    from monorec_tpu_torch.cli.inference_example import build_model, model_config, serve
+    from monorec_tpu_torch.precision import set_precision
+
+    set_precision("exact", expect_rebuild=True)
+    exact = build_model(model_config(D, "exact"), dev, seed=0)
+    set_precision("serving", expect_rebuild=True)
+    model = build_model(model_config(D, "serving"), dev, seed=0)
+    if (model.config.cv_warp_dtype, model.config.compute_dtype) != ("bfloat16", "bfloat16"):
+        raise AssertionError(f"--precision serving built {model.config}")
+    serve(model, requests[:1])
+    serve(exact, requests[:1])
+    reset_counts()
+    outs, s1 = serve(model, requests)  # the main path
+    counts = launch_counts()
+    ref, e1 = serve(exact, requests)
+    _, e2 = serve(exact, requests)
+    _, s2 = serve(model, requests)
+    n_req = len(requests)
+    if counts != only(plane_sweep_sad_bf16=n_req):
+        raise AssertionError(f"the serving forwards launched {counts}")
+    rels = [mean_rel(o["result"], r["result"]) for o, r in zip(outs, ref)]
+    mask_rels = [mean_rel(o["cv_mask"], r["cv_mask"]) for o, r in zip(outs, ref)]
+    for out in outs:
+        r = out["result"]
+        if (r.shape != (B, 1, H, W) or r.dtype != torch.float32 or not torch.isfinite(r).all()
+                or (r <= 0).any()):
+            raise AssertionError("served inverse depth is not finite, positive float32")
+    med_s, med_e = statistics.median(s1 + s2), statistics.median(e1 + e2)
+    log(f"[14 serving forward] {n_req} requests x {B} keyframes, {H}x{W}, D={D}, F={F}, "
+        f"--precision serving: result vs the exact forward, mean|diff|/mean|ref| max "
+        f"{max(rels):.3e} (gate {UNET_REL}), cv_mask {max(mask_rels):.3e}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; median forward (CUDA events, in turns "
+        f"serving, exact, exact, serving) serving {med_s:.3f} ms = {B * 1e3 / med_s:.2f} "
+        f"keyframes/s, exact {med_e:.3f} ms = {B * 1e3 / med_e:.2f} keyframes/s on {card}")
+    log(f"    per-request ms, serving: {', '.join(f'{t:.3f}' for t in s1)}; exact: "
+        f"{', '.join(f'{t:.3f}' for t in e1)}; exact: {', '.join(f'{t:.3f}' for t in e2)}; "
+        f"serving: {', '.join(f'{t:.3f}' for t in s2)}")
+    if max(rels) > UNET_REL:
+        raise AssertionError("the serving forward is off the exact one")
     return counts
 
 
@@ -494,11 +831,7 @@ def main() -> int:
     from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
     from monorec_tpu_torch.models import MonoRecConfig
     from monorec_tpu_torch.ops import plane_sweep
-    from monorec_tpu_torch.ops.cost_volume import (
-        CostVolumeConfig,
-        compute_cost_volume,
-        plane_sweep_homographies,
-    )
+    from monorec_tpu_torch.ops.cost_volume import CostVolumeConfig, compute_cost_volume
     from monorec_tpu_torch.ops.cuda import build
     from monorec_tpu_torch.precision import use_exact_precision
 
@@ -532,22 +865,14 @@ def main() -> int:
                     log(f"    ptxas {source}: {line.split(':', 1)[-1].strip()}")
 
     # ---- 3. kernel vs plain version -------------------------------------
-    inv_depths = torch.linspace(0.0025, 0.33, D, dtype=torch.float64, device=dev)
     max_err = 0.0
-    sweep_inputs = {}
     for tz in MOTIONS:
-        bt = batch_to_torch(make_batch(B, H, W, F, stereo=False, mask=False, tz=tz), dev)
-        homs = plane_sweep_homographies(
-            bt["keyframe_intrinsics"], bt["keyframe_pose"], bt["intrinsics"], bt["poses"],
-            inv_depths, H, W,
-        ).reshape(B * F, D, 3, 3).contiguous()
-        images = bt["frames"].reshape(B * F, 3, H, W).contiguous()
-        sweep_inputs[tz] = (images, bt["keyframe"], homs)
+        images, keyframes, homs = sweep_batch(dev, tz)
         for mode in MODES:
-            sad, wmask, cov = plane_sweep.plane_sweep_sad(images, bt["keyframe"], homs, 2, F, mode)
+            sad, wmask, cov = plane_sweep.plane_sweep_sad(images, keyframes, homs, 2, F, mode)
             torch.cuda.synchronize()
             rsad, rwmask, _ = plane_sweep.plane_sweep_sad_reference(
-                images, bt["keyframe"], homs, 2, F, mode)
+                images, keyframes, homs, 2, F, mode)
             err = (sad - rsad).abs()
             err_all, err_in = err.max().item(), err[..., 2:-2, 2:-2].max().item()
             mism = ((wmask != 0) != (rwmask != 0)).sum().item()
@@ -560,17 +885,14 @@ def main() -> int:
             max_err = max(max_err, err_all)
             del sad, wmask, rsad, rwmask, err
 
-    images, keyframes, homs = sweep_inputs[0.0]
+    images, keyframes, homs = sweep_batch(dev, 0.0)
     kernel = lambda: plane_sweep.plane_sweep_sad(images, keyframes, homs, 2, F, 1)  # noqa: E731
     plain = lambda: plane_sweep.plane_sweep_sad_reference(images, keyframes, homs, 2, F, 1)  # noqa: E731
-    turns = [("plain", cuda_ms(plain, 3)), ("kernel", cuda_ms(kernel, 20)),
-             ("kernel", cuda_ms(kernel, 20)), ("plain", cuda_ms(plain, 3))]
-    k_ms = statistics.mean(t for n, t in turns if n == "kernel")
-    p_ms = statistics.mean(t for n, t in turns if n == "plain")
+    k_ms, p_ms, turns = in_turns(kernel, plain, 20, 3)
     log(f"[3 kernel] time at N={B * F}, D={D}, {H}x{W}, use_ssim=1 (plain, kernel, kernel, "
-        f"plain): {', '.join(f'{t:.3f}' for _, t in turns)} ms; kernel {k_ms:.3f} ms vs "
+        f"plain): {', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs "
         f"plain {p_ms:.3f} ms on {card}")
-    del sweep_inputs, images, keyframes, homs
+    del images, keyframes, homs
 
     # ---- 4. cost volume: kernel path vs plain path ----------------------
     for tz in MOTIONS:
@@ -634,14 +956,14 @@ def main() -> int:
     serve(model, requests[:1])
     serve(model_plain, requests[:1])
     _, plain_1 = serve(model_plain, requests)
-    plane_sweep.plane_sweep_sad.launches = 0
+    reset_counts()
     outs, kern_1 = serve(model, requests)  # the main path
-    launches = plane_sweep.plane_sweep_sad.launches
+    serve_counts = launch_counts()
     _, kern_2 = serve(model, requests)
     _, plain_2 = serve(model_plain, requests)
-    if launches != n_req:
-        raise AssertionError(f"the served forwards launched plane_sweep_sad {launches} times, "
-                             f"expected {n_req}")
+    if serve_counts != only(plane_sweep_sad=n_req):
+        raise AssertionError(f"the served forwards launched {serve_counts}, expected "
+                             f"plane_sweep_sad {n_req} times")
     for out in outs:
         r = out["result"]
         if r.shape != (B, 1, H, W) or not torch.isfinite(r).all() or (r <= 0).any():
@@ -655,12 +977,12 @@ def main() -> int:
         f"{', '.join(f'{t:.3f}' for t in kern_1)}; kernel: {', '.join(f'{t:.3f}' for t in kern_2)}; "
         f"plain: {', '.join(f'{t:.3f}' for t in plain_2)}")
 
-    del model, model_plain, requests, outs
+    del model, model_plain, outs
     torch.cuda.empty_cache()
 
     # ---- 7-10. the stage-1 training path ---------------------------------
-    records = {"plane_sweep_sad": {"launches": launches, "max_abs_err": max_err, "ms": k_ms,
-                                   "plain_ms": p_ms}}
+    records = {"plane_sweep_sad": {"launches": serve_counts["plane_sweep_sad"],
+                                   "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}}
     warp_records, warp_inputs = phase_loss_warp(dev, card)
     records.update(warp_records)
     records.update(phase_photo_error(dev, card, *warp_inputs))
@@ -669,19 +991,46 @@ def main() -> int:
     phase_loss(dev, card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as run_dir:
-        train_counts = phase_training(dev, card, run_dir)
-    for k in ("grid_warp", "grid_warp_jac", "grid_warp_grad", "photo_error_fwd",
-              "photo_error_bwd"):
-        records[k]["launches"] = train_counts[k]
+        train_counts, exact_trainer = phase_training(dev, card, run_dir)
+        for k in ("grid_warp", "grid_warp_jac", "grid_warp_grad", "photo_error_fwd",
+                  "photo_error_bwd"):
+            records[k]["launches"] = train_counts[k]
+        torch.cuda.empty_cache()
 
-    sources = {"plane_sweep_sad": ("plane_sweep_sad.cu", "monorec_tpu/ops/pallas/cv_kernel.py:600"),
-               "grid_warp": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:421"),
-               "grid_warp_jac": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:431"),
-               "grid_warp_grad": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:444"),
-               "photo_error_fwd": ("photo_error.cu",
-                                   "monorec_tpu/ops/pallas/photo_error.py:195"),
-               "photo_error_bwd": ("photo_error.cu",
-                                   "monorec_tpu/ops/pallas/photo_error.py:219")}
+        # ---- 11-13. the kernels of the serving policy and K4 -------------
+        records["plane_sweep_sad_bf16"] = phase_sweep_bf16(dev, card)
+        torch.cuda.empty_cache()
+        warp_records, _ = phase_loss_warp(dev, card, torch.bfloat16)
+        records.update(warp_records)
+        torch.cuda.empty_cache()
+        records.update(phase_warp_sweep(dev, card))
+        torch.cuda.empty_cache()
+
+        # ---- 14-15. the serving forward and serving training -------------
+        forward_counts = phase_serving_forward(dev, card, requests)
+        records["plane_sweep_sad_bf16"]["launches"] = forward_counts["plane_sweep_sad_bf16"]
+        del requests
+        torch.cuda.empty_cache()
+        serving_counts = phase_serving_training(dev, card, run_dir, exact_trainer)
+    for k in ("grid_warp_bf16", "grid_warp_jac_bf16", "grid_warp_grad_bf16"):
+        records[k]["launches"] = serving_counts[k]
+
+    replaced = {
+        "plane_sweep_sad": ("plane_sweep_sad.cu", "monorec_tpu/ops/pallas/cv_kernel.py:600"),
+        "plane_sweep_sad_bf16": ("plane_sweep_sad.cu",
+                                 "monorec_tpu/ops/pallas/cv_kernel.py:600"),
+        "grid_warp": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:421"),
+        "grid_warp_jac": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:431"),
+        "grid_warp_grad": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:444"),
+        "grid_warp_bf16": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:421"),
+        "grid_warp_jac_bf16": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:431"),
+        "grid_warp_grad_bf16": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:444"),
+        "photo_error_fwd": ("photo_error.cu", "monorec_tpu/ops/pallas/photo_error.py:195"),
+        "photo_error_bwd": ("photo_error.cu", "monorec_tpu/ops/pallas/photo_error.py:219"),
+        "warp_plane_sweep": ("warp_plane_sweep.cu", "monorec_tpu/ops/pallas/warp_kernel.py:291"),
+        "warp_plane_sweep_bf16": ("warp_plane_sweep.cu",
+                                  "monorec_tpu/ops/pallas/warp_kernel.py:291"),
+    }
     log(json.dumps({"kernels": [{
         "name": k,
         "route": "cuda",
@@ -691,7 +1040,7 @@ def main() -> int:
         "max_abs_err": records[k]["max_abs_err"],
         "ms": records[k]["ms"],
         "plain_ms": records[k]["plain_ms"],
-    } for k, (src, replaces) in sources.items()]}))
+    } for k, (src, replaces) in replaced.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

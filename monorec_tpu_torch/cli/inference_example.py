@@ -9,6 +9,11 @@ build the CUDA kernel and warm the allocator.
 
     python -m monorec_tpu_torch.cli.inference_example            # 4 x 1 keyframe, 256x512
     python -m monorec_tpu_torch.cli.inference_example --batch 8 --requests 8
+    python -m monorec_tpu_torch.cli.inference_example --precision serving
+
+``--precision`` selects the precision policy (``monorec_tpu_torch.precision``):
+"exact" (float32 everywhere, the default) or "serving" (bf16 cost-volume
+sources and bf16 U-Net convolutions).
 
 KITTI input waits for a data path of the port; requests are synthetic.
 """
@@ -26,6 +31,14 @@ import torch
 from monorec_tpu_torch.convert import load_flax_npz, state_dict_from_flax
 from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
 from monorec_tpu_torch.models import MonoRec, MonoRecConfig
+from monorec_tpu_torch.precision import POLICIES, apply_to_model_kwargs, set_precision
+
+
+def model_config(depth_steps: int, precision: str = "exact") -> MonoRecConfig:
+    """The served model's config under the ``precision`` policy, which this
+    selects process-wide (``--precision``)."""
+    set_precision(precision)
+    return MonoRecConfig(**apply_to_model_kwargs({"cv_depth_steps": depth_steps}))
 
 
 def build_model(config: MonoRecConfig, device, seed: int = 0, params_path=None) -> MonoRec:
@@ -80,14 +93,16 @@ def main(argv=None) -> int:
     p.add_argument("--frames", type=int, default=2, help="source frames per keyframe")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--params", default=None, help="npz of flattened flax variables")
+    p.add_argument("--precision", choices=sorted(POLICIES), default="exact",
+                   help="precision policy (default: exact)")
     args = p.parse_args(argv)
 
     device = torch.device(args.device)
     if args.params is None:
         print("note: no --params given, the weights are random (seed "
               f"{args.seed}); depths only demonstrate the pipeline", file=sys.stderr)
-    model = build_model(MonoRecConfig(cv_depth_steps=args.depth_steps), device,
-                        args.seed, args.params)
+    model = build_model(model_config(args.depth_steps, args.precision), device, args.seed,
+                        args.params)
     requests = make_requests(args.requests, args.batch, args.height, args.width,
                              args.frames, device, args.seed)
     serve(model, requests[:1])  # untimed warm-up: kernel build, allocator
@@ -105,7 +120,7 @@ def main(argv=None) -> int:
     med = statistics.median(latencies)
     print(f"median {med:.3f} ms/request, {args.batch * 1e3 / med:.2f} keyframes/s "
           f"({clock}, {name}, {args.height}x{args.width}, D={args.depth_steps}, "
-          f"F={args.frames})")
+          f"F={args.frames}, {args.precision} precision)")
     return 0
 
 

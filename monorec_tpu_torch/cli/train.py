@@ -2,9 +2,13 @@
 
     python -m monorec_tpu_torch.cli.train -c configs/train/monorec/monorec_depth.json
     python -m monorec_tpu_torch.cli.train -c configs/smoke/train_synthetic.json --device cpu
+    python -m monorec_tpu_torch.cli.train -c configs/train/monorec/monorec_depth.json \
+        --precision serving
 
 Reads the same JSON configs as the JAX package. ``--lr`` and ``--bs``
-override ``optimizer.args.lr`` and ``data_loader.args.batch_size``; ``-o``
+override ``optimizer.args.lr`` and ``data_loader.args.batch_size``, and
+``--precision`` the config's top-level ``"precision"`` key (the precision
+policy, "exact" when neither sets it); ``-o``
 passes loss options (``-o stereo`` adds the stereo frame to the depth
 loss's reprojection); ``-r`` resumes from a checkpoint. Weights and every
 random draw come from seed 0.
@@ -21,12 +25,15 @@ import torch
 
 from monorec_tpu_torch import config as config_mod
 from monorec_tpu_torch.models import MonoRec
+from monorec_tpu_torch.precision import POLICIES, set_precision
 from monorec_tpu_torch.train import Trainer
 
 
 def build_trainer(config: Dict, device, options: Sequence[str] = (), run_dir=None) -> Trainer:
     """The trainer of a config dict: loaders, model, loss, metrics and
-    optimizer built from its blocks, on ``device``."""
+    optimizer built from its blocks, on ``device``, under the precision
+    policy of its ``"precision"`` key."""
+    set_precision(config.get("precision", "exact"))
     device = torch.device(device)
     data_loader = config_mod.build_data_loader(config["data_loader"], device)
     valid_loader = (config_mod.build_data_loader(config["val_data_loader"], device)
@@ -51,10 +58,13 @@ def main(argv=None) -> int:
     p.add_argument("-o", "--options", default=[], nargs="+", help="loss options, e.g. stereo")
     p.add_argument("--lr", default=None, type=float)
     p.add_argument("--bs", default=None, type=int)
+    p.add_argument("--precision", choices=sorted(POLICIES), default=None,
+                   help="precision policy (default: the config's \"precision\", else exact)")
     args = p.parse_args(argv)
 
     config = config_mod.load_config(args.config, args.resume, {
-        "optimizer.args.lr": args.lr, "data_loader.args.batch_size": args.bs})
+        "optimizer.args.lr": args.lr, "data_loader.args.batch_size": args.bs,
+        "precision": args.precision})
     verbosity = config.get("trainer", {}).get("verbosity", 2)
     logging.basicConfig(level={0: logging.WARNING, 1: logging.INFO}.get(verbosity, logging.DEBUG),
                         format="%(asctime)s %(levelname)s %(message)s")

@@ -7,8 +7,11 @@ It maps ``arch.args`` onto ``MonoRecConfig``, ``loss``, ``metrics``,
 ``data_loader`` onto the port's loader, applies the CLI's key-path
 overrides (``--lr`` -> ``optimizer.args.lr``), and lays out the run
 directory ``<save_dir>/models/<name>/<timestamp>`` with a snapshot of the
-config. Whatever a config asks for that is not ported yet raises, naming
-it; reference knobs with no meaning here (``num_workers``) are ignored.
+config. The top-level ``"precision"`` key selects the precision policy
+(``precision.set_precision``) when the config is loaded, and the model's
+dtype knobs it does not set come from that policy. Whatever a config asks
+for that is not ported yet raises, naming it; reference knobs with no
+meaning here (``num_workers``) are ignored.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Sequence
 
 from monorec_tpu_torch.models.monorec import MonoRecConfig
+from monorec_tpu_torch.precision import apply_to_model_kwargs, set_precision
 
 logger = logging.getLogger(__name__)
 
@@ -32,7 +36,7 @@ _MODEL_KEYS = {f.name for f in dataclasses.fields(MonoRecConfig)} - {"plain_cost
 # equivalent to leaving them out.
 _NOT_PORTED_MODEL_KEYS = {
     "simple_mask": False, "mask_use_cv": True, "mask_use_feats": True, "no_cv": False,
-    "freeze_module": [], "cv_warp_dtype": "float32", "compute_dtype": "float32",
+    "freeze_module": [],
 }
 _LOADER_KEYS = {"batch_size", "shuffle", "validation_split", "num_workers", "drop_last"}
 
@@ -57,9 +61,7 @@ def load_config(config_path: Optional[str] = None, resume: Optional[str] = None,
         if value is not None:
             keys = keypath.split(".")
             reduce(getitem, keys[:-1], config)[keys[-1]] = value
-    if config.get("precision", "exact") != "exact":
-        raise NotImplementedError(
-            f"precision policy {config['precision']!r} is not ported yet (ROADMAP item 6b)")
+    set_precision(config.get("precision", "exact"))
     return config
 
 
@@ -77,7 +79,8 @@ def make_run_dir(config: Dict) -> Path:
 
 
 def build_model_config(arch_args: Dict) -> MonoRecConfig:
-    """``arch.args`` of a ``MonoRecModel`` block -> ``MonoRecConfig``."""
+    """``arch.args`` of a ``MonoRecModel`` block -> ``MonoRecConfig``; the
+    dtype knobs it leaves out come from the active precision policy."""
     kwargs = {}
     for key, value in arch_args.items():
         if key in _MODEL_KEYS:
@@ -92,7 +95,7 @@ def build_model_config(arch_args: Dict) -> MonoRecConfig:
         if arch_args.get(key):
             raise NotImplementedError(
                 f"arch.args.{key}: loading weights from checkpoints is not ported yet")
-    cfg = MonoRecConfig(**kwargs)
+    cfg = MonoRecConfig(**apply_to_model_kwargs(kwargs))
     warn_if_frozen_random_encoder(cfg)
     return cfg
 

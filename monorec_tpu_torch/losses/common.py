@@ -4,7 +4,8 @@
 * ``compute_errors_planar``: 0.85 * SSIM (zero pad, gaussian window,
   comp_mode) + 0.15 * L1, channel mean, through the fused kernel K3.
 * ``reprojection_loss``: warp every source frame by the predicted depth
-  through the loss-warp kernel K2, score it, combine the frames by
+  through the loss-warp kernel K2 (on sources in the precision policy's
+  ``loss_warp_dtype``; the warped frames come back float32), score it, combine the frames by
   min / avg / rnd with out-of-view masking (inf sentinels), optional
   automasking and mono_auto.
 * ``edge_aware_smoothness_loss`` and ``sparse_depth_loss``.
@@ -24,6 +25,7 @@ from monorec_tpu_torch import geometry
 from monorec_tpu_torch.ops.cost_volume import border_mask
 from monorec_tpu_torch.ops.photo_error import photo_error, photo_error_reference
 from monorec_tpu_torch.ops.sampling import grid_sample_planar
+from monorec_tpu_torch.precision import loss_warp_dtype
 from monorec_tpu_torch.utils import mask_mean
 
 Tensor = torch.Tensor
@@ -88,7 +90,7 @@ def _warp_by_depth_planar(depth: Tensor, frames: Tensor, poses: Tensor, intrinsi
     grids = loss_warp_grids(depth, poses, intrinsics, keyframe_pose, keyframe_intrinsics)
     warped, cov = grid_sample_planar(
         (frames + add).reshape(b * f, c, h, w), grids.reshape(b * f, h, w, 2),
-        return_coverage=True,
+        return_coverage=True, kernel_dtype=loss_warp_dtype(),
     )
     return warped.reshape(b, f, c, h, w), cov.sum()
 

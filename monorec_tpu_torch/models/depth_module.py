@@ -4,7 +4,9 @@
 A separable-conv encoder over ``cat(cost_volume, keyframe)``, a
 transposed-conv decoder with skips from the CV encoder and the ResNet
 features, and four heads ``abs(tanh(conv))`` in [0, 1] at full, 1/2, 1/4
-and 1/8 resolution, returned finest first. Submodule layout (``enc``,
+and 1/8 resolution, returned finest first. ``dtype`` is the convolution
+dtype: the cost volume, keyframe and features are cast to it at entry,
+and the predictions return in float32. Submodule layout (``enc``,
 ``dec``, ``predictors``) is the reference's, for its ``state_dict`` keys.
 """
 
@@ -25,8 +27,10 @@ class DepthModule(nn.Module):
     """Returns a list of inverse-depth activations, finest resolution first."""
 
     def __init__(self, depth_steps: int = 32, large_model: bool = False,
-                 feature_channels: Sequence[int] = ENCODER_CHANNELS):
+                 feature_channels: Sequence[int] = ENCODER_CHANNELS,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         e = (48, 64, 128, 256, 512) if large_model else (48, 64, 128, 192, 256)
         d = (512, 256, 128, 64, 32, 24) if large_model else (256, 128, 64, 48, 32, 24)
         feat = feature_channels
@@ -67,7 +71,8 @@ class DepthModule(nn.Module):
     def forward(self, cost_volume: Tensor, keyframe: Tensor,
                 image_features: Sequence[Tensor]) -> List[Tensor]:
         """cost_volume (B, D, H, W), keyframe (B, 3, H, W) -> [(B, 1, h, w)] x 4."""
-        x = torch.cat([cost_volume, keyframe], 1)
+        x = torch.cat([cost_volume, keyframe], 1).to(self.dtype)
+        image_features = [f.to(self.dtype) for f in image_features]
         cv_feats = []
         for stage in self.enc:
             x = stage(x)
@@ -83,4 +88,5 @@ class DepthModule(nn.Module):
         x = self.dec[3](torch.cat([cv_feats[1], image_features[0], x], 1))  # -> H
         x = self.dec[4](torch.cat([cv_feats[0], x], 1))
         preds.insert(0, self._predict(x, 3))
-        return preds
+        # Downstream (the affine depth map, losses, metrics) is float32.
+        return [p.to(torch.float32) for p in preds]

@@ -3,7 +3,10 @@
 Asymmetric same pads computed from kernel and stride, separable y-then-x
 convolutions, 2x nearest upsampling followed by a k=2 conv, and a k=4/s=2
 transposed conv cropped back to exactly 2x the input. NCHW; activations
-are LeakyReLU(0.1). Attribute names (``conv``, ``conv_y``/``conv_x``,
+are LeakyReLU(0.1). The convolutions compute in the dtype of their input:
+they cast weight and bias to it inside ``forward`` (flax's
+``nn.Conv(dtype=...)``), so the parameters and their gradients stay
+float32 under the bf16 policy and float32 inputs run unchanged. Attribute names (``conv``, ``conv_y``/``conv_x``,
 ``conv2d_t``) are the reference's, so ``state_dict`` keys coincide with
 reference checkpoints.
 """
@@ -41,14 +44,16 @@ def pad_same(x: Tensor, kernel: IntPair, stride: IntPair = 1) -> Tensor:
 
 
 class SamePadConv(nn.Conv2d):
-    """TF-"same" pad followed by a VALID conv (no activation)."""
+    """TF-"same" pad followed by a VALID conv (no activation), computed in
+    the dtype of its input."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair,
                  stride: IntPair = 1):
         super().__init__(in_channels, out_channels, kernel_size, stride)
 
     def forward(self, x: Tensor) -> Tensor:
-        return super().forward(pad_same(x, self.kernel_size, self.stride))
+        return F.conv2d(pad_same(x, self.kernel_size, self.stride), self.weight.to(x.dtype),
+                        self.bias.to(x.dtype), self.stride)
 
 
 class ConvLReLU(nn.Module):
@@ -101,7 +106,9 @@ class Refine(nn.Module):
         self.conv2d_t = nn.ConvTranspose2d(in_channels, out_channels, 4, 2)
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.leaky_relu(self.conv2d_t(x), 0.1)[:, :, 1:-1, 1:-1]
+        t = self.conv2d_t
+        y = F.conv_transpose2d(x, t.weight.to(x.dtype), t.bias.to(x.dtype), t.stride)
+        return F.leaky_relu(y, 0.1)[:, :, 1:-1, 1:-1]
 
 
 def max_pool_2x2(x: Tensor) -> Tensor:

@@ -6,7 +6,9 @@ folded into the batch), encoder features are fused by an element-wise max
 across frames, and a decoder with skips from the fused CV features and the
 ResNet features predicts a 1-channel sigmoid mask. The reference's dropout
 (p=0.5) acts in training only, which this port does not do yet; in eval it
-is the identity. ``SimpleMaskModule`` is not ported yet.
+is the identity. ``dtype`` is the convolution dtype: the per-frame CVs
+and the image features are cast to it at entry, and the mask returns in
+float32. ``SimpleMaskModule`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from monorec_tpu_torch.models.layers import ConvLReLU, Upconv
+from monorec_tpu_torch.models.layers import ConvLReLU, SamePadConv, Upconv
 from monorec_tpu_torch.models.resnet import ENCODER_CHANNELS
 
 Tensor = torch.Tensor
@@ -27,8 +29,10 @@ _DEC_CH = (96, 96, 64, 48)
 
 class MaskModule(nn.Module):
     def __init__(self, depth_steps: int = 32,
-                 feature_channels: Sequence[int] = ENCODER_CHANNELS):
+                 feature_channels: Sequence[int] = ENCODER_CHANNELS,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         c = (depth_steps,) + _ENC_CH_TAIL
         d = _DEC_CH
         feat = feature_channels
@@ -63,12 +67,13 @@ class MaskModule(nn.Module):
                 ),
             ]
         )
-        self.classifier = nn.Sequential(nn.Conv2d(d[3], 1, 1), nn.Sigmoid())
+        self.classifier = nn.Sequential(SamePadConv(d[3], 1, 1), nn.Sigmoid())
 
     def forward(self, single_frame_cvs: Tensor, image_features: Sequence[Tensor]) -> Tensor:
         """single_frame_cvs (B, F, D, H, W), image_features NCHW -> mask (B, 1, H, W)."""
         b, n_frames = single_frame_cvs.shape[:2]
-        x = single_frame_cvs.flatten(0, 1)
+        x = single_frame_cvs.flatten(0, 1).to(self.dtype)
+        image_features = [f.to(self.dtype) for f in image_features]
         fused = []
         for stage in self.enc:
             x = stage(x)
@@ -82,4 +87,5 @@ class MaskModule(nn.Module):
             x = up(x)
             skips = [fused[3 - i]] + ([image_features[2 - i]] if i < 3 else [])
             x = conv_b(conv_a(torch.cat(skips + [x], 1)))
-        return self.classifier(x)
+        # The mask gates the cost volume and feeds the losses in float32.
+        return self.classifier(x).to(torch.float32)

@@ -42,7 +42,7 @@ from monorec_tpu_torch.models.depth_module import DepthModule
 from monorec_tpu_torch.models.mask_module import MaskModule
 from monorec_tpu_torch.models.resnet import ResNetEncoder
 from monorec_tpu_torch.ops.cost_volume import CostVolumeConfig, compute_cost_volume
-from monorec_tpu_torch.precision import use_exact_precision
+from monorec_tpu_torch.precision import torch_dtype, use_exact_precision
 
 Tensor = torch.Tensor
 Batch = Dict[str, Any]
@@ -71,6 +71,13 @@ class MonoRecConfig:
     cv_patch_size: int = 3
     depth_large_model: bool = False
     resnet_layers: int = 18
+    # "float32" (exact) or "bfloat16": the dtype of the source frames that
+    # the cost-volume kernels read (K1, K4; the keyframe stays float32).
+    # The plain path (``cv_depths``, ``plain_cost_volume``) ignores it.
+    cv_warp_dtype: str = "float32"
+    # Convolution dtype of the Mask and Depth U-Nets; parameters and their
+    # gradients stay float32, and so do the ResNet, losses and metrics.
+    compute_dtype: str = "float32"
     # Compute the cost volume on its plain path (projection + grid_sample)
     # instead of the fused sweep: the A/B baseline for the CUDA kernel.
     plain_cost_volume: bool = False
@@ -81,7 +88,12 @@ class MonoRecConfig:
             patch_size=self.cv_patch_size,
             use_ssim=self.use_ssim,
             sfcv_mult_mask=self.sfcv_mult_mask,
+            warp_dtype=self.cv_warp_dtype,
         )
+
+    def __post_init__(self):
+        for knob in ("cv_warp_dtype", "compute_dtype"):
+            torch_dtype(getattr(self, knob))  # raises on an unknown name
 
     @property
     def has_mask_module(self) -> bool:
@@ -121,18 +133,21 @@ class MonoRec(nn.Module):
     """The MonoRec network. Weights come from ``generator`` (a CPU
     ``torch.Generator``, so a seed gives the same weights on every device)
     or, later, from ``load_state_dict``; the module is then moved to
-    ``device``. Constructing it pins the exact float32 policy."""
+    ``device``. Constructing it turns TF32 off; ``config.compute_dtype``
+    sets the U-Nets' convolution dtype."""
 
     def __init__(self, config: MonoRecConfig = MonoRecConfig(), device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         use_exact_precision()
         self.config = cfg = config
+        dtype = torch_dtype(cfg.compute_dtype)
         self._feature_extractor = ResNetEncoder(cfg.resnet_layers)
         if cfg.has_mask_module:
-            self.att_module = MaskModule(cfg.cv_depth_steps)
+            self.att_module = MaskModule(cfg.cv_depth_steps, dtype=dtype)
         if cfg.has_depth_module:
-            self.depth_module = DepthModule(cfg.cv_depth_steps, cfg.depth_large_model)
+            self.depth_module = DepthModule(cfg.cv_depth_steps, cfg.depth_large_model,
+                                            dtype=dtype)
         if generator is not None:
             init_weights(self, generator)
         if cfg.freeze_resnet:

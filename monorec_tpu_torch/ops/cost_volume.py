@@ -6,14 +6,24 @@ homography of d, score the match with SSIM (3x3 window) reduced by a
 channel-weighted 3x3 patch SAD, and fuse the frames with an
 exp(-alpha * (sad - min_d sad)^2) sharpness weight.
 
-Two paths compute it:
+Three paths compute it:
   * the sweep path: per-(b, f, d) 3x3 homographies, the fused scoring
-    ``plane_sweep_sad`` (the CUDA kernel on CUDA tensors, its plain version
-    on CPU tensors), then ``_score_and_fuse``;
+    ``plane_sweep_sad`` (kernel K1 on CUDA tensors, its plain version on
+    CPU tensors), then ``_score_and_fuse``. It serves the 3x3 patch on RGB
+    with ``sfcv_mult_mask``;
+  * the warp path, for every other configuration of shared hypotheses
+    (``sfcv_mult_mask=False``, which needs the warped values, another
+    patch size or channel count): the same homographies, the warp-only
+    ``warp_plane_sweep`` (kernel K4, ``ops/warp_sweep.py``), then the
+    scoring in plain torch (``monorec_tpu/ops/cost_volume.py::
+    _compute_cost_volume_pallas_warp``);
   * the plain path: backproject -> project -> ``grid_sample``, as the
-    reference's ``_cost_volume_single``. It serves what the sweep cannot:
-    a per-pixel ``cv_depths`` override and ``sfcv_mult_mask=False``, which
-    needs the warped values; ``plain=True`` forces it for A/B checks.
+    reference's ``_cost_volume_single``. It serves a per-pixel
+    ``cv_depths`` override; ``plain=True`` forces it for A/B checks.
+
+``CostVolumeConfig.warp_dtype="bfloat16"`` (the serving policy) hands the
+sweep and warp paths bf16 source frames; the keyframe stays float32. The
+plain path ignores it, as the JAX package's XLA path does.
 
 Layout: images NCHW, frames (B, F, C, H, W); the fused cost volume is
 (B, D, H, W) and the per-frame ones (B, F, D, H, W), hypotheses in the
@@ -35,6 +45,8 @@ from monorec_tpu_torch.ops.plane_sweep import (
     plane_sweep_sad,
 )
 from monorec_tpu_torch.ops.sampling import bilinear_sample
+from monorec_tpu_torch.ops.warp_sweep import warp_plane_sweep
+from monorec_tpu_torch.precision import torch_dtype
 
 Tensor = torch.Tensor
 
@@ -50,6 +62,9 @@ class CostVolumeConfig:
     use_ssim: int = 1
     sfcv_mult_mask: bool = True
     not_center_cv: bool = False
+    # "float32" (exact) or "bfloat16": the dtype of the source frames that
+    # the kernels K1 and K4 read.
+    warp_dtype: str = "float32"
 
     @property
     def border_radius(self) -> int:
@@ -130,19 +145,20 @@ def _score_and_fuse(
     return torch.where(nonzero, fused, 0.0), sfcv
 
 
-def _sweep_path_ok(keyframe: Tensor, cfg: CostVolumeConfig, cv_depths) -> bool:
-    """What the fused scoring can serve: shared hypotheses, masked per-frame
-    CVs, the 3x3 patch and one weight per channel of an RGB image."""
+def _sweep_path_ok(keyframe: Tensor, cfg: CostVolumeConfig) -> bool:
+    """What the fused scoring K1 can serve: masked per-frame CVs, the 3x3
+    patch and one weight per channel of an RGB image."""
     return (
-        cv_depths is None
-        and cfg.sfcv_mult_mask
+        cfg.sfcv_mult_mask
         and cfg.patch_size == 3
         and keyframe.shape[1] == len(cfg.channel_weights) == 3
     )
 
 
-def _cost_volume_sweep(keyframe, keyframe_intrinsics, keyframe_pose, frames,
-                       frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min, cfg):
+def _sweep_sources(keyframe, keyframe_intrinsics, keyframe_pose, frames, frame_intrinsics,
+                   frame_poses, inv_depth_max, inv_depth_min, cfg):
+    """The kernels' inputs: source images (B*F, C, H, W) in ``cfg.warp_dtype``
+    and their homographies (B*F, D, 3, 3), float64."""
     b, c, h, w = keyframe.shape
     f = frames.shape[1]
     d = cfg.depth_steps
@@ -154,11 +170,23 @@ def _cost_volume_sweep(keyframe, keyframe_intrinsics, keyframe_pose, frames,
         keyframe_intrinsics, keyframe_pose, frame_intrinsics, frame_poses,
         inv_depths, h, w,
     ).reshape(b * f, d, 3, 3)
+    images = frames.reshape(b * f, c, h, w).to(torch_dtype(cfg.warp_dtype))
+    return images.contiguous(), homs.contiguous()
+
+
+def _cost_volume_sweep(keyframe, keyframe_intrinsics, keyframe_pose, frames,
+                       frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min, cfg):
+    b, c, h, w = keyframe.shape
+    f = frames.shape[1]
+    d = cfg.depth_steps
+    images, homs = _sweep_sources(keyframe, keyframe_intrinsics, keyframe_pose, frames,
+                                  frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min,
+                                  cfg)
     cw = tuple(float(x) / cfg.patch_size**2 for x in cfg.channel_weights)
     sad, wmask, cov = plane_sweep_sad(
-        frames.reshape(b * f, c, h, w).contiguous(),
+        images,
         keyframe.contiguous(),
-        homs.contiguous(),
+        homs,
         border_radius=cfg.border_radius,
         frames_per_image=f,
         use_ssim=cfg.use_ssim,
@@ -167,6 +195,52 @@ def _cost_volume_sweep(keyframe, keyframe_intrinsics, keyframe_pose, frames,
     bmask = border_mask(h, w, cfg.border_radius, keyframe.device)
     valid = bmask * (wmask != 0).to(bmask.dtype).amin(dim=1)  # (N, H, W)
     fused, sfcv = _score_and_fuse(sad.reshape(b, f, d, h, w), valid.reshape(b, f, h, w), cfg)
+    return fused, sfcv, cov.reshape(b, f * d).sum(dim=-1)
+
+
+def _score_warped(warped, keyframe, valid, cfg):
+    """Score a warped stack (B, F, D, C, H, W) against the keyframe
+    (B, C, H, W): the photometric difference by ``use_ssim``, the channel
+    weights over patch_size**2, the 3x3 box sum, then ``_score_and_fuse``
+    with ``valid`` (B, F, H, W). With ``sfcv_mult_mask=False`` a per-frame
+    CV is kept where its warped pixel is non-zero in some channel or equals
+    the keyframe in all (reference ``monorec_model.py:229-236``)."""
+    b, f, d, c, h, w = warped.shape
+    key = keyframe[:, None, None].expand(b, f, d, c, h, w)
+    diff = photometric_difference(
+        warped.reshape(-1, c, h, w), key.reshape(-1, c, h, w), cfg.use_ssim
+    )
+    cw = [float(x) / cfg.patch_size**2 for x in cfg.channel_weights]
+    weighted = cw[0] * diff[:, 0]
+    for ci in range(1, c):
+        weighted = weighted + cw[ci] * diff[:, ci]
+    sad = box_sum_3x3(weighted).reshape(b, f, d, h, w)
+
+    fused, sfcv = _score_and_fuse(sad, valid, cfg)
+    if not cfg.sfcv_mult_mask:
+        any_nonzero = (warped != 0).any(dim=3)
+        all_equal = (warped == key).all(dim=3)
+        sfcv = (1.0 - 2.0 * sad) * (any_nonzero | all_equal).to(sad.dtype)
+    return fused, sfcv
+
+
+def _cost_volume_warp(keyframe, keyframe_intrinsics, keyframe_pose, frames,
+                      frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min, cfg):
+    """K4 warps the sources over the hypotheses, plain torch scores them
+    (``monorec_tpu/ops/cost_volume.py::_compute_cost_volume_pallas_warp``).
+    Under ``warp_dtype="bfloat16"`` the warped stack is bf16, rounded from
+    the kernel's float32 sums, and is scored in float32 from there."""
+    b, c, h, w = keyframe.shape
+    f = frames.shape[1]
+    d = cfg.depth_steps
+    images, homs = _sweep_sources(keyframe, keyframe_intrinsics, keyframe_pose, frames,
+                                  frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min,
+                                  cfg)
+    warped, wmask, cov = warp_plane_sweep(images, homs, cfg.border_radius)
+    warped = warped.to(keyframe.dtype).reshape(b, f, d, c, h, w)
+    bmask = border_mask(h, w, cfg.border_radius, keyframe.device, keyframe.dtype)
+    valid = bmask * (wmask != 0).to(bmask.dtype).amin(dim=1)  # (N, H, W)
+    fused, sfcv = _score_warped(warped, keyframe, valid.reshape(b, f, h, w), cfg)
     return fused, sfcv, cov.reshape(b, f * d).sum(dim=-1)
 
 
@@ -192,22 +266,7 @@ def _cost_volume_plain(keyframe, keyframe_intrinsics, keyframe_pose, frames,
     # A pixel is valid only if its reprojection hits the interior at ALL
     # hypotheses (reference ``monorec_model.py:219``).
     valid = bmask * (warped_b != 0).to(bmask.dtype).amin(dim=2)  # (B, F, H, W)
-
-    key = keyframe[:, None, None].expand(b, f, d, c, h, w)
-    diff = photometric_difference(
-        warped.reshape(-1, c, h, w), key.reshape(-1, c, h, w), cfg.use_ssim
-    )
-    cw = [float(x) / cfg.patch_size**2 for x in cfg.channel_weights]
-    weighted = cw[0] * diff[:, 0]
-    for ci in range(1, c):
-        weighted = weighted + cw[ci] * diff[:, ci]
-    sad = box_sum_3x3(weighted).reshape(b, f, d, h, w)
-
-    fused, sfcv = _score_and_fuse(sad, valid, cfg)
-    if not cfg.sfcv_mult_mask:
-        any_nonzero = (warped != 0).any(dim=3)
-        all_equal = (warped == key).all(dim=3)
-        sfcv = (1.0 - 2.0 * sad) * (any_nonzero | all_equal).to(sad.dtype)
+    fused, sfcv = _score_warped(warped, keyframe, valid, cfg)
     return fused, sfcv, torch.zeros(b, dtype=keyframe.dtype, device=keyframe.device)
 
 
@@ -233,18 +292,18 @@ def compute_cost_volume(
       frames: (B, F, C, H, W); frame_intrinsics / frame_poses: (B, F, 4, 4).
       inv_depth_max / inv_depth_min: the sweep runs from the first to the
         second (the model passes its smaller inverse depth first).
-      cv_depths: optional (B, D, H, W) per-pixel depth override.
-      plain: force the plain path (otherwise taken only where the sweep
-        path cannot serve the configuration).
+      cv_depths: optional (B, D, H, W) per-pixel depth override (the plain
+        path serves it).
+      plain: force the plain path.
       return_coverage: also return per-sample uncovered-pixel counts (B,),
-        always 0 here: both paths have full reach.
+        always 0 here: every path has full reach.
 
     Returns:
       fused (B, D, H, W) and per-frame (B, F, D, H, W) cost volumes, plus
       coverage if requested.
     """
     with torch.no_grad():
-        if plain or not _sweep_path_ok(keyframe, cfg, cv_depths):
+        if plain or cv_depths is not None:
             if cv_depths is None:
                 b, _, h, w = keyframe.shape
                 depths = geometry.depth_hypotheses(
@@ -258,7 +317,8 @@ def compute_cost_volume(
                 frame_intrinsics, frame_poses, depths, cfg,
             )
         else:
-            out = _cost_volume_sweep(
+            path = _cost_volume_sweep if _sweep_path_ok(keyframe, cfg) else _cost_volume_warp
+            out = path(
                 keyframe, keyframe_intrinsics, keyframe_pose, frames,
                 frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min, cfg,
             )

@@ -5,7 +5,8 @@ on a source with a plain C interface, loaded with ``ctypes``: seconds per
 build, and no ``ninja`` and no PyTorch headers are needed (both of which
 ``torch.utils.cpp_extension.load`` would want, at minutes per build). The
 library lands in ``_build/`` beside the sources, named by the hash of the
-source, so an edited kernel is never served from a stale build.
+source and of the shared headers (``*.cuh``) beside it, so an edited
+kernel is never served from a stale build.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ def _nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """Compile ``<name>.cu`` (once per source content) and ``dlopen`` it."""
     src = _HERE / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(_HERE.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib = BUILD_DIR / f"{name}-{digest[:16]}.so"
     if not lib.exists():
         BUILD_DIR.mkdir(exist_ok=True)

@@ -28,8 +28,16 @@
 // The values are summed tap by tap in the plain version's order
 // ((x0,y0), (x1,y0), (x0,y1), (x1,y1)) with contraction into FMAs
 // disabled, so the kernel's values equal the plain PyTorch version's.
+//
+// The images are float32, or bf16 under the serving policy's loss-warp
+// dtype: the kernel is a template on the image type and converts on load,
+// so bf16 images give exactly the float32 kernel's result on the upcast
+// images. Coordinates, cotangents and every output are float32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "sweep_common.cuh"  // sweep::load
 
 namespace {
 
@@ -37,9 +45,9 @@ constexpr int THREADS = 256;
 
 enum Mode { kValues = 0, kJacobian = 1, kGradient = 2 };
 
-template <int MODE>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(THREADS)
-grid_warp_kernel(const float* __restrict__ images,  // (N, C, H, W)
+grid_warp_kernel(const T* __restrict__ images,      // (N, C, H, W)
                  const float* __restrict__ xs,      // (N, H, W)
                  const float* __restrict__ ys,      // (N, H, W)
                  const float* __restrict__ cot,     // (N, C, H, W), gradient mode
@@ -72,14 +80,14 @@ grid_warp_kernel(const float* __restrict__ images,  // (N, C, H, W)
   const float w00 = __fmul_rn(wx0, wy0), w10 = __fmul_rn(wx1, wy0);
   const float w01 = __fmul_rn(wx0, wy1), w11 = __fmul_rn(wx1, wy1);
 
-  const float* img = images + n * C * plane;
+  const T* img = images + n * C * plane;
   float gx = 0.f, gy = 0.f;
   for (int c = 0; c < C; ++c) {
-    const float* ch = img + c * plane;
-    const float v00 = in00 ? __ldg(ch + o00) : 0.f;
-    const float v10 = in10 ? __ldg(ch + o10) : 0.f;
-    const float v01 = in01 ? __ldg(ch + o01) : 0.f;
-    const float v11 = in11 ? __ldg(ch + o11) : 0.f;
+    const T* ch = img + c * plane;
+    const float v00 = in00 ? sweep::load(ch + o00) : 0.f;
+    const float v10 = in10 ? sweep::load(ch + o10) : 0.f;
+    const float v01 = in01 ? sweep::load(ch + o01) : 0.f;
+    const float v11 = in11 ? sweep::load(ch + o11) : 0.f;
     const long long o = (n * C + c) * plane + p;
     if (MODE == kValues || MODE == kJacobian) {
       float v = __fmul_rn(v00, w00);
@@ -109,39 +117,49 @@ grid_warp_kernel(const float* __restrict__ images,  // (N, C, H, W)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// mode 0: out = warp; 1: out, jx, jy = warp and its Jacobian; 2: out (N, 2,
-// H, W) = the coordinate gradient of sum(warp * cot). Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
-int grid_warp_launch(const float* images, const float* xs, const float* ys, const float* cot,
-                     float* out, float* jx, float* jy, int N, int C, int H, int W, int mode,
-                     void* stream) {
+template <typename T>
+int launch(const void* images, const float* xs, const float* ys, const float* cot, float* out,
+           float* jx, float* jy, int N, int C, int H, int W, int mode, cudaStream_t s) {
   const long long total = (long long)N * H * W;
   if (total <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   const long long blocks = (total + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks), block(THREADS);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* src = static_cast<const T*>(images);
   switch (mode) {
     case kValues:
-      grid_warp_kernel<kValues><<<grid, block, 0, s>>>(images, xs, ys, cot, out, jx, jy,
-                                                       total, C, H, W);
+      grid_warp_kernel<T, kValues><<<grid, block, 0, s>>>(src, xs, ys, cot, out, jx, jy,
+                                                          total, C, H, W);
       break;
     case kJacobian:
-      grid_warp_kernel<kJacobian><<<grid, block, 0, s>>>(images, xs, ys, cot, out, jx, jy,
-                                                         total, C, H, W);
+      grid_warp_kernel<T, kJacobian><<<grid, block, 0, s>>>(src, xs, ys, cot, out, jx, jy,
+                                                            total, C, H, W);
       break;
     case kGradient:
-      grid_warp_kernel<kGradient><<<grid, block, 0, s>>>(images, xs, ys, cot, out, jx, jy,
-                                                         total, C, H, W);
+      grid_warp_kernel<T, kGradient><<<grid, block, 0, s>>>(src, xs, ys, cot, out, jx, jy,
+                                                            total, C, H, W);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// mode 0: out = warp; 1: out, jx, jy = warp and its Jacobian; 2: out (N, 2,
+// H, W) = the coordinate gradient of sum(warp * cot). images are float32
+// (images_bf16 == 0) or bf16 (1). Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+int grid_warp_launch(const void* images, const float* xs, const float* ys, const float* cot,
+                     float* out, float* jx, float* jy, int N, int C, int H, int W, int mode,
+                     int images_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (images_bf16)
+    return launch<__nv_bfloat16>(images, xs, ys, cot, out, jx, jy, N, C, H, W, mode, s);
+  return launch<float>(images, xs, ys, cot, out, jx, jy, N, C, H, W, mode, s);
 }
 
 const char* grid_warp_error_string(int code) {

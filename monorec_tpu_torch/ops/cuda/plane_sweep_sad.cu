@@ -29,16 +29,18 @@
 // box sum and the avg-pooled L1. Coverage is all zeros (full reach) and is
 // written by the Python wrapper.
 //
-// Coordinates: the homographies arrive in float64 and the kernel takes
-// M - I from them once per hypothesis, then evaluates in float32 the
-// DISPLACEMENT of each pixel, d = (M p)_xy / (M p)_z - p, whose floor and
-// fraction give the bilinear taps and weights. A float32 source coordinate
-// near x = 500 resolves only ~3e-5 px, and float32 entries of M near 1 carry
-// ~6e-8 each, x500; the displacement is tens of pixels and keeps ~1e-5 px
-// (measured against float64 at 256x512: 8e-6 px max vs 8e-5 px for
-// xs = (M p)_x / (M p)_z in float32).
+// Sources: float32, or bf16 under the serving policy (the kernel is a
+// template on the source type and converts on load; everything after the
+// load is the float32 code, so bf16 sources give exactly the float32
+// kernel's result on the upcast images). Keyframes are float32.
+//
+// Coordinates and the bilinear footprint come from sweep_common.cuh, shared
+// with the warp-only kernel K4: float64 homographies, float32 displacements
+// from M - I, each operation rounded on its own.
 
 #include <cuda_runtime.h>
+
+#include "sweep_common.cuh"
 
 namespace {
 
@@ -62,9 +64,9 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-template <int MODE>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(THREADS)
-plane_sweep_sad_kernel(const float* __restrict__ images,     // (N, C, H, W)
+plane_sweep_sad_kernel(const T* __restrict__ images,         // (N, C, H, W)
                        const float* __restrict__ keyframes,  // (B, C, H, W)
                        const double* __restrict__ homs,      // (N, D, 3, 3), m22 == 1
                        float* __restrict__ sad,              // (N, D, H, W)
@@ -81,7 +83,7 @@ plane_sweep_sad_kernel(const float* __restrict__ images,     // (N, C, H, W)
   const int x0 = blockIdx.x * TX - HALO;
   const int tid = threadIdx.x;
   const size_t plane = (size_t)H * W;
-  const float* img = images + (size_t)n * C * plane;
+  const T* img = images + (size_t)n * C * plane;
   const float* key = keyframes + (size_t)(n / frames_per_image) * C * plane;
   const float cw[C] = {cw0, cw1, cw2};
 
@@ -114,11 +116,7 @@ plane_sweep_sad_kernel(const float* __restrict__ images,     // (N, C, H, W)
   }
 
   for (int d = 0; d < D; ++d) {
-    const double* m = homs + ((size_t)n * D + d) * 9;
-    const float a00 = (float)(__ldg(m + 0) - 1.0), a01 = (float)__ldg(m + 1);
-    const float a02 = (float)__ldg(m + 2), a10 = (float)__ldg(m + 3);
-    const float a11 = (float)(__ldg(m + 4) - 1.0), a12 = (float)__ldg(m + 5);
-    const float a20 = (float)__ldg(m + 6), a21 = (float)__ldg(m + 7);
+    const sweep::Hom hom = sweep::load_hom(homs + ((size_t)n * D + d) * 9);
     const size_t out_plane = ((size_t)n * D + d) * plane;
     __syncthreads();  // the previous hypothesis is done with warp_s / err_s
 
@@ -127,32 +125,24 @@ plane_sweep_sad_kernel(const float* __restrict__ images,     // (N, C, H, W)
       const int ey = i / EX, ex = i % EX;
       const int py = y0 + ey, px = x0 + ex;
       const float fy = (float)reflect(py, H), fx = (float)reflect(px, W);
-      const float e = a20 * fx + a21 * fy + 1e-7f;  // (M p)_z - 1
-      const float dx = (a00 * fx + a01 * fy + a02 - fx * e) / (1.f + e);
-      const float dy = (a10 * fx + a11 * fy + a12 - fy * e) / (1.f + e);
-      const float fdx = floorf(dx), fdy = floorf(dy);
-      const float xf = fx + fdx, yf = fy + fdy;  // integer-valued tap origin
+      float dx, dy;
+      sweep::displacement(hom, fx, fy, dx, dy);
+      const sweep::Footprint fp = sweep::footprint(fx, fy, dx, dy, H, W);
       float v[C] = {0.f, 0.f, 0.f};
       float b = 0.f;
-      // NaN or far-away coordinates fail this test and sample zero.
-      if (xf >= -1.f && xf <= (float)(W - 1) && yf >= -1.f && yf <= (float)(H - 1)) {
-        const int xi = (int)xf, yi = (int)yf;
-        const float wx1 = dx - fdx, wy1 = dy - fdy;
-        const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
-        const int txs[4] = {xi, xi + 1, xi, xi + 1};
-        const int tys[4] = {yi, yi, yi + 1, yi + 1};
-        const float tws[4] = {wx0 * wy0, wx1 * wy0, wx0 * wy1, wx1 * wy1};
+      if (fp.near) {
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          const int tx = txs[t], ty = tys[t];
+          const int tx = fp.xi + (t & 1), ty = fp.yi + (t >> 1);
           if (tx >= 0 && tx <= W - 1 && ty >= 0 && ty <= H - 1) {
             const size_t off = (size_t)ty * W + tx;
 #pragma unroll
-            for (int c = 0; c < C; ++c) v[c] += __ldg(img + c * plane + off) * tws[t];
+            for (int c = 0; c < C; ++c)
+              v[c] = __fadd_rn(v[c], __fmul_rn(sweep::load(img + c * plane + off), fp.w[t]));
           }
           if (tx >= border_radius && tx < W - border_radius &&
               ty >= border_radius && ty < H - border_radius)
-            b += tws[t];
+            b = __fadd_rn(b, fp.w[t]);
         }
       }
 #pragma unroll
@@ -229,22 +219,17 @@ plane_sweep_sad_kernel(const float* __restrict__ images,     // (N, C, H, W)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-int plane_sweep_sad_launch(const float* images, const float* keyframes, const double* homs,
-                           float* sad, float* wmask, int N, int D, int H, int W,
-                           int frames_per_image, int border_radius, int use_ssim,
-                           float cw0, float cw1, float cw2, void* stream) {
+template <typename T>
+int launch(const void* images, const float* keyframes, const double* homs, float* sad,
+           float* wmask, int N, int D, int H, int W, int frames_per_image, int border_radius,
+           int use_ssim, float cw0, float cw1, float cw2, cudaStream_t s) {
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, N);
   const dim3 block(THREADS);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PSS_LAUNCH(MODE)                                                          \
-  plane_sweep_sad_kernel<MODE><<<grid, block, 0, s>>>(                            \
-      images, keyframes, homs, sad, wmask, D, H, W, frames_per_image, border_radius, \
-      cw0, cw1, cw2)
+  const T* src = static_cast<const T*>(images);
+#define PSS_LAUNCH(MODE)                                                             \
+  plane_sweep_sad_kernel<T, MODE><<<grid, block, 0, s>>>(                            \
+      src, keyframes, homs, sad, wmask, D, H, W, frames_per_image, border_radius, cw0, \
+      cw1, cw2)
   switch (use_ssim) {
     case 1: PSS_LAUNCH(1); break;
     case 2: PSS_LAUNCH(2); break;
@@ -254,6 +239,24 @@ int plane_sweep_sad_launch(const float* images, const float* keyframes, const do
   }
 #undef PSS_LAUNCH
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// images are float32 (images_bf16 == 0) or bf16 (1). Launches on `stream`
+// and returns cudaGetLastError() (0 on success).
+int plane_sweep_sad_launch(const void* images, const float* keyframes, const double* homs,
+                           float* sad, float* wmask, int N, int D, int H, int W,
+                           int frames_per_image, int border_radius, int use_ssim,
+                           int images_bf16, float cw0, float cw1, float cw2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (images_bf16)
+    return launch<__nv_bfloat16>(images, keyframes, homs, sad, wmask, N, D, H, W,
+                                 frames_per_image, border_radius, use_ssim, cw0, cw1, cw2, s);
+  return launch<float>(images, keyframes, homs, sad, wmask, N, D, H, W, frames_per_image,
+                       border_radius, use_ssim, cw0, cw1, cw2, s);
 }
 
 const char* plane_sweep_sad_error_string(int code) {

@@ -6,7 +6,7 @@ tensors each launches the hand-written kernel ``cuda/grid_warp.cu`` (built
 at first use) in its mode; on CPU tensors it runs the plain version. Nothing
 else selects between the two, and a build or launch failure raises.
 
-Contract: bilinear samples of images (N, C, H, W) float32 at absolute pixel
+Contract: bilinear samples of images (N, C, H, W) at absolute pixel
 coordinates xs, ys (each (N, H, W), align_corners=False units), with zero
 padding: taps at floor(x), floor(x) + 1 (and in y) with weights
 ``wx1 = x - floor(x)``; a tap outside 0 <= xi <= W-1, 0 <= yi <= H-1 reads
@@ -15,6 +15,12 @@ Jacobian follows the reference subgradient (``grid_warp.py::_hat_grad``):
 at an integer fraction d out/dx = I[x0 + 1] - I[x0]. Unlike the TPU
 kernel's, these return no coverage: a gather has full reach, so
 ``ops/sampling.py::grid_sample_planar`` reports zeros for it.
+
+The images may be float32 or bfloat16 (the serving policy's loss-warp
+dtype); the kernel converts bf16 on load and the plain versions run on
+``images.float()``. Coordinates, cotangents and all outputs are float32.
+Each entry point counts its launches on float32 images in ``.launches``
+and on bf16 images in ``.launches_bf16``.
 
 ``warp_pixels`` is the differentiable warp (``ops/sampling.py::
 _grid_sample_tpu`` in the JAX package): its forward runs the Jacobian mode
@@ -31,6 +37,8 @@ from typing import Tuple
 
 import torch
 
+from monorec_tpu_torch.ops.plane_sweep import upcast_bf16
+
 Tensor = torch.Tensor
 
 _VALUES, _JACOBIAN, _GRADIENT = 0, 1, 2
@@ -40,6 +48,7 @@ def _taps(images: Tensor, xs: Tensor, ys: Tensor):
     """The four taps' values (each (N, C, H, W), zero outside) and the
     weights' factors, in the kernel's order (x0,y0), (x1,y0), (x0,y1),
     (x1,y1)."""
+    images = upcast_bf16(images)
     n, c, h, w = images.shape
     x0, y0 = torch.floor(xs), torch.floor(ys)
     wx1, wy1 = xs - x0, ys - y0
@@ -95,7 +104,7 @@ def _library() -> ctypes.CDLL:
     from monorec_tpu_torch.ops.cuda import build
 
     lib = build.load("grid_warp")
-    lib.grid_warp_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.grid_warp_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.grid_warp_launch.restype = ctypes.c_int
     lib.grid_warp_error_string.argtypes = [ctypes.c_int]
     lib.grid_warp_error_string.restype = ctypes.c_char_p
@@ -108,14 +117,16 @@ def _check(images: Tensor, xs: Tensor, ys: Tensor, cot=None) -> None:
     if images.dim() != 4:
         raise ValueError(f"images must be (N, C, H, W), got {tuple(images.shape)}")
     n, c, h, w = images.shape
-    named = [("images", images, (n, c, h, w)), ("xs", xs, (n, h, w)), ("ys", ys, (n, h, w))]
+    f32 = (torch.float32,)
+    named = [("images", images, (n, c, h, w), (torch.float32, torch.bfloat16)),
+             ("xs", xs, (n, h, w), f32), ("ys", ys, (n, h, w), f32)]
     if cot is not None:
-        named.append(("cot", cot, (n, c, h, w)))
-    for name, t, shape in named:
+        named.append(("cot", cot, (n, c, h, w), f32))
+    for name, t, shape, dtypes in named:
         if t.device != images.device:
             raise ValueError(f"{name} is on {t.device}, images on {images.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -124,63 +135,71 @@ def _check(images: Tensor, xs: Tensor, ys: Tensor, cot=None) -> None:
         raise ValueError(f"empty image batch {tuple(images.shape)}")
 
 
-def _launch(mode: int, images: Tensor, xs: Tensor, ys: Tensor, cot, out, jx, jy) -> None:
+def _launch(entry, mode: int, images: Tensor, xs: Tensor, ys: Tensor, cot, out, jx, jy) -> None:
+    """Launch mode ``mode`` and count it on ``entry``, the public wrapper."""
     n, c, h, w = images.shape
+    bf16 = images.dtype == torch.bfloat16
     lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.grid_warp_launch(ptr(images), ptr(xs), ptr(ys), ptr(cot), ptr(out), ptr(jx),
-                                    ptr(jy), n, c, h, w, mode, stream)
+                                    ptr(jy), n, c, h, w, mode, int(bf16), stream)
     if code != 0:
         msg = lib.grid_warp_error_string(code).decode()
         raise RuntimeError(f"grid_warp launch (mode {mode}) failed: {msg} ({code})")
+    if bf16:
+        entry.launches_bf16 += 1
+    else:
+        entry.launches += 1
+
+
+def _empty_f32(images: Tensor) -> Tensor:
+    return torch.empty(images.shape, dtype=torch.float32, device=images.device)
 
 
 def grid_warp(images: Tensor, xs: Tensor, ys: Tensor) -> Tensor:
-    """Warped images (N, C, H, W). CUDA tensors launch the
-    kernel, CPU tensors run the plain version; ``grid_warp.launches``
-    counts kernel launches."""
+    """Warped images (N, C, H, W), float32. CUDA tensors launch the kernel,
+    CPU tensors run the plain version; ``grid_warp.launches`` /
+    ``.launches_bf16`` count kernel launches."""
     if images.device.type == "cpu":
         return grid_warp_reference(images, xs, ys)
     _check(images, xs, ys)
-    out = torch.empty_like(images)
-    _launch(_VALUES, images, xs, ys, None, out, None, None)
-    grid_warp.launches += 1
+    out = _empty_f32(images)
+    _launch(grid_warp, _VALUES, images, xs, ys, None, out, None, None)
     return out
 
 
 def grid_warp_jac(images: Tensor, xs: Tensor, ys: Tensor
                   ) -> Tuple[Tensor, Tensor, Tensor]:
-    """(out, d out/d xs, d out/d ys), each (N, C, H, W), from one pass.
-    ``grid_warp_jac.launches`` counts kernel launches."""
+    """(out, d out/d xs, d out/d ys), each (N, C, H, W) float32, from one
+    pass. ``grid_warp_jac.launches`` / ``.launches_bf16`` count kernel
+    launches."""
     if images.device.type == "cpu":
         return grid_warp_jac_reference(images, xs, ys)
     _check(images, xs, ys)
-    out, jx, jy = (torch.empty_like(images) for _ in range(3))
-    _launch(_JACOBIAN, images, xs, ys, None, out, jx, jy)
-    grid_warp_jac.launches += 1
+    out, jx, jy = (_empty_f32(images) for _ in range(3))
+    _launch(grid_warp_jac, _JACOBIAN, images, xs, ys, None, out, jx, jy)
     return out, jx, jy
 
 
 def grid_warp_grad(images: Tensor, xs: Tensor, ys: Tensor, cot: Tensor
                    ) -> Tuple[Tensor, Tensor]:
     """Coordinate gradient (d/d xs, d/d ys), each (N, H, W), of
-    sum(grid_warp(images, xs, ys) * cot). ``grid_warp_grad.launches``
-    counts kernel launches."""
+    sum(grid_warp(images, xs, ys) * cot). ``grid_warp_grad.launches`` /
+    ``.launches_bf16`` count kernel launches."""
     if images.device.type == "cpu":
         return grid_warp_grad_reference(images, xs, ys, cot)
     _check(images, xs, ys, cot)
     n, _, h, w = images.shape
     g = torch.empty(n, 2, h, w, dtype=torch.float32, device=images.device)
-    _launch(_GRADIENT, images, xs, ys, cot, g, None, None)
-    grid_warp_grad.launches += 1
+    _launch(grid_warp_grad, _GRADIENT, images, xs, ys, cot, g, None, None)
     return g[:, 0], g[:, 1]
 
 
-grid_warp.launches = 0
-grid_warp_jac.launches = 0
-grid_warp_grad.launches = 0
+for _entry in (grid_warp, grid_warp_jac, grid_warp_grad):
+    _entry.launches = 0
+    _entry.launches_bf16 = 0
 
 
 class _WarpPixels(torch.autograd.Function):

@@ -18,6 +18,12 @@ warped source against keyframe ``n // frames_per_image`` by ``use_ssim``
 zero-padded 3x3 box sum. Returns sad (N, D, H, W), wmask (N, D, H, W) and
 coverage (N, D), all float32; coverage is 0 because a gather kernel has
 full reach.
+
+The sources may be float32 or bfloat16 (the serving policy's
+``cv_warp_dtype``); the kernel converts bf16 to float32 on load, and the
+plain version runs on ``images.float()``. Keyframes are float32 either way.
+``plane_sweep_sad.launches`` counts launches on float32 sources and
+``plane_sweep_sad.launches_bf16`` those on bf16 sources.
 """
 
 from __future__ import annotations
@@ -55,6 +61,11 @@ def box_sum_3x3(x: Tensor) -> Tensor:
     xp = F.pad(x, (1, 1, 1, 1))
     s = xp[..., :-2, :] + xp[..., 1:-1, :] + xp[..., 2:, :]
     return s[..., :-2] + s[..., 1:-1] + s[..., 2:]
+
+
+def upcast_bf16(t: Tensor) -> Tensor:
+    """bf16 -> float32 (exact); other dtypes unchanged."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def _displacements(homographies: Tensor, h: int, w: int) -> Tuple[Tensor, Tensor]:
@@ -122,6 +133,7 @@ def plane_sweep_sad_reference(
     channel_weights: Tuple[float, ...] = DEFAULT_CHANNEL_WEIGHTS,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of the kernel, on any device (see module doc)."""
+    images = upcast_bf16(images)
     n, c, h, w = images.shape
     d = homographies.shape[1]
     warped, wmask = _gather_bilinear(images, *_displacements(homographies, h, w), border_radius)
@@ -143,7 +155,7 @@ def _library() -> ctypes.CDLL:
 
     lib = build.load("plane_sweep_sad")
     lib.plane_sweep_sad_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     )
     lib.plane_sweep_sad_launch.restype = ctypes.c_int
     lib.plane_sweep_sad_error_string.argtypes = [ctypes.c_int]
@@ -153,13 +165,13 @@ def _library() -> ctypes.CDLL:
 
 def _check_kernel_inputs(images, keyframes, homographies, frames_per_image, use_ssim,
                          channel_weights) -> None:
-    for name, t, dtype in (("images", images, torch.float32),
-                           ("keyframes", keyframes, torch.float32),
-                           ("homographies", homographies, torch.float64)):
+    for name, t, dtypes in (("images", images, (torch.float32, torch.bfloat16)),
+                            ("keyframes", keyframes, (torch.float32,)),
+                            ("homographies", homographies, (torch.float64,))):
         if t.device != images.device:
             raise ValueError(f"{name} is on {t.device}, images on {images.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if images.dim() != 4 or images.shape[1] != 3:
@@ -181,7 +193,7 @@ def _check_kernel_inputs(images, keyframes, homographies, frames_per_image, use_
 
 
 def plane_sweep_sad(
-    images: Tensor,  # (N, C, H, W) float32 in [-0.5, 0.5]
+    images: Tensor,  # (N, C, H, W) float32 or bfloat16 in [-0.5, 0.5]
     keyframes: Tensor,  # (B, C, H, W) float32, N == B * frames_per_image
     homographies: Tensor,  # (N, D, 3, 3) float64, normalized so m22 == 1
     border_radius: int = 2,
@@ -192,7 +204,8 @@ def plane_sweep_sad(
     """Fused plane-sweep scoring; returns (sad, wmask, coverage).
 
     CUDA tensors launch the kernel, CPU tensors run the plain version.
-    ``plane_sweep_sad.launches`` counts kernel launches.
+    ``plane_sweep_sad.launches`` / ``.launches_bf16`` count kernel launches
+    on float32 / bf16 sources.
     """
     if images.device.type == "cpu":
         return plane_sweep_sad_reference(
@@ -205,6 +218,7 @@ def plane_sweep_sad(
                          channel_weights)
     n, _, h, w = images.shape
     d = homographies.shape[1]
+    bf16 = images.dtype == torch.bfloat16
     lib = _library()
     sad = torch.empty(n, d, h, w, dtype=torch.float32, device=images.device)
     wmask = torch.empty_like(sad)
@@ -213,13 +227,17 @@ def plane_sweep_sad(
         code = lib.plane_sweep_sad_launch(
             images.data_ptr(), keyframes.data_ptr(), homographies.data_ptr(),
             sad.data_ptr(), wmask.data_ptr(), n, d, h, w, frames_per_image,
-            border_radius, use_ssim, *(float(x) for x in channel_weights), stream,
+            border_radius, use_ssim, int(bf16), *(float(x) for x in channel_weights), stream,
         )
     if code != 0:
         msg = lib.plane_sweep_sad_error_string(code).decode()
         raise RuntimeError(f"plane_sweep_sad launch failed: {msg} ({code})")
-    plane_sweep_sad.launches += 1
+    if bf16:
+        plane_sweep_sad.launches_bf16 += 1
+    else:
+        plane_sweep_sad.launches += 1
     return sad, wmask, torch.zeros(n, d, device=images.device)
 
 
 plane_sweep_sad.launches = 0
+plane_sweep_sad.launches_bf16 = 0

@@ -13,7 +13,7 @@ import torch
 from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
 from monorec_tpu_torch.ops import grid_warp as gw
 from monorec_tpu_torch.ops import photo_error as pe
-from monorec_tpu_torch.ops import plane_sweep
+from monorec_tpu_torch.ops import plane_sweep, warp_sweep
 from monorec_tpu_torch.ops.cost_volume import (
     CostVolumeConfig,
     compute_cost_volume,
@@ -22,6 +22,11 @@ from monorec_tpu_torch.ops.cost_volume import (
 
 pytestmark = pytest.mark.cuda
 SAD_TOL = 1.2e-4  # f32 kernel-vs-gather budget (README.md, Performance)
+# K4 against its plain version: the same float32 operations in the same
+# order, so equal bit for bit is expected; the budget allows a last-bit
+# difference of a displacement (~2e-6 px at |d| ~ 30 px, times a value
+# range of 1), and one bf16 rounding step (2^-9 at |value| <= 0.5).
+K4_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-8}
 _KEYS = ("keyframe", "keyframe_intrinsics", "keyframe_pose", "frames", "intrinsics", "poses")
 
 
@@ -32,30 +37,62 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("use_ssim", [1, 2, 0, -1])
-@pytest.mark.parametrize("h,w", [(21, 45), (32, 64)])  # ragged and whole tiles
-def test_plane_sweep_sad_kernel_matches_plain_version(cuda, use_ssim, h, w):
-    b, f, d = 2, 2, 5
-    bt = batch_to_torch(make_batch(b, h, w, f, stereo=False, mask=False, tz=0.5), cuda)
-    inv = torch.linspace(0.0025, 0.33, d, dtype=torch.float64, device=cuda)
+def _sweep_inputs(device, h, w, b=2, f=2, d=5):
+    bt = batch_to_torch(make_batch(b, h, w, f, stereo=False, mask=False, tz=0.5), device)
+    inv = torch.linspace(0.0025, 0.33, d, dtype=torch.float64, device=device)
     homs = plane_sweep_homographies(
         bt["keyframe_intrinsics"], bt["keyframe_pose"], bt["intrinsics"], bt["poses"], inv, h, w
     ).reshape(b * f, d, 3, 3).contiguous()
-    images = bt["frames"].reshape(b * f, 3, h, w).contiguous()
-    before = plane_sweep.plane_sweep_sad.launches
-    sad, wmask, cov = plane_sweep.plane_sweep_sad(images, bt["keyframe"], homs, 2, f, use_ssim)
+    return bt["frames"].reshape(b * f, 3, h, w).contiguous(), bt["keyframe"], homs
+
+
+def _counter(fn, dtype):
+    return fn.launches_bf16 if dtype == torch.bfloat16 else fn.launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_ssim", [1, 2, 0, -1])
+@pytest.mark.parametrize("h,w", [(21, 45), (32, 64)])  # ragged and whole tiles
+def test_plane_sweep_sad_kernel_matches_plain_version(cuda, use_ssim, h, w, dtype):
+    f = 2
+    images, keyframes, homs = _sweep_inputs(cuda, h, w, f=f)
+    images = images.to(dtype)
+    before = _counter(plane_sweep.plane_sweep_sad, dtype)
+    sad, wmask, cov = plane_sweep.plane_sweep_sad(images, keyframes, homs, 2, f, use_ssim)
     torch.cuda.synchronize()
-    assert plane_sweep.plane_sweep_sad.launches == before + 1
+    assert _counter(plane_sweep.plane_sweep_sad, dtype) == before + 1
     rsad, rwmask, _ = plane_sweep.plane_sweep_sad_reference(
-        images, bt["keyframe"], homs, 2, f, use_ssim)
+        images.float(), keyframes, homs, 2, f, use_ssim)
     assert (sad - rsad).abs().max().item() <= SAD_TOL
     assert torch.equal(wmask != 0, rwmask != 0)
     assert not cov.any()
 
 
-def test_cost_volume_kernel_path_matches_cpu(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", [(21, 45), (32, 128)])  # ragged and whole blocks
+def test_warp_plane_sweep_kernel_matches_plain_version(cuda, h, w, dtype):
+    images, _, homs = _sweep_inputs(cuda, h, w, d=7)
+    images = images.to(dtype)
+    before = _counter(warp_sweep.warp_plane_sweep, dtype)
+    warped, wmask, cov = warp_sweep.warp_plane_sweep(images, homs, 2)
+    torch.cuda.synchronize()
+    assert _counter(warp_sweep.warp_plane_sweep, dtype) == before + 1
+    rwarped, rwmask, _ = warp_sweep.warp_plane_sweep_reference(images, homs, 2)
+    assert warped.dtype == rwarped.dtype == dtype and warped.shape == (4, 7, 3, h, w)
+    assert (warped.float() - rwarped.float()).abs().max().item() <= K4_TOL[dtype]
+    assert torch.equal(warped == 0, rwarped == 0)  # exact zeros: the sfcv_mult_mask=False rule
+    assert (wmask - rwmask).abs().max().item() <= 1e-6
+    assert torch.equal(wmask != 0, rwmask != 0)
+    assert not cov.any()
+
+
+@pytest.mark.parametrize("cfg", [
+    {}, {"warp_dtype": "bfloat16"},  # K1
+    {"sfcv_mult_mask": False}, {"patch_size": 5, "warp_dtype": "bfloat16"},  # K4
+])
+def test_cost_volume_kernel_path_matches_cpu(cuda, cfg):
     nb = make_batch(2, 32, 64, 2, stereo=False, mask=False, tz=0.5)
-    cfg = CostVolumeConfig(depth_steps=8)
+    cfg = CostVolumeConfig(depth_steps=8, **cfg)
     gpu = compute_cost_volume(*(batch_to_torch(nb, cuda)[k] for k in _KEYS), 0.0025, 0.33, cfg)
     cpu = compute_cost_volume(*(batch_to_torch(nb, "cpu")[k] for k in _KEYS), 0.0025, 0.33, cfg)
     for g, c in zip(gpu, cpu):
@@ -77,16 +114,19 @@ def _warp_inputs(h, w, device, n=2, c=3, seed=0):
     return [torch.from_numpy(a).to(device) for a in (images, x, y, cot)]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,w", [(21, 45), (32, 128)])  # ragged and whole tiles
-def test_grid_warp_kernel_matches_plain_version(cuda, h, w):
+def test_grid_warp_kernel_matches_plain_version(cuda, h, w, dtype):
     images, xs, ys, cot = _warp_inputs(h, w, cuda)
-    before = (gw.grid_warp.launches, gw.grid_warp_jac.launches, gw.grid_warp_grad.launches)
+    images = images.to(dtype)
+    entries = (gw.grid_warp, gw.grid_warp_jac, gw.grid_warp_grad)
+    before = [_counter(e, dtype) for e in entries]
     out = gw.grid_warp(images, xs, ys)
     jout, jx, jy = gw.grid_warp_jac(images, xs, ys)
     gx, gy = gw.grid_warp_grad(images, xs, ys, cot)
     torch.cuda.synchronize()
-    assert (gw.grid_warp.launches, gw.grid_warp_jac.launches, gw.grid_warp_grad.launches) == tuple(
-        b + 1 for b in before)
+    assert [_counter(e, dtype) for e in entries] == [b + 1 for b in before]
+    assert out.dtype == jx.dtype == gx.dtype == torch.float32
     ref = gw.grid_warp_reference(images, xs, ys)
     _, rjx, rjy = gw.grid_warp_jac_reference(images, xs, ys)
     rgx, rgy = gw.grid_warp_grad_reference(images, xs, ys, cot)

@@ -36,9 +36,9 @@ def test_port_imports_every_module_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    # geometry, precision, convert, config, ops (7 + cuda/build), models (6), data (2),
+    # geometry, precision, convert, config, ops (8 + cuda/build), models (6), data (2),
     # utils, losses (2), metrics, train (3), cli (2), with their packages
-    assert int(proc.stdout.split()[-1]) >= 37
+    assert int(proc.stdout.split()[-1]) >= 38
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
