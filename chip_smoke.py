@@ -11,15 +11,21 @@ checkout, then:
 2. build: compiles ``plane_sweep_sad.cu``, ``grid_warp.cu``,
    ``photo_error.cu`` and ``warp_plane_sweep.cu`` (nvcc, sm_90a), one nvcc
    each, all started together;
-3. kernel vs plain: ``plane_sweep_sad`` against ``plane_sweep_sad_reference``
-   on the same GPU tensors at B=8, F=2, 256x512, D=32, for every use_ssim
-   mode and two motions; times both;
+3. kernel vs plain: ``plane_sweep_sad`` (K1's raw mode, the TPU kernel's
+   contract) against ``plane_sweep_sad_reference`` on the same GPU tensors
+   at B=8, F=2, 256x512, D=32, for every use_ssim mode and two motions; then
+   K1's cost-volume mode ``plane_sweep_cost_volume`` (the main path's)
+   against ``plane_sweep_cost_volume_reference``: per-frame CVs within the
+   kernel budget, the fused CV against the plain version in float64 within
+   twice the float32 plain version's own error; times each against its
+   plain version;
 4. cost volume: the kernel path of ``compute_cost_volume`` against its plain
    path run in float64 (the exact answer of the reference pipeline) and in
    float32: per-frame CVs within the kernel budget of the exact answer, the
    fused CV within twice the float32 plain path's own error where that
    exceeds the budget (its frame weights are ill-conditioned at flat cost
-   curves);
+   curves); then, for float32 and bf16 sources, the kernel path's time split
+   into K1's launches, the other kernels and the device's idle rest;
 5. forward parity: the whole MonoRec forward with seeded weights, GPU
    (kernel) against CPU (plain versions), at B=1;
 6. serving: the inference entry point answers requests of 8 keyframes, with
@@ -33,7 +39,9 @@ checkout, then:
 8. photometric error: ``photo_error_fwd`` / ``photo_error_bwd`` against
    their plain versions at M=64, 3x256x512; times both;
 9. the loss: ``depth_loss`` and its gradient w.r.t. the 4 predicted inverse
-   depths at B=8, 256x512, F=2, kernels against plain versions;
+   depths at B=8, 256x512, F=2, kernels against plain versions; both timed
+   in turns, and each one's device time (K2, K3 and the rest) read from a
+   torch.profiler trace;
 10. training: the stage-1 trainer the CLI builds, from
    ``configs/train/monorec/monorec_depth.json`` with the data loader
    swapped for ``SyntheticSweepDataloader`` at 256x512, B=8, F=2, D=32,
@@ -43,9 +51,10 @@ checkout, then:
    (CUDA events), splits a step into forward, loss, backward and
    optimizer, and reads the device's busy share and largest kernels over
    5 steps from a torch.profiler trace;
-11. K1 on bf16 sources (the serving policy's cost volume) against its
-   plain version on the upcast sources, as phase 3; reports its distance
-   to the float32 kernel on the same values and times the three;
+11. K1 on bf16 sources (the serving policy's cost volume), both modes,
+   against their plain versions on the upcast sources, as phase 3; reports
+   the raw mode's distance to the float32 kernel on the same values and
+   times the three;
 12. K2 on bf16 images (the serving policy's loss warp), all three modes,
    with phase 7's inputs, gates and timings;
 13. K4 (``warp_plane_sweep``), float32 and bf16 sources, at N=16, D=32,
@@ -62,7 +71,11 @@ checkout, then:
    turns, splits it, and reads its busy share from a profiler trace.
 
 Every check that fails raises. The script prints a JSON line of kernel
-records, the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
+records (each with its launches on the main path, its error against its
+plain version, its time, its plain version's, its bound with the bytes and
+float32 operations it counts, and the time of one PyTorch call computing the
+same function where one exists), the ``nvidia-smi`` line, and last
+``{"ok": true, "device": ...}``.
 It exits non-zero, printing no result, when no CUDA device is visible or
 the package is not beside it.
 """
@@ -105,6 +118,45 @@ UNET_REL = 2e-2  # bf16 U-Nets vs float32, mean |diff| / mean |ref| (tests/test_
 # float64 (a source coordinate on a pixel boundary), the two disagree.
 # Reported, and allowed at up to this share of the per-frame CV.
 ALT_VALID_SHARE = 1e-4
+# The card's published peaks (H100 SXM data sheet, at a 700 W limit): HBM
+# bandwidth and float32 outside the tensor cores, which every kernel here
+# uses. A kernel's bound is the larger of its bytes (each input read once,
+# each output written once) over the first and its float32 operations over
+# the second.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# Float32 operations per output element, counted from each function's
+# arithmetic (the plain versions spell it out):
+# K1, per (source, hypothesis, pixel) at use_ssim=1, the terms that depend
+# on the hypothesis only (the keyframe's window sums, moments and their
+# constants are the same at every hypothesis): displacement 19 (6 mul,
+# 11 add, 2 div), footprint 12, 4 taps x 3 channels mul+add 24 and the
+# border indicator 4, +0.5 on 3 channels; SSIM per channel 34: x*x and
+# x*y 2, their and x's 3x3 window sums as separable running sums (2 adds
+# along the row, 2 down the column) 12, moments 7, numerator 5 and
+# denominator 3 (mu_x^2 and mu_x mu_y reused), 1 - n/d clamped and halved
+# 5; channel weights 5, the separable 3x3 box sum 4.
+K1_FLOPS = 19 + 12 + 24 + 4 + 3 + 34 * 3 + 5 + 4
+# The cost-volume epilogue per (source, hypothesis, pixel): min 1,
+# exp(-alpha (s - min)^2) 4 with exp as one, its sum 1, sfcv = (1 - 2 s)
+# valid 3; the frame weight per (source, pixel) is amortized over D.
+K1_CV_FLOPS = K1_FLOPS + 9
+# The frame fusion per (keyframe, hypothesis, pixel): F mul + F add, the
+# division and the centring 2.
+K1_FUSE_FLOPS_PER_FRAME, K1_FUSE_FLOPS = 2, 3
+# K2 per (sample, channel): the 4 taps' mul+add 8, plus per sample floor 2,
+# fractions 2, 1 - w 2, tap weights 4 (amortized over the 3 channels);
+# the Jacobian adds 2 x 4 mul+add per channel, the gradient contracts it
+# with the cotangent (another 4).
+K2_FLOPS = {"grid_warp": 8 + 4, "grid_warp_jac": 8 + 4 + 16, "grid_warp_grad": 8 + 4 + 16 + 4}
+# K3 per (pixel, channel): forward 5 gaussian window sums 90, the SSIM
+# formula 20, clamp and L1 6, channel mean 2 (146 in all, with the pixel's
+# output terms); the backward recomputes the window sums and the formula
+# (110), its g-maps 30, three 3x3 stencils 54, the L1 term 5, the sum 6.
+K3_FLOPS = {"photo_error_fwd": 146, "photo_error_bwd": 215}
+# K4 per (source, hypothesis, pixel): displacement 19, footprint 12, taps
+# and border indicator 28.
+K4_FLOPS = 19 + 12 + 28
 
 
 def log(msg: str) -> None:
@@ -167,12 +219,65 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def in_turns(kernel, plain, k_reps: int, p_reps: int):
-    """Times (plain, kernel, kernel, plain); returns (kernel ms, plain ms,
-    the four times)."""
-    turns = [cuda_ms(plain, p_reps), cuda_ms(kernel, k_reps), cuda_ms(kernel, k_reps),
-             cuda_ms(plain, p_reps)]
-    return statistics.mean(turns[1:3]), statistics.mean([turns[0], turns[3]]), turns
+def in_turns(kernel, plain, k_reps: int, p_reps: int, library=None):
+    """Times (plain, kernel, kernel, plain), or with a library call (plain,
+    library, kernel, kernel, library, plain); returns (kernel ms, plain ms,
+    library ms or None, the times, and their order)."""
+    order = ["plain", "kernel", "kernel", "plain"]
+    if library is not None:
+        order[1:3] = ["library", "kernel", "kernel", "library"]
+    fns = {"plain": (plain, p_reps), "kernel": (kernel, k_reps), "library": (library, k_reps)}
+    turns = [cuda_ms(*fns[name]) for name in order]
+    ms = {name: statistics.mean(t for n, t in zip(order, turns) if n == name)
+          for name in set(order)}
+    return ms["kernel"], ms["plain"], ms.get("library"), turns, ", ".join(order)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, flops: float) -> dict:
+    """The least time the card could take: bytes over HBM bandwidth or
+    float32 operations over the float32 peak, whichever is larger."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": int(n_bytes), "flops": float(flops)}
+
+
+def device_ms(fn, reps: int, parts: dict) -> dict:
+    """Device time per call of ``fn`` from a torch.profiler trace of ``reps``
+    calls after an untimed one: the device activities' durations, summed by
+    ``parts`` (a substring of a kernel's name -> its label) and the rest as
+    "other". Host ranges traced on the device as annotations are left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    out = dict.fromkeys([*parts.values(), "other"], 0.0)
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in host_names:
+            label = next((v for k, v in parts.items() if k in e.name), "other")
+            out[label] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
+
+
+def pixel_grid(xs, ys):
+    """Absolute pixel coordinates (N, H, W) as the normalized grid of
+    ``grid_sample(align_corners=True)``: the same taps and weights."""
+    import torch
+
+    h, w = xs.shape[-2:]
+    return torch.stack([xs * (2.0 / (w - 1)) - 1.0, ys * (2.0 / (h - 1)) - 1.0], dim=-1)
 
 
 def loss_batch(dev, tz: float, seed: int):
@@ -241,19 +346,45 @@ def phase_loss_warp(dev, card: str, dtype=None):
             errs[k] = max(errs[k], e)
         del out, jout, jx, jy, gx, gy, ref, rjx, rjy, rgx, rgy
 
-    timing = {
-        "grid_warp": in_turns(lambda: gw.grid_warp(src, xs, ys),
-                              lambda: gw.grid_warp_reference(src, xs, ys), 20, 3),
-        "grid_warp_jac": in_turns(lambda: gw.grid_warp_jac(src, xs, ys),
-                                  lambda: gw.grid_warp_jac_reference(src, xs, ys), 20, 3),
-        "grid_warp_grad": in_turns(lambda: gw.grid_warp_grad(src, xs, ys, cot),
-                                   lambda: gw.grid_warp_grad_reference(src, xs, ys, cot), 20, 3),
-    }
-    for k, (k_ms, p_ms, turns) in timing.items():
-        log(f"{phase} {k}{suffix} time at N={n}, 3x{H}x{W}, tz=0.5 (plain, kernel, kernel, "
-            f"plain): {', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs plain "
-            f"{p_ms:.3f} ms on {card}")
-    return {k + suffix: {"max_abs_err": errs[k], "ms": timing[k][0], "plain_ms": timing[k][1]}
+    # The yardsticks, float32 images only (grid_sample wants its grid in the
+    # images' dtype, which would round bf16 coordinates): grid_sample on a
+    # prebuilt grid for the values, and its backward's grid gradient (in
+    # normalized units, the same work) for the coordinate gradient.
+    library = {"grid_warp": None, "grid_warp_grad": None}
+    if not suffix:
+        grid = pixel_grid(xs, ys)
+        lib_out = torch.nn.functional.grid_sample(src, grid, "bilinear", "zeros",
+                                                  align_corners=True)
+        log(f"{phase} yardstick grid_sample(align_corners=True) vs grid_warp max|diff| "
+            f"{(lib_out - gw.grid_warp(src, xs, ys)).abs().max().item():.3e}")
+        del lib_out
+        library = {
+            "grid_warp": lambda: torch.nn.functional.grid_sample(src, grid, "bilinear", "zeros",
+                                                                 align_corners=True),
+            "grid_warp_grad": lambda: torch.ops.aten.grid_sampler_2d_backward(
+                cot, src, grid, 0, 0, True, [False, True]),
+        }
+    timing = {}
+    for k, kernel, plain in (
+            ("grid_warp", lambda: gw.grid_warp(src, xs, ys),
+             lambda: gw.grid_warp_reference(src, xs, ys)),
+            ("grid_warp_jac", lambda: gw.grid_warp_jac(src, xs, ys),
+             lambda: gw.grid_warp_jac_reference(src, xs, ys)),
+            ("grid_warp_grad", lambda: gw.grid_warp_grad(src, xs, ys, cot),
+             lambda: gw.grid_warp_grad_reference(src, xs, ys, cot))):
+        k_ms, p_ms, l_ms, turns, order = in_turns(kernel, plain, 20, 3, library.get(k))
+        timing[k] = (k_ms, p_ms, l_ms)
+        log(f"{phase} {k}{suffix} time at N={n}, 3x{H}x{W}, tz=0.5 ({order}): "
+            f"{', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs plain "
+            f"{p_ms:.3f} ms" + ("" if l_ms is None else f" vs library {l_ms:.3f} ms")
+            + f" on {card}")
+    plane = n * H * W * 4  # one float32 (N, H, W) map
+    n_bytes = {"grid_warp": nbytes(src) + 2 * plane + nbytes(images),
+               "grid_warp_jac": nbytes(src) + 2 * plane + 3 * nbytes(images),
+               "grid_warp_grad": nbytes(src) + 2 * plane + nbytes(cot) + 2 * plane}
+    return {k + suffix: {"max_abs_err": errs[k], "ms": timing[k][0], "plain_ms": timing[k][1],
+                         "library_ms": timing[k][2],
+                         **bound(n_bytes[k], K2_FLOPS[k] * images.numel())}
             for k in errs}, (images, xs, ys, tiled)
 
 
@@ -309,17 +440,21 @@ def phase_photo_error(dev, card: str, images, xs, ys, tiled) -> dict:
                                     lambda: pe.photo_error_reference(x, y), 20, 3),
         "photo_error_bwd": in_turns(lambda: pe.photo_error_bwd(x, y, cot), plain_bwd, 20, 3),
     }
-    for k, (k_ms, p_ms, turns) in timing.items():
-        log(f"[8 photo error] {k} time at M={n}, 3x{H}x{W} (plain, kernel, kernel, plain): "
+    for k, (k_ms, p_ms, _, turns, order) in timing.items():
+        log(f"[8 photo error] {k} time at M={n}, 3x{H}x{W} ({order}): "
             f"{', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs plain "
             f"{p_ms:.3f} ms on {card}")
     errs = {"photo_error_fwd": e_fwd, "photo_error_bwd": e_bwd}
-    return {k: {"max_abs_err": errs[k], "ms": timing[k][0], "plain_ms": timing[k][1]}
+    n_bytes = {"photo_error_fwd": nbytes(x, y, out), "photo_error_bwd": nbytes(x, y, cot, gx)}
+    return {k: {"max_abs_err": errs[k], "ms": timing[k][0], "plain_ms": timing[k][1],
+                "library_ms": None, **bound(n_bytes[k], K3_FLOPS[k] * x.numel())}
             for k in errs}
 
 
 def phase_loss(dev, card: str) -> None:
-    """Phase 9: depth_loss and its gradient, kernels against plain versions."""
+    """Phase 9: depth_loss and its gradient, kernels against plain versions;
+    both timed in turns, and each one's device time from a profiler trace
+    (what the event time holds beyond it is the host's issue)."""
     import torch
 
     from monorec_tpu_torch.losses import depth_loss
@@ -332,19 +467,31 @@ def phase_loss(dev, card: str) -> None:
         grads = torch.autograd.grad(loss_dict["loss"], ps)
         return loss_dict, grads
 
+    def run_plain():
+        with plain_loss_kernels():
+            return run()
+
     k_dict, k_grads = run()
-    with plain_loss_kernels():
-        p_dict, p_grads = run()
-        plain_ms = cuda_ms(run, 3)
-    kernel_ms = cuda_ms(run, 3)
+    p_dict, p_grads = run_plain()
+    kernel_ms, plain_ms, _, turns, order = in_turns(run, run_plain, 5, 5)
+    parts = {"grid_warp_kernel": "K2", "photo_error_fwd_kernel": "K3 fwd",
+             "photo_error_bwd_kernel": "K3 bwd"}
+    k_dev, p_dev = device_ms(run, 5, parts), device_ms(run_plain, 5, parts)
     rel = abs(k_dict["loss"].item() - p_dict["loss"].item()) / abs(p_dict["loss"].item())
     g_err = [(k - p).abs().max().item() for k, p in zip(k_grads, p_grads)]
     g_max = [p.abs().max().item() for p in p_grads]
     log(f"[9 loss] depth_loss at B={B}, {H}x{W}, F={F}: kernels {k_dict['loss'].item():.7f}, "
         f"plain {p_dict['loss'].item():.7f} (rel diff {rel:.2e}, gate {LOSS_RTOL}); gradient "
         f"max|diff| per scale {', '.join(f'{e:.2e}' for e in g_err)} (max|grad| "
-        f"{', '.join(f'{m:.2e}' for m in g_max)}); loss + gradient {kernel_ms:.3f} ms with "
-        f"kernels vs {plain_ms:.3f} ms plain on {card}")
+        f"{', '.join(f'{m:.2e}' for m in g_max)}); loss + gradient ({order}) "
+        f"{', '.join(f'{t:.3f}' for t in turns)} ms: {kernel_ms:.3f} ms with kernels vs "
+        f"{plain_ms:.3f} ms plain on {card}")
+    for tag, dev_ms, event_ms in (("kernels", k_dev, kernel_ms), ("plain", p_dev, plain_ms)):
+        log(f"[9 loss] {tag}: device time {sum(dev_ms.values()):.3f} ms per call (torch.profiler, "
+            f"5 calls) = " + " + ".join(f"{k} {v:.3f}" for k, v in dev_ms.items())
+            + f"; the host's rest of the event time {event_ms - sum(dev_ms.values()):.3f} ms")
+    if not all(k_dev[p] > 0 for p in parts.values()) or any(p_dev[p] for p in parts.values()):
+        raise AssertionError(f"the loss's trace disagrees with its kernels: {k_dev}, {p_dev}")
     finite = all(torch.isfinite(g).all() for g in k_grads) and torch.isfinite(k_dict["loss"])
     if not (finite and rel <= LOSS_RTOL and k_dict["warp_uncovered"].item() == 0):
         raise AssertionError("depth_loss with the kernels disagrees with its plain versions")
@@ -355,7 +502,9 @@ def _counted() -> dict:
     sources in ``.launches`` and, where it takes bf16, in ``.launches_bf16``."""
     from monorec_tpu_torch.ops import grid_warp, photo_error, plane_sweep, warp_sweep
 
-    return {"plane_sweep_sad": plane_sweep.plane_sweep_sad, "grid_warp": grid_warp.grid_warp,
+    return {"plane_sweep_sad": plane_sweep.plane_sweep_sad,
+            "plane_sweep_cost_volume": plane_sweep.plane_sweep_cost_volume,
+            "grid_warp": grid_warp.grid_warp,
             "grid_warp_jac": grid_warp.grid_warp_jac, "grid_warp_grad": grid_warp.grid_warp_grad,
             "warp_plane_sweep": warp_sweep.warp_plane_sweep,
             "photo_error_fwd": photo_error.photo_error_fwd,
@@ -416,7 +565,8 @@ def train_main_path(trainer, tag: str, bf: str) -> dict:
     reset_counts()
     log_ = trainer.train()  # the main path
     counts = launch_counts()
-    expected = only(**{"plane_sweep_sad" + bf: TRAIN_STEPS + n_val, "grid_warp" + bf: n_val,
+    expected = only(**{"plane_sweep_cost_volume" + bf: TRAIN_STEPS + n_val,
+                       "grid_warp" + bf: n_val,
                        "grid_warp_jac" + bf: TRAIN_STEPS,
                        "photo_error_fwd": 2 * (TRAIN_STEPS + n_val),
                        "photo_error_bwd": TRAIN_STEPS})
@@ -545,10 +695,11 @@ def phase_training(dev, card: str, run_dir):
     for path in ("plain", "kernel", "kernel", "plain"):
         with plain_loss_kernels() if path == "plain" else contextlib.nullcontext():
             turns.append((path, step_times(trainer, batches, alpha, 5, "exact")))
-    want = only(plane_sweep_sad=1, grid_warp_jac=1, photo_error_fwd=2, photo_error_bwd=1)
+    want = only(plane_sweep_cost_volume=1, grid_warp_jac=1, photo_error_fwd=2,
+                photo_error_bwd=1)
     for path, times in turns:
         for _, delta in times:
-            if delta != (want if path == "kernel" else only(plane_sweep_sad=1)):
+            if delta != (want if path == "kernel" else only(plane_sweep_cost_volume=1)):
                 raise AssertionError(f"a {path} step launched {delta}")
     med = {p: statistics.median(t for path, ts in turns if path == p for t, _ in ts)
            for p in ("kernel", "plain")}
@@ -590,9 +741,9 @@ def phase_serving_training(dev, card: str, run_dir, exact) -> dict:
             turns.append((policy, step_times(ex_trainer, ex_batches, ex_alpha, 5, "exact")))
         else:
             turns.append((policy, step_times(trainer, batches, alpha, 5, "serving")))
-    wants = {"serving": only(plane_sweep_sad_bf16=1, grid_warp_jac_bf16=1, photo_error_fwd=2,
-                             photo_error_bwd=1),
-             "exact": only(plane_sweep_sad=1, grid_warp_jac=1, photo_error_fwd=2,
+    wants = {"serving": only(plane_sweep_cost_volume_bf16=1, grid_warp_jac_bf16=1,
+                             photo_error_fwd=2, photo_error_bwd=1),
+             "exact": only(plane_sweep_cost_volume=1, grid_warp_jac=1, photo_error_fwd=2,
                            photo_error_bwd=1)}
     for policy, times in turns:
         for _, delta in times:
@@ -675,7 +826,114 @@ def phase_sweep_bf16(dev, card: str) -> dict:
         f"f32, f32, bf16, plain): {', '.join(f'{t:.3f}' for _, t in turns)} ms; bf16 sources "
         f"{ms['bf16']:.3f} ms, float32 sources {ms['f32']:.3f} ms, plain {ms['plain']:.3f} ms "
         f"on {card}; max|diff| to the float32 kernel on the upcast sources {max_vs_f32:.3e}")
-    return {"max_abs_err": max_err, "ms": ms["bf16"], "plain_ms": ms["plain"]}
+    return {"max_abs_err": max_err, "ms": ms["bf16"], "plain_ms": ms["plain"],
+            "library_ms": None, **k1_raw_bound(src, keyframes, homs)}
+
+
+def k1_raw_bound(images, keyframes, homs) -> dict:
+    """K1's raw mode: sources, keyframes and homographies in; sad, wmask
+    (N, D, H, W) and coverage (N, D) out."""
+    n, _, h, w = images.shape
+    d = homs.shape[1]
+    return bound(nbytes(images, keyframes, homs) + (2 * h * w + 1) * n * d * 4,
+                 K1_FLOPS * n * d * h * w)
+
+
+def k1_cv_bound(images, keyframes, homs) -> dict:
+    """K1's cost-volume mode: sources, keyframes and homographies in; the
+    per-frame CVs (N, D, H, W) and the fused CV (B, D, H, W) out."""
+    n, _, h, w = images.shape
+    d = homs.shape[1]
+    fused = n // F * d * h * w
+    return bound(nbytes(images, keyframes, homs) + (n * d * h * w + fused) * 4,
+                 K1_CV_FLOPS * n * d * h * w
+                 + (K1_FUSE_FLOPS_PER_FRAME * F + K1_FUSE_FLOPS) * fused)
+
+
+def phase_cost_volume_kernel(dev, card: str, dtype) -> dict:
+    """Phases 3 (float32 sources) and 11 (bf16 sources), the cost-volume
+    mode of K1: ``plane_sweep_cost_volume`` against its plain version on the
+    same sources, for every use_ssim and both motions. The per-frame CVs are
+    held to the kernel budget of the float32 plain version; the fused CV to
+    the plain version run in float64 (on the same float32 displacements),
+    within twice the float32 plain version's own error there where that
+    exceeds the budget (its frame weights are ill-conditioned at flat cost
+    curves). Times the kernel against its plain version in turns."""
+    import torch
+
+    from monorec_tpu_torch.ops import plane_sweep
+
+    bf16 = dtype == torch.bfloat16
+    tag = "[11 cost-volume mode, bf16 sources]" if bf16 else "[3 cost-volume mode]"
+    max_err = sfcv_err = 0.0  # both outputs against the float32 plain version; sfcv alone
+    for tz in MOTIONS:
+        images, keyframes, homs = sweep_batch(dev, tz)
+        src = images.to(dtype)
+        for mode in MODES:
+            fused, sfcv = plane_sweep.plane_sweep_cost_volume(src, keyframes, homs, 2, F, mode)
+            torch.cuda.synchronize()
+            pf, psf = plane_sweep.plane_sweep_cost_volume_reference(src, keyframes, homs, 2, F,
+                                                                    mode)
+            e_sfcv, e32 = (sfcv - psf).abs().max().item(), (fused - pf).abs().max().item()
+            e64, e32_64 = 0.0, 0.0
+            for b in range(B):  # float64 one keyframe at a time, to bound memory
+                frames = slice(b * F, (b + 1) * F)
+                f64, _ = plane_sweep.plane_sweep_cost_volume_reference(
+                    src[frames].double(), keyframes[b : b + 1].double(), homs[frames], 2, F,
+                    mode)
+                e64 = max(e64, (fused[b : b + 1] - f64).abs().max().item())
+                e32_64 = max(e32_64, (pf[b : b + 1] - f64).abs().max().item())
+            fused_tol = max(SAD_TOL, 2.0 * e32_64)
+            log(f"{tag} tz={tz} use_ssim={mode}: max|sfcv diff| vs plain {e_sfcv:.3e} (gate "
+                f"{SAD_TOL}); fused vs plain float64 {e64:.3e} (gate {fused_tol:.3e}), plain "
+                f"float32 vs float64 {e32_64:.3e}, vs plain float32 {e32:.3e}")
+            if not (fused.shape == (B, D, H, W) and sfcv.shape == (B, F, D, H, W)
+                    and torch.isfinite(fused).all() and torch.isfinite(sfcv).all()
+                    and e_sfcv <= SAD_TOL and e64 <= fused_tol):
+                raise AssertionError(f"plane_sweep_cost_volume ({dtype}) disagrees with its "
+                                     f"plain version (tz={tz}, use_ssim={mode})")
+            max_err = max(max_err, e_sfcv, e32)
+            sfcv_err = max(sfcv_err, e_sfcv)
+            del fused, sfcv, pf, psf, f64
+
+    images, keyframes, homs = sweep_batch(dev, 0.0)
+    src = images.to(dtype)
+    kernel = lambda: plane_sweep.plane_sweep_cost_volume(src, keyframes, homs, 2, F, 1)  # noqa: E731
+    plain = lambda: plane_sweep.plane_sweep_cost_volume_reference(src, keyframes, homs, 2, F, 1)  # noqa: E731
+    k_ms, p_ms, _, turns, order = in_turns(kernel, plain, 20, 3)
+    log(f"{tag} time at N={B * F}, D={D}, {H}x{W}, use_ssim=1 ({order}): "
+        f"{', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs plain "
+        f"{p_ms:.3f} ms on {card}")
+    return {"max_abs_err": max_err, "sfcv_max_abs_err": sfcv_err, "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": None, **k1_cv_bound(src, keyframes, homs)}
+
+
+def cost_volume_split(dev, card: str, args, warp_dtype: str) -> None:
+    """One line: the sweep path of ``compute_cost_volume`` at B=8, a CUDA-event
+    mean over 10 calls back to back, split into the device time of K1's
+    launches (the source packing, the kernel, the frame fusion) and of the
+    other kernels (homographies, the sources' cast) from a torch.profiler
+    trace of 5 calls, and the device's idle rest; beside it the
+    homographies and sources alone (CUDA events, 10 calls)."""
+    from monorec_tpu_torch.ops.cost_volume import (
+        CostVolumeConfig,
+        _sweep_sources,
+        compute_cost_volume,
+    )
+
+    cfg = CostVolumeConfig(depth_steps=D, warp_dtype=warp_dtype)
+    run = lambda: compute_cost_volume(*args, 0.0025, 0.33, cfg)  # noqa: E731
+    whole = cuda_ms(run, 10)
+    homs_ms = cuda_ms(lambda: _sweep_sources(*args, 0.0025, 0.33, cfg), 10)
+    names = {"plane_sweep_kernel": "K1", "pack_kernel": "packing", "fuse_frames_kernel": "fusion"}
+    parts = device_ms(run, 5, names)
+    if not all(parts[p] > 0 for p in names.values()):
+        raise AssertionError(f"the cost volume's trace misses a launch of K1: {parts}")
+    log(f"[4 cost volume] split, B={B}, D={D}, F={F}, {H}x{W}, {warp_dtype} sources: "
+        f"{whole:.3f} ms per call = device K1 {parts['K1']:.3f} + source packing "
+        f"{parts['packing']:.3f} + frame fusion {parts['fusion']:.3f} + other kernels "
+        f"{parts['other']:.3f} + idle {whole - sum(parts.values()):.3f} ms; homographies and "
+        f"sources alone {homs_ms:.3f} ms on {card}")
 
 
 def phase_warp_sweep(dev, card: str) -> dict:
@@ -685,7 +943,7 @@ def phase_warp_sweep(dev, card: str) -> dict:
     import torch
 
     from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
-    from monorec_tpu_torch.ops import warp_sweep
+    from monorec_tpu_torch.ops import plane_sweep, warp_sweep
     from monorec_tpu_torch.ops.cost_volume import CostVolumeConfig, compute_cost_volume
 
     images, _, homs = sweep_batch(dev, 0.5)
@@ -708,14 +966,30 @@ def phase_warp_sweep(dev, card: str) -> dict:
                 and zeros == 0 and mism == 0 and (cov == 0).all()):
             raise AssertionError(f"warp_plane_sweep ({name}) disagrees with its plain version")
         del warped, wmask, rwarped, rwmask
-        k_ms, p_ms, turns = in_turns(lambda: warp_sweep.warp_plane_sweep(src, homs, 2),
-                                     lambda: warp_sweep.warp_plane_sweep_reference(src, homs, 2),
-                                     10, 2)
-        log(f"[13 warp sweep] {name} time (plain, kernel, kernel, plain): "
-            f"{', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs plain "
-            f"{p_ms:.3f} ms on {card}")
+        kernel = lambda: warp_sweep.warp_plane_sweep(src, homs, 2)  # noqa: E731
+        plain = lambda: warp_sweep.warp_plane_sweep_reference(src, homs, 2)  # noqa: E731
+        library = None
+        if dtype == torch.float32:
+            # The yardstick: grid_sample of the stack on a prebuilt grid of
+            # the same displacements (no border indicator), float32 only.
+            dx, dy = plane_sweep._displacements(homs, H, W)
+            ys_, xs_ = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                                      torch.arange(W, device=dev, dtype=torch.float32),
+                                      indexing="ij")
+            grid = pixel_grid(xs_ + dx, ys_ + dy).reshape(B * F, D * H, W, 2)
+            del dx, dy
+            library = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+                src, grid, "bilinear", "zeros", align_corners=True)
+        k_ms, p_ms, l_ms, turns, order = in_turns(kernel, plain, 10, 2, library)
+        library = grid = None  # the yardstick's grid is 0.5 GB
+        log(f"[13 warp sweep] {name} time ({order}): {', '.join(f'{t:.3f}' for t in turns)} ms; "
+            f"kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms"
+            + ("" if l_ms is None else f" vs library {l_ms:.3f} ms") + f" on {card}")
         key = "warp_plane_sweep" + ("_bf16" if name == "bfloat16" else "")
-        records[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+        n_out = B * F * D * H * W
+        records[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                        **bound(nbytes(src, homs) + n_out * (3 * src.element_size() + 4)
+                                + B * F * D * 4, K4_FLOPS * n_out)}
     del images, homs, src
     torch.cuda.empty_cache()
 
@@ -761,9 +1035,9 @@ def phase_warp_sweep(dev, card: str) -> dict:
             raise AssertionError(f"the K4 cost volume ({name}) is off")
         del fused, sfcv, pf, ps
     cfg = CostVolumeConfig(depth_steps=D, sfcv_mult_mask=False)
-    k_ms, p_ms, turns = in_turns(lambda: compute_cost_volume(*args, 0.0025, 0.33, cfg),
-                                 lambda: compute_cost_volume(*args, 0.0025, 0.33, cfg, plain=True),
-                                 3, 2)
+    k_ms, p_ms, _, turns, _ = in_turns(
+        lambda: compute_cost_volume(*args, 0.0025, 0.33, cfg),
+        lambda: compute_cost_volume(*args, 0.0025, 0.33, cfg, plain=True), 3, 2)
     log(f"[13 warp sweep] cost volume, sfcv_mult_mask=False, float32, B={B}, D={D}, {H}x{W} "
         f"(plain path, K4 path, K4 path, plain path): {', '.join(f'{t:.3f}' for t in turns)} ms; "
         f"K4 path {k_ms:.3f} ms vs plain path {p_ms:.3f} ms on {card}")
@@ -797,7 +1071,7 @@ def phase_serving_forward(dev, card: str, requests) -> dict:
     _, e2 = serve(exact, requests)
     _, s2 = serve(model, requests)
     n_req = len(requests)
-    if counts != only(plane_sweep_sad_bf16=n_req):
+    if counts != only(plane_sweep_cost_volume_bf16=n_req):
         raise AssertionError(f"the serving forwards launched {counts}")
     rels = [mean_rel(o["result"], r["result"]) for o, r in zip(outs, ref)]
     mask_rels = [mean_rel(o["cv_mask"], r["cv_mask"]) for o, r in zip(outs, ref)]
@@ -861,7 +1135,8 @@ def main() -> int:
         ptxas = build.BUILD_DIR / f"{source}.ptxas.txt"
         if ptxas.exists():
             for line in ptxas.read_text().splitlines():
-                if "registers" in line or "spill" in line and "0 bytes spill stores" not in line:
+                if "registers" in line or (
+                        "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line):
                     log(f"    ptxas {source}: {line.split(':', 1)[-1].strip()}")
 
     # ---- 3. kernel vs plain version -------------------------------------
@@ -888,11 +1163,14 @@ def main() -> int:
     images, keyframes, homs = sweep_batch(dev, 0.0)
     kernel = lambda: plane_sweep.plane_sweep_sad(images, keyframes, homs, 2, F, 1)  # noqa: E731
     plain = lambda: plane_sweep.plane_sweep_sad_reference(images, keyframes, homs, 2, F, 1)  # noqa: E731
-    k_ms, p_ms, turns = in_turns(kernel, plain, 20, 3)
-    log(f"[3 kernel] time at N={B * F}, D={D}, {H}x{W}, use_ssim=1 (plain, kernel, kernel, "
-        f"plain): {', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs "
+    k_ms, p_ms, _, turns, order = in_turns(kernel, plain, 20, 3)
+    log(f"[3 kernel] time at N={B * F}, D={D}, {H}x{W}, use_ssim=1 ({order}): "
+        f"{', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs "
         f"plain {p_ms:.3f} ms on {card}")
+    k1_bound = k1_raw_bound(images, keyframes, homs)
     del images, keyframes, homs
+    cv_record = phase_cost_volume_kernel(dev, card, torch.float32)
+    torch.cuda.empty_cache()
 
     # ---- 4. cost volume: kernel path vs plain path ----------------------
     for tz in MOTIONS:
@@ -923,7 +1201,10 @@ def main() -> int:
             if not (torch.isfinite(fused).all() and torch.isfinite(sfcv).all()
                     and e64[1] <= SAD_TOL and e64[0] <= fused_tol):
                 raise AssertionError(f"kernel-path cost volume off (tz={tz}, use_ssim={mode})")
-        del bt, args, fused, sfcv, pf, ps
+        del fused, sfcv, pf, ps
+    for warp_dtype in ("float32", "bfloat16"):
+        cost_volume_split(dev, card, args, warp_dtype)
+    del bt, args
 
     # ---- 5. forward parity: GPU (kernel) vs CPU (plain versions) --------
     cfg = MonoRecConfig(cv_depth_steps=D)
@@ -961,9 +1242,9 @@ def main() -> int:
     serve_counts = launch_counts()
     _, kern_2 = serve(model, requests)
     _, plain_2 = serve(model_plain, requests)
-    if serve_counts != only(plane_sweep_sad=n_req):
+    if serve_counts != only(plane_sweep_cost_volume=n_req):
         raise AssertionError(f"the served forwards launched {serve_counts}, expected "
-                             f"plane_sweep_sad {n_req} times")
+                             f"plane_sweep_cost_volume {n_req} times")
     for out in outs:
         r = out["result"]
         if r.shape != (B, 1, H, W) or not torch.isfinite(r).all() or (r <= 0).any():
@@ -982,7 +1263,10 @@ def main() -> int:
 
     # ---- 7-10. the stage-1 training path ---------------------------------
     records = {"plane_sweep_sad": {"launches": serve_counts["plane_sweep_sad"],
-                                   "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}}
+                                   "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+                                   "library_ms": None, **k1_bound},
+               "plane_sweep_cost_volume": dict(cv_record,
+                                               launches=serve_counts["plane_sweep_cost_volume"])}
     warp_records, warp_inputs = phase_loss_warp(dev, card)
     records.update(warp_records)
     records.update(phase_photo_error(dev, card, *warp_inputs))
@@ -1000,6 +1284,9 @@ def main() -> int:
         # ---- 11-13. the kernels of the serving policy and K4 -------------
         records["plane_sweep_sad_bf16"] = phase_sweep_bf16(dev, card)
         torch.cuda.empty_cache()
+        records["plane_sweep_cost_volume_bf16"] = phase_cost_volume_kernel(dev, card,
+                                                                           torch.bfloat16)
+        torch.cuda.empty_cache()
         warp_records, _ = phase_loss_warp(dev, card, torch.bfloat16)
         records.update(warp_records)
         torch.cuda.empty_cache()
@@ -1008,7 +1295,8 @@ def main() -> int:
 
         # ---- 14-15. the serving forward and serving training -------------
         forward_counts = phase_serving_forward(dev, card, requests)
-        records["plane_sweep_sad_bf16"]["launches"] = forward_counts["plane_sweep_sad_bf16"]
+        for k in ("plane_sweep_sad_bf16", "plane_sweep_cost_volume_bf16"):
+            records[k]["launches"] = forward_counts[k]
         del requests
         torch.cuda.empty_cache()
         serving_counts = phase_serving_training(dev, card, run_dir, exact_trainer)
@@ -1019,6 +1307,10 @@ def main() -> int:
         "plane_sweep_sad": ("plane_sweep_sad.cu", "monorec_tpu/ops/pallas/cv_kernel.py:600"),
         "plane_sweep_sad_bf16": ("plane_sweep_sad.cu",
                                  "monorec_tpu/ops/pallas/cv_kernel.py:600"),
+        "plane_sweep_cost_volume": ("plane_sweep_sad.cu",
+                                    "monorec_tpu/ops/pallas/cv_kernel.py:600"),
+        "plane_sweep_cost_volume_bf16": ("plane_sweep_sad.cu",
+                                         "monorec_tpu/ops/pallas/cv_kernel.py:600"),
         "grid_warp": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:421"),
         "grid_warp_jac": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:431"),
         "grid_warp_grad": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:444"),
@@ -1038,8 +1330,14 @@ def main() -> int:
         "replaces": replaces,
         "launches": records[k]["launches"],
         "max_abs_err": records[k]["max_abs_err"],
+        **{f: records[k][f] for f in ("sfcv_max_abs_err",) if f in records[k]},
         "ms": records[k]["ms"],
         "plain_ms": records[k]["plain_ms"],
+        "bound_ms": records[k]["bound_ms"],
+        "bound_by": records[k]["bound_by"],
+        "bytes": records[k]["bytes"],
+        "flops": records[k]["flops"],
+        "library_ms": records[k]["library_ms"],
     } for k, (src, replaces) in replaced.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -7,10 +7,10 @@ channel-weighted 3x3 patch SAD, and fuse the frames with an
 exp(-alpha * (sad - min_d sad)^2) sharpness weight.
 
 Three paths compute it:
-  * the sweep path: per-(b, f, d) 3x3 homographies, the fused scoring
-    ``plane_sweep_sad`` (kernel K1 on CUDA tensors, its plain version on
-    CPU tensors), then ``_score_and_fuse``. It serves the 3x3 patch on RGB
-    with ``sfcv_mult_mask``;
+  * the sweep path: per-(b, f, d) 3x3 homographies, then the fused
+    scoring and frame fusion ``plane_sweep_cost_volume`` (kernel K1 on CUDA
+    tensors, its plain version ``plane_sweep_sad`` -> ``score_and_fuse`` on
+    CPU tensors). It serves the 3x3 patch on RGB with ``sfcv_mult_mask``;
   * the warp path, for every other configuration of shared hypotheses
     (``sfcv_mult_mask=False``, which needs the warped values, another
     patch size or channel count): the same homographies, the warp-only
@@ -42,7 +42,9 @@ from monorec_tpu_torch import geometry
 from monorec_tpu_torch.ops.plane_sweep import (
     box_sum_3x3,
     photometric_difference,
-    plane_sweep_sad,
+    plane_sweep_cost_volume,
+    score_and_fuse,
+    valid_pixels,
 )
 from monorec_tpu_torch.ops.sampling import bilinear_sample
 from monorec_tpu_torch.ops.warp_sweep import warp_plane_sweep
@@ -119,32 +121,6 @@ def plane_sweep_homographies(
     return m / m[..., 2:3, 2:3]
 
 
-def _score_and_fuse(
-    sad: Tensor,  # (B, F, D, H, W)
-    valid: Tensor,  # (B, F, H, W)
-    cfg: CostVolumeConfig,
-) -> Tuple[Tensor, Tensor]:
-    """Frame fusion (reference ``monorec_model.py:250-269``).
-
-    Returns fused (B, D, H, W) and per-frame CVs (B, F, D, H, W).
-    """
-    d_steps = sad.shape[2]
-    sfcv = (1.0 - 2.0 * sad) * valid[:, :, None]
-    sharp = torch.exp(-cfg.alpha * (sad - sad.amin(dim=2, keepdim=True)) ** 2)
-    # A frame whose hypotheses all score alike (a flat cost curve) gets a
-    # weight ~1e-5 that depends on the squares of SAD differences ~1e-3, so
-    # float32 rounding of the SADs moves the fused CV at such pixels by up to
-    # ~2e-4 (256x512, D=32, against float64); the per-frame CVs do not mix.
-    weight = (1.0 - (sharp.sum(dim=2) - 1.0) / (d_steps - 1)) * valid  # (B, F, H, W)
-    weight_sum = weight.sum(dim=1)  # (B, H, W)
-    fused = (sad * weight[:, :, None]).sum(dim=1)  # (B, D, H, W)
-    nonzero = (weight_sum > 0)[:, None]
-    fused = torch.where(nonzero, fused / torch.where(nonzero, weight_sum[:, None], 1.0), fused)
-    if not cfg.not_center_cv:
-        fused = 1.0 - 2.0 * fused
-    return torch.where(nonzero, fused, 0.0), sfcv
-
-
 def _sweep_path_ok(keyframe: Tensor, cfg: CostVolumeConfig) -> bool:
     """What the fused scoring K1 can serve: masked per-frame CVs, the 3x3
     patch and one weight per channel of an RGB image."""
@@ -176,14 +152,12 @@ def _sweep_sources(keyframe, keyframe_intrinsics, keyframe_pose, frames, frame_i
 
 def _cost_volume_sweep(keyframe, keyframe_intrinsics, keyframe_pose, frames,
                        frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min, cfg):
-    b, c, h, w = keyframe.shape
-    f = frames.shape[1]
-    d = cfg.depth_steps
+    b, f = frames.shape[:2]
     images, homs = _sweep_sources(keyframe, keyframe_intrinsics, keyframe_pose, frames,
                                   frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min,
                                   cfg)
     cw = tuple(float(x) / cfg.patch_size**2 for x in cfg.channel_weights)
-    sad, wmask, cov = plane_sweep_sad(
+    fused, sfcv = plane_sweep_cost_volume(
         images,
         keyframe.contiguous(),
         homs,
@@ -191,17 +165,16 @@ def _cost_volume_sweep(keyframe, keyframe_intrinsics, keyframe_pose, frames,
         frames_per_image=f,
         use_ssim=cfg.use_ssim,
         channel_weights=cw,
+        alpha=cfg.alpha,
+        not_center_cv=cfg.not_center_cv,
     )
-    bmask = border_mask(h, w, cfg.border_radius, keyframe.device)
-    valid = bmask * (wmask != 0).to(bmask.dtype).amin(dim=1)  # (N, H, W)
-    fused, sfcv = _score_and_fuse(sad.reshape(b, f, d, h, w), valid.reshape(b, f, h, w), cfg)
-    return fused, sfcv, cov.reshape(b, f * d).sum(dim=-1)
+    return fused, sfcv, torch.zeros(b, device=keyframe.device)
 
 
 def _score_warped(warped, keyframe, valid, cfg):
     """Score a warped stack (B, F, D, C, H, W) against the keyframe
     (B, C, H, W): the photometric difference by ``use_ssim``, the channel
-    weights over patch_size**2, the 3x3 box sum, then ``_score_and_fuse``
+    weights over patch_size**2, the 3x3 box sum, then ``score_and_fuse``
     with ``valid`` (B, F, H, W). With ``sfcv_mult_mask=False`` a per-frame
     CV is kept where its warped pixel is non-zero in some channel or equals
     the keyframe in all (reference ``monorec_model.py:229-236``)."""
@@ -216,7 +189,7 @@ def _score_warped(warped, keyframe, valid, cfg):
         weighted = weighted + cw[ci] * diff[:, ci]
     sad = box_sum_3x3(weighted).reshape(b, f, d, h, w)
 
-    fused, sfcv = _score_and_fuse(sad, valid, cfg)
+    fused, sfcv = score_and_fuse(sad, valid, cfg.alpha, cfg.not_center_cv)
     if not cfg.sfcv_mult_mask:
         any_nonzero = (warped != 0).any(dim=3)
         all_equal = (warped == key).all(dim=3)
@@ -238,8 +211,7 @@ def _cost_volume_warp(keyframe, keyframe_intrinsics, keyframe_pose, frames,
                                   cfg)
     warped, wmask, cov = warp_plane_sweep(images, homs, cfg.border_radius)
     warped = warped.to(keyframe.dtype).reshape(b, f, d, c, h, w)
-    bmask = border_mask(h, w, cfg.border_radius, keyframe.device, keyframe.dtype)
-    valid = bmask * (wmask != 0).to(bmask.dtype).amin(dim=1)  # (N, H, W)
+    valid = valid_pixels(wmask, cfg.border_radius).to(keyframe.dtype)  # (N, H, W)
     fused, sfcv = _score_warped(warped, keyframe, valid.reshape(b, f, h, w), cfg)
     return fused, sfcv, cov.reshape(b, f * d).sum(dim=-1)
 

@@ -1,7 +1,8 @@
 // Device code shared by the gather kernels: source loads in float32 or bf16
-// (K1 plane_sweep_sad.cu, K2 grid_warp.cu, K4 warp_plane_sweep.cu), and for
-// the plane-sweep kernels K1 and K4 the stores, the displacement of a pixel
-// under a homography and its bilinear footprint.
+// (K2 grid_warp.cu, K4 warp_plane_sweep.cu; K1 plane_sweep_sad.cu reads its
+// sources as interleaved texels of its own), and for the plane-sweep kernels
+// K1 and K4 the stores, the displacement of a pixel under a homography and
+// its bilinear footprint.
 //
 // Coordinates: the homographies arrive in float64 (m22 == 1). A kernel takes
 // M - I from them once per hypothesis, then evaluates in float32 the

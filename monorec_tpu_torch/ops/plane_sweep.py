@@ -24,6 +24,17 @@ The sources may be float32 or bfloat16 (the serving policy's
 plain version runs on ``images.float()``. Keyframes are float32 either way.
 ``plane_sweep_sad.launches`` counts launches on float32 sources and
 ``plane_sweep_sad.launches_bf16`` those on bf16 sources.
+
+``plane_sweep_cost_volume`` is the same kernel with the cost volume's
+scoring folded in (``monorec_tpu/ops/cost_volume.py::_score_and_fuse``,
+``score_and_fuse`` here): it returns the fused (B, D, H, W) and per-frame
+(B, F, D, H, W) cost volumes and has no SAD or warped-border-indicator
+outputs (the SADs wait in the per-frame CV's buffer, which the scoring
+overwrites). Its plain version is
+``plane_sweep_cost_volume_reference``: ``plane_sweep_sad_reference``, the
+validity mask, then ``score_and_fuse``. It counts on its own
+``.launches`` / ``.launches_bf16``; a launch is the kernel and its frame
+fusion together.
 """
 
 from __future__ import annotations
@@ -149,15 +160,77 @@ def plane_sweep_sad_reference(
     return sad, wmask, torch.zeros(n, d, device=images.device)
 
 
+def valid_pixels(wmask: Tensor, border_radius: int) -> Tensor:
+    """(N, H, W) 1.0 where a pixel is interior and its warped border
+    indicator (N, D, H, W) is non-zero at every hypothesis, else 0.0
+    (reference ``monorec_model.py:219``)."""
+    h, w = wmask.shape[-2:]
+    r = border_radius
+    valid = (wmask != 0).all(dim=1).to(torch.float32)
+    interior = torch.zeros(h, w, dtype=torch.float32, device=wmask.device)
+    interior[r : h - r, r : w - r] = 1.0
+    return valid * interior
+
+
+def score_and_fuse(sad: Tensor, valid: Tensor, alpha: float = 10.0,
+                   not_center_cv: bool = False) -> Tuple[Tensor, Tensor]:
+    """Frame fusion (reference ``monorec_model.py:250-269``) of SADs
+    (B, F, D, H, W) with the validity (B, F, H, W); returns fused
+    (B, D, H, W) and per-frame CVs (B, F, D, H, W)."""
+    d_steps = sad.shape[2]
+    sfcv = (1.0 - 2.0 * sad) * valid[:, :, None]
+    sharp = torch.exp(-alpha * (sad - sad.amin(dim=2, keepdim=True)) ** 2)
+    # A frame whose hypotheses all score alike (a flat cost curve) gets a
+    # weight ~1e-5 that depends on the squares of SAD differences ~1e-3, so
+    # float32 rounding of the SADs moves the fused CV at such pixels by up to
+    # ~2e-4 (256x512, D=32, against float64); the per-frame CVs do not mix.
+    weight = (1.0 - (sharp.sum(dim=2) - 1.0) / (d_steps - 1)) * valid  # (B, F, H, W)
+    weight_sum = weight.sum(dim=1)  # (B, H, W)
+    fused = (sad * weight[:, :, None]).sum(dim=1)  # (B, D, H, W)
+    nonzero = (weight_sum > 0)[:, None]
+    fused = torch.where(nonzero, fused / torch.where(nonzero, weight_sum[:, None], 1.0), fused)
+    if not not_center_cv:
+        fused = 1.0 - 2.0 * fused
+    return torch.where(nonzero, fused, 0.0), sfcv
+
+
+def plane_sweep_cost_volume_reference(
+    images: Tensor,
+    keyframes: Tensor,
+    homographies: Tensor,
+    border_radius: int = 2,
+    frames_per_image: int = 2,
+    use_ssim: int = 1,
+    channel_weights: Tuple[float, ...] = DEFAULT_CHANNEL_WEIGHTS,
+    alpha: float = 10.0,
+    not_center_cv: bool = False,
+) -> Tuple[Tensor, Tensor]:
+    """Plain version of ``plane_sweep_cost_volume``, on any device; runs in
+    the keyframes' dtype (float64 keyframes and sources give the exact
+    scoring of the kernel's float32 displacements)."""
+    sad, wmask, _ = plane_sweep_sad_reference(images, keyframes, homographies, border_radius,
+                                              frames_per_image, use_ssim, channel_weights)
+    n, d, h, w = sad.shape
+    b, f = n // frames_per_image, frames_per_image
+    valid = valid_pixels(wmask, border_radius).to(sad.dtype)
+    return score_and_fuse(sad.reshape(b, f, d, h, w), valid.reshape(b, f, h, w), alpha,
+                          not_center_cv)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     from monorec_tpu_torch.ops.cuda import build
 
     lib = build.load("plane_sweep_sad")
     lib.plane_sweep_sad_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     )
     lib.plane_sweep_sad_launch.restype = ctypes.c_int
+    lib.plane_sweep_cost_volume_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    )
+    lib.plane_sweep_cost_volume_launch.restype = ctypes.c_int
     lib.plane_sweep_sad_error_string.argtypes = [ctypes.c_int]
     lib.plane_sweep_sad_error_string.restype = ctypes.c_char_p
     return lib
@@ -192,6 +265,24 @@ def _check_kernel_inputs(images, keyframes, homographies, frames_per_image, use_
         raise ValueError(f"{len(channel_weights)} channel weights for {c} channels")
 
 
+def _count(entry, lib: ctypes.CDLL, code: int, bf16: bool) -> None:
+    """Raise if a launch returned an error, else count it on ``entry``."""
+    if code != 0:
+        msg = lib.plane_sweep_sad_error_string(code).decode()
+        raise RuntimeError(f"{entry.__name__} launch failed: {msg} ({code})")
+    if bf16:
+        entry.launches_bf16 += 1
+    else:
+        entry.launches += 1
+
+
+def _texels(images: Tensor) -> Tensor:
+    """The kernel's scratch for the sources interleaved per pixel: (N, H, W,
+    4) in the sources' dtype, one 16-byte (float32) or 8-byte (bf16) word."""
+    n, _, h, w = images.shape
+    return torch.empty(n, h, w, 4, dtype=images.dtype, device=images.device)
+
+
 def plane_sweep_sad(
     images: Tensor,  # (N, C, H, W) float32 or bfloat16 in [-0.5, 0.5]
     keyframes: Tensor,  # (B, C, H, W) float32, N == B * frames_per_image
@@ -222,22 +313,71 @@ def plane_sweep_sad(
     lib = _library()
     sad = torch.empty(n, d, h, w, dtype=torch.float32, device=images.device)
     wmask = torch.empty_like(sad)
+    texels = _texels(images)
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.plane_sweep_sad_launch(
             images.data_ptr(), keyframes.data_ptr(), homographies.data_ptr(),
-            sad.data_ptr(), wmask.data_ptr(), n, d, h, w, frames_per_image,
+            texels.data_ptr(), sad.data_ptr(), wmask.data_ptr(), n, d, h, w, frames_per_image,
             border_radius, use_ssim, int(bf16), *(float(x) for x in channel_weights), stream,
         )
-    if code != 0:
-        msg = lib.plane_sweep_sad_error_string(code).decode()
-        raise RuntimeError(f"plane_sweep_sad launch failed: {msg} ({code})")
-    if bf16:
-        plane_sweep_sad.launches_bf16 += 1
-    else:
-        plane_sweep_sad.launches += 1
+    _count(plane_sweep_sad, lib, code, bf16)
     return sad, wmask, torch.zeros(n, d, device=images.device)
 
 
 plane_sweep_sad.launches = 0
 plane_sweep_sad.launches_bf16 = 0
+
+
+def plane_sweep_cost_volume(
+    images: Tensor,  # (N, C, H, W) float32 or bfloat16 in [-0.5, 0.5]
+    keyframes: Tensor,  # (B, C, H, W) float32, N == B * frames_per_image
+    homographies: Tensor,  # (N, D, 3, 3) float64, normalized so m22 == 1
+    border_radius: int = 2,
+    frames_per_image: int = 2,
+    use_ssim: int = 1,
+    channel_weights: Tuple[float, ...] = DEFAULT_CHANNEL_WEIGHTS,
+    alpha: float = 10.0,
+    not_center_cv: bool = False,
+) -> Tuple[Tensor, Tensor]:
+    """Fused plane-sweep cost volume; returns fused (B, D, H, W) and the
+    per-frame CVs (B, F, D, H, W), float32.
+
+    CUDA tensors launch the kernel (its scoring epilogue, then the frame
+    fusion), CPU tensors run the plain version.
+    ``plane_sweep_cost_volume.launches`` / ``.launches_bf16`` count kernel
+    launches on float32 / bf16 sources.
+    """
+    if images.device.type == "cpu":
+        return plane_sweep_cost_volume_reference(
+            images, keyframes, homographies, border_radius, frames_per_image, use_ssim,
+            channel_weights, alpha, not_center_cv,
+        )
+    if not images.is_cuda:
+        raise ValueError(
+            f"plane_sweep_cost_volume runs on CUDA or CPU tensors, not {images.device}")
+    _check_kernel_inputs(images, keyframes, homographies, frames_per_image, use_ssim,
+                         channel_weights)
+    n, _, h, w = images.shape
+    d = homographies.shape[1]
+    b = n // frames_per_image
+    bf16 = images.dtype == torch.bfloat16
+    lib = _library()
+    sfcv = torch.empty(b, frames_per_image, d, h, w, dtype=torch.float32, device=images.device)
+    weight = torch.empty(n, h, w, dtype=torch.float32, device=images.device)
+    fused = torch.empty(b, d, h, w, dtype=torch.float32, device=images.device)
+    texels = _texels(images)
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.plane_sweep_cost_volume_launch(
+            images.data_ptr(), keyframes.data_ptr(), homographies.data_ptr(),
+            texels.data_ptr(), sfcv.data_ptr(), weight.data_ptr(), fused.data_ptr(),
+            n, d, h, w, frames_per_image, border_radius, use_ssim, int(bf16), float(alpha),
+            int(not not_center_cv), *(float(x) for x in channel_weights), stream,
+        )
+    _count(plane_sweep_cost_volume, lib, code, bf16)
+    return fused, sfcv
+
+
+plane_sweep_cost_volume.launches = 0
+plane_sweep_cost_volume.launches_bf16 = 0

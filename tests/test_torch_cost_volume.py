@@ -2,8 +2,8 @@
 on the same numpy batch, at 32x64, D=8, F=2.
 
 Both port paths run here on the CPU: the sweep path (homographies ->
-``plane_sweep_sad``, which on CPU tensors is its plain version
-``plane_sweep_sad_reference`` -> ``_score_and_fuse``) and the plain path
+``plane_sweep_cost_volume``, which on CPU tensors is its plain version
+``plane_sweep_sad_reference`` -> ``score_and_fuse``) and the plain path
 (projection + ``grid_sample``). The JAX side runs ``backend="xla"``, exact
 and of unlimited reach: the reference the Pallas kernel is held to at
 atol 1e-4 (tests/test_pallas_kernel.py), the same atol here. The CUDA
@@ -124,6 +124,67 @@ def test_plane_sweep_sad_on_cpu_runs_its_plain_version():
     assert out[0].shape == out[1].shape == (B * F, D, H, W) and out[2].shape == (B * F, D)
     assert not out[2].any()  # coverage: full reach
     assert plane_sweep.plane_sweep_sad.launches == before  # no kernel launch on CPU
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_f(f):
+    return make_batch(B, H, W, f, stereo=False, mask=False, tz=0.5)
+
+
+@pytest.mark.parametrize("not_center_cv", [False, True])
+@pytest.mark.parametrize("use_ssim", [1, 2, 0, -1])
+@pytest.mark.parametrize("f", [1, 2])
+def test_plane_sweep_cost_volume_reference_matches_jax_xla(f, use_ssim, not_center_cv):
+    # The plain version of K1's cost-volume mode (the kernel's SADs, validity
+    # and score_and_fuse) against the JAX XLA cost volume, _score_and_fuse
+    # included, at the atol the Pallas kernel is held to.
+    nb = _batch_f(f)
+    fused_j, sfcv_j = j_cost_volume(
+        *(jnp.asarray(nb[k]) for k in _KEYS), jnp.float32(INV_MAX), jnp.float32(INV_MIN),
+        JConfig(depth_steps=D, use_ssim=use_ssim, not_center_cv=not_center_cv), backend="xla",
+    )
+    bt = batch_to_torch(nb, "cpu")
+    inv = torch.linspace(INV_MAX, INV_MIN, D, dtype=torch.float64)
+    homs = plane_sweep_homographies(
+        bt["keyframe_intrinsics"], bt["keyframe_pose"], bt["intrinsics"], bt["poses"], inv, H, W
+    ).reshape(B * f, D, 3, 3)
+    fused, sfcv = plane_sweep.plane_sweep_cost_volume_reference(
+        bt["frames"].reshape(B * f, 3, H, W), bt["keyframe"], homs, 2, f, use_ssim,
+        plane_sweep.DEFAULT_CHANNEL_WEIGHTS, 10.0, not_center_cv,
+    )
+    assert fused.shape == (B, D, H, W) and sfcv.shape == (B, f, D, H, W)
+    np.testing.assert_allclose(fused.numpy(), np.moveaxis(np.asarray(fused_j), -1, 1), atol=1e-4)
+    np.testing.assert_allclose(sfcv.numpy(), np.moveaxis(np.asarray(sfcv_j), -1, 2), atol=1e-4)
+
+
+def test_plane_sweep_cost_volume_on_cpu_runs_its_plain_version():
+    images, keyframes, homs = _sweep_inputs()
+    fn = plane_sweep.plane_sweep_cost_volume
+    before = fn.launches, fn.launches_bf16
+    out = fn(images, keyframes, homs, 2, F, 2, not_center_cv=True)
+    ref = plane_sweep.plane_sweep_cost_volume_reference(images, keyframes, homs, 2, F, 2,
+                                                        not_center_cv=True)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert (fn.launches, fn.launches_bf16) == before  # no kernel launch on CPU
+
+
+@pytest.mark.parametrize("bad", ["device", "keyframes", "mode"])
+def test_plane_sweep_cost_volume_rejects_what_the_kernel_cannot_take(bad):
+    images, keyframes, homs = _sweep_inputs()
+    kwargs = dict(frames_per_image=F, use_ssim=1)
+    if bad == "device":  # neither CPU nor CUDA
+        images, keyframes, homs = (t.to("meta") for t in (images, keyframes, homs))
+        call = plane_sweep.plane_sweep_cost_volume
+    else:  # the checks the wrapper runs on CUDA tensors
+        call = lambda *a, **k: plane_sweep._check_kernel_inputs(  # noqa: E731
+            *a, channel_weights=plane_sweep.DEFAULT_CHANNEL_WEIGHTS, **k)
+        if bad == "keyframes":
+            kwargs["frames_per_image"] = 3  # 4 sources are not 3 frames per keyframe
+        else:
+            kwargs["use_ssim"] = 3
+    with pytest.raises((TypeError, ValueError)):
+        call(images, keyframes, homs, **kwargs)
 
 
 @pytest.mark.parametrize("bad", ["float32_homographies", "keyframes", "channels", "mode"])

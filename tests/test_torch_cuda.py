@@ -68,6 +68,34 @@ def test_plane_sweep_sad_kernel_matches_plain_version(cuda, use_ssim, h, w, dtyp
     assert not cov.any()
 
 
+@pytest.mark.parametrize("not_center_cv", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_ssim", [1, 2, 0, -1])
+@pytest.mark.parametrize("d", [2, 8, 32, 96])
+@pytest.mark.parametrize("f", [1, 2, 3])
+@pytest.mark.parametrize("h,w", [(21, 45), (32, 64)])  # ragged and whole tiles
+def test_plane_sweep_cost_volume_kernel_matches_plain_version(cuda, h, w, f, d, use_ssim, dtype,
+                                                              not_center_cv):
+    images, keyframes, homs = _sweep_inputs(cuda, h, w, f=f, d=d)
+    images = images.to(dtype)
+    args = (images, keyframes, homs, 2, f, use_ssim, plane_sweep.DEFAULT_CHANNEL_WEIGHTS, 10.0,
+            not_center_cv)
+    before = _counter(plane_sweep.plane_sweep_cost_volume, dtype)
+    fused, sfcv = plane_sweep.plane_sweep_cost_volume(*args)
+    torch.cuda.synchronize()
+    assert _counter(plane_sweep.plane_sweep_cost_volume, dtype) == before + 1
+    rfused, rsfcv = plane_sweep.plane_sweep_cost_volume_reference(*args)
+    assert fused.shape == (2, d, h, w) and sfcv.shape == (2, f, d, h, w)
+    assert (sfcv - rsfcv).abs().max().item() <= SAD_TOL
+    # The fused CV against the plain version in float64 (the frame weights
+    # are ill-conditioned at flat cost curves): within the budget, or twice
+    # the float32 plain version's own error where that is larger.
+    f64, _ = plane_sweep.plane_sweep_cost_volume_reference(
+        images.double(), keyframes.double(), *args[2:])
+    tol = max(SAD_TOL, 2.0 * (rfused - f64).abs().max().item())
+    assert (fused - f64).abs().max().item() <= tol
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,w", [(21, 45), (32, 128)])  # ragged and whole blocks
 def test_warp_plane_sweep_kernel_matches_plain_version(cuda, h, w, dtype):
@@ -87,7 +115,7 @@ def test_warp_plane_sweep_kernel_matches_plain_version(cuda, h, w, dtype):
 
 
 @pytest.mark.parametrize("cfg", [
-    {}, {"warp_dtype": "bfloat16"},  # K1
+    {}, {"warp_dtype": "bfloat16"}, {"not_center_cv": True, "use_ssim": 2},  # K1
     {"sfcv_mult_mask": False}, {"patch_size": 5, "warp_dtype": "bfloat16"},  # K4
 ])
 def test_cost_volume_kernel_path_matches_cpu(cuda, cfg):
@@ -136,6 +164,21 @@ def test_grid_warp_kernel_matches_plain_version(cuda, h, w, dtype):
     assert (out[:, :, :, : w // 4 - 1] == 0).all()  # far outside: exactly 0.0
     for got, want in ((jx, rjx), (jy, rjy), (gx, rgx), (gy, rgy)):
         assert (got - want).abs().max().item() <= 2e-5  # tests/test_grid_warp.py:298
+
+
+def test_grid_warp_kernel_on_unaligned_tensors(cuda):
+    # Views that start 4 bytes into their storage: whole planes of four, but
+    # no 16-byte alignment, so the kernel takes its scalar accesses.
+    images, xs, ys, cot = _warp_inputs(32, 128, cuda)
+    shifted = [torch.empty(t.numel() + 1, device=cuda)[1:].view_as(t).copy_(t)
+               for t in (xs, ys, cot)]
+    assert all(t.data_ptr() % 16 for t in shifted)
+    sx, sy, scot = shifted
+    torch.testing.assert_close(gw.grid_warp(images, sx, sy), gw.grid_warp(images, xs, ys),
+                               rtol=0, atol=0)
+    for got, want in zip(gw.grid_warp_grad(images, sx, sy, scot),
+                         gw.grid_warp_grad(images, xs, ys, cot)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_warp_pixels_gradient_on_the_card(cuda):
