@@ -58,7 +58,9 @@ checkout, then:
 12. K2 on bf16 images (the serving policy's loss warp), all three modes,
    with phase 7's inputs, gates and timings;
 13. K4 (``warp_plane_sweep``), float32 and bf16 sources, at N=16, D=32,
-   3x256x512 against its plain version, timed; then the cost volume with
+   3x256x512 against its plain version, bit for bit, timed; its two
+   gather layouts (packed texels, the wrapper's for C = 3, and planar)
+   equal and timed in turns; then the cost volume with
    ``sfcv_mult_mask=False`` (the path K4 serves), float32 and bf16, against
    its plain path run in float64, as phase 4;
 14. the serving forward: the inference entry point under ``--precision
@@ -106,11 +108,6 @@ LOSS_RTOL = 5e-4  # PARITY.md row 9, full-chain reprojection
 TRAIN_STEPS = 6
 PROFILED_STEPS = 5
 SOURCES = ("plane_sweep_sad", "grid_warp", "photo_error", "warp_plane_sweep")
-# K4 against its plain version: the same float32 operations in the same
-# order, so equal bit for bit is expected; the budget allows a last-bit
-# difference of a displacement (~2e-6 px times a value range of 1) and, for
-# bf16, one rounding step (2^-9 at |value| <= 0.5).
-K4_TOL = {"float32": 1e-5, "bfloat16": 2.0**-8}
 SERVING_CV_TOL = 5e-3  # bf16 sources vs the exact CV (tests/test_pallas_kernel.py:117)
 UNET_REL = 2e-2  # bf16 U-Nets vs float32, mean |diff| / mean |ref| (tests/test_models.py)
 # A per-frame CV with sfcv_mult_mask=False keeps a pixel by warped != 0, an
@@ -151,13 +148,19 @@ K1_FUSE_FLOPS_PER_FRAME, K1_FUSE_FLOPS = 2, 3
 K2_FLOPS = {"grid_warp": 8 + 4, "grid_warp_jac": 8 + 4 + 16, "grid_warp_grad": 8 + 4 + 16 + 4}
 # K3 per (pixel, channel): forward 5 gaussian window sums 90, the SSIM
 # formula 20, clamp and L1 6, channel mean 2 (146 in all, with the pixel's
-# output terms); the backward recomputes the window sums and the formula
-# (110), its g-maps 30, three 3x3 stencils 54, the L1 term 5, the sum 6.
-K3_FLOPS = {"photo_error_fwd": 146, "photo_error_bwd": 215}
-# K4 per (source, hypothesis, pixel): displacement 19, footprint 12, taps
-# and border indicator 28.
-K4_FLOPS = 19 + 12 + 28
-
+# output terms). The backward as its kernel computes it, per g-map slot:
+# one staged row's sums 34 (x*x, y*y, x*y on 3 taps 9; for each of the 5
+# statistics the two horizontal gaussian sums hA, hB from the pair sum
+# v0 + v2: 1 add + 2 mul-adds each, 25), the 3-row window 10 (2 adds x 5),
+# the formula 41 (a 3, b 4, p 4, q 4, pq 1, its reciprocal 1, ab 1, val 2,
+# clamp test 2, g_q 1, 1/pq^2 1, g_mu 11, g_xx 3, g_xy 3); per output: the
+# three g-maps' row sums 15 and windows 6, the sum 2 x S_xx + y S_xy + S_mu
+# and the L1 term 10 (116 in all).
+K3_FLOPS = {"photo_error_fwd": 146, "photo_error_bwd": 34 + 10 + 41 + 15 + 6 + 10}
+# K4 per (source, hypothesis, pixel): displacement 16 (the row's products
+# a01 y, a11 y, a21 y are hoisted: e 3, 1 + e 1, each of dx and dy mul,
+# add, add, mul, sub and div 6), footprint 12, taps and border indicator 28.
+K4_FLOPS = 16 + 12 + 28
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -925,7 +928,7 @@ def cost_volume_split(dev, card: str, args, warp_dtype: str) -> None:
     run = lambda: compute_cost_volume(*args, 0.0025, 0.33, cfg)  # noqa: E731
     whole = cuda_ms(run, 10)
     homs_ms = cuda_ms(lambda: _sweep_sources(*args, 0.0025, 0.33, cfg), 10)
-    names = {"plane_sweep_kernel": "K1", "pack_kernel": "packing", "fuse_frames_kernel": "fusion"}
+    names = {"plane_sweep_kernel": "K1", "pack_texels": "packing", "fuse_frames_kernel": "fusion"}
     parts = device_ms(run, 5, names)
     if not all(parts[p] > 0 for p in names.values()):
         raise AssertionError(f"the cost volume's trace misses a launch of K1: {parts}")
@@ -934,6 +937,26 @@ def cost_volume_split(dev, card: str, args, warp_dtype: str) -> None:
         f"{parts['packing']:.3f} + frame fusion {parts['fusion']:.3f} + other kernels "
         f"{parts['other']:.3f} + idle {whole - sum(parts.values()):.3f} ms; homographies and "
         f"sources alone {homs_ms:.3f} ms on {card}")
+
+
+def warp_sweep_planar(src, homs):
+    """K4 with planar gathers, the layout the wrapper takes for C != 3,
+    launched through its library on C = 3 sources (no texels) to time it
+    against the packed layout; counted on no launch counter."""
+    import torch
+
+    from monorec_tpu_torch.ops import warp_sweep
+
+    n, c, h, w = src.shape
+    d = homs.shape[1]
+    warped = torch.empty(n, d, c, h, w, dtype=src.dtype, device=src.device)
+    wmask = torch.empty(n, d, h, w, dtype=torch.float32, device=src.device)
+    code = warp_sweep._library().warp_plane_sweep_launch(
+        src.data_ptr(), homs.data_ptr(), None, warped.data_ptr(), wmask.data_ptr(), n, c, d, h, w,
+        2, int(src.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"warp_plane_sweep (planar) launch failed ({code})")
+    return warped, wmask
 
 
 def phase_warp_sweep(dev, card: str) -> dict:
@@ -958,14 +981,29 @@ def phase_warp_sweep(dev, card: str) -> dict:
         zeros = ((warped == 0) != (rwarped == 0)).sum().item()
         m_err = (wmask - rwmask).abs().max().item()
         mism = ((wmask != 0) != (rwmask != 0)).sum().item()
+        pwarped, pwmask = warp_sweep_planar(src, homs)
+        torch.cuda.synchronize()
+        layouts_equal = torch.equal(pwarped, warped) and torch.equal(pwmask, wmask)
         log(f"[13 warp sweep] {name} sources, N={B * F}, D={D}, 3x{H}x{W}: warped "
             f"{tuple(warped.shape)} {warped.dtype}, max|diff| {err:.3e} ({unequal} of "
             f"{warped.numel()} elements not bit-equal), exact-zero mismatches {zeros}; wmask "
-            f"max|diff| {m_err:.3e}, wmask!=0 mismatches {mism}")
-        if not (warped.dtype == dtype and torch.isfinite(warped).all() and err <= K4_TOL[name]
-                and zeros == 0 and mism == 0 and (cov == 0).all()):
+            f"max|diff| {m_err:.3e}, wmask!=0 mismatches {mism}; planar gathers equal to the "
+            f"packed texels' {layouts_equal}")
+        if not (warped.dtype == dtype and torch.isfinite(warped).all() and unequal == 0
+                and m_err == 0 and zeros == 0 and mism == 0 and layouts_equal
+                and (cov == 0).all()):
             raise AssertionError(f"warp_plane_sweep ({name}) disagrees with its plain version")
-        del warped, wmask, rwarped, rwmask
+        del warped, wmask, rwarped, rwmask, pwarped, pwmask
+        # The two gather layouts at C = 3, in turns: the wrapper's packed
+        # texels (the packing pass included) and planar gathers.
+        packed = lambda: warp_sweep.warp_plane_sweep(src, homs, 2)  # noqa: E731
+        planar = lambda: warp_sweep_planar(src, homs)  # noqa: E731
+        layout_turns = [cuda_ms(f, 10) for f in (packed, planar, planar, packed)]
+        packed_ms = statistics.mean(layout_turns[0::3])
+        planar_ms = statistics.mean(layout_turns[1:3])
+        log(f"[13 warp sweep] {name} gather layouts (packed, planar, planar, packed): "
+            f"{', '.join(f'{t:.3f}' for t in layout_turns)} ms; packed texels {packed_ms:.3f} ms, "
+            f"planar gathers {planar_ms:.3f} ms on {card}")
         kernel = lambda: warp_sweep.warp_plane_sweep(src, homs, 2)  # noqa: E731
         plain = lambda: warp_sweep.warp_plane_sweep_reference(src, homs, 2)  # noqa: E731
         library = None
@@ -988,6 +1026,7 @@ def phase_warp_sweep(dev, card: str) -> dict:
         key = "warp_plane_sweep" + ("_bf16" if name == "bfloat16" else "")
         n_out = B * F * D * H * W
         records[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                        "planar_gather_ms": planar_ms,
                         **bound(nbytes(src, homs) + n_out * (3 * src.element_size() + 4)
                                 + B * F * D * 4, K4_FLOPS * n_out)}
     del images, homs, src
@@ -1330,7 +1369,8 @@ def main() -> int:
         "replaces": replaces,
         "launches": records[k]["launches"],
         "max_abs_err": records[k]["max_abs_err"],
-        **{f: records[k][f] for f in ("sfcv_max_abs_err",) if f in records[k]},
+        **{f: records[k][f] for f in ("sfcv_max_abs_err", "planar_gather_ms")
+           if f in records[k]},
         "ms": records[k]["ms"],
         "plain_ms": records[k]["plain_ms"],
         "bound_ms": records[k]["bound_ms"],

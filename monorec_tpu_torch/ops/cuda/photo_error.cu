@@ -9,16 +9,42 @@
 // no gradient. The TPU kernel's row blocks, lane rolls and the H % 16 /
 // W % 128 shape gate are not carried over: ragged tiles are bounds-checked.
 //
-// What bounds it: per output pixel and channel the five 3x3 window
+// Forward. What bounds it: per output pixel and channel the five 3x3 window
 // statistics are 45 multiply-adds on values that neighbouring pixels share,
 // against two float32 reads per channel and one write. The design stages
 // each channel's x and y tile with its halo in shared memory, so every
 // input value is read from device memory once per tile and the window sums
 // run out of shared memory; no (M, C, H, W) intermediate is written.
-//
 // Grid: (ceil(W / TX), ceil(H / TY), M) blocks of 256 threads, each thread
 // two pixels of the 16x32 tile, a loop over channels inside.
 //
+// Backward. What bounds it: bytes by count (x, y, cot read and gx written
+// once: 336 MB at M=64, 3x256x512, 0.10 ms on an H100), but the first port
+// ran at 15% of that, held by its instruction stream: element-wise staging
+// with three barriers per channel, a 612-slot g-map loop over 256 threads
+// (the last pass 39% full), ~53 shared-memory loads per pixel and channel,
+// two divisions per slot, and 71 registers with a spill. The design:
+//   * 30x30 output tiles, so the g-map region (tile + 1 px) is 32x32: a lane
+//     owns a g-map column and each of the 4 warps of a 128-thread block an
+//     8-row strip, every lane busy; the outputs take 30 of each warp's
+//     lanes. A strip recomputes the row sums of its 2 halo rows: 1.25x
+//     the rows here, 1.5x with 256 threads in 4-row strips.
+//   * Staging by cp.async from a 4-float column boundary left of the halo:
+//     16-byte copies where W % 4 == 0 and the tensors are 16-byte aligned,
+//     4-byte copies otherwise, the zero padding by the copies' src-size 0.
+//     Channel c + 1 is in flight while channel c computes (two buffers, two
+//     barriers per channel); the cotangent is staged once per tile.
+//   * Window sums from row sums: G = [[a,b,a],[b,c,b],[a,b,a]], so a window
+//     sum is hA(row above) + hB(own row) + hA(row below) with hA, hB the
+//     horizontal sums under weights (a,b,a) and (b,c,b): the same nine
+//     products, grouped by row. A lane walks down its column and keeps the
+//     two rows above in registers, so each staged row costs 6 shared loads
+//     for all five statistics; the G* stencils of the g-maps run the same
+//     way (9 loads per output row).
+//   * One reciprocal of p q per slot serves the clamp test and the g-maps.
+//   * __launch_bounds__(128, 8): at most 64 registers, no spill; 39 KB of
+//     shared memory a block, so 5 blocks per SM.
+
 // Forward, per channel: mu_x, mu_y, E[xx], E[yy], E[xy] over the zero-padded
 // window (taps summed row-major, as the plain version's convolution reads
 // them), then the plain version's formula: n = (2 mu_x mu_y + C1)(2 s_xy +
@@ -89,16 +115,6 @@ __device__ __forceinline__ Stats window_stats(const float (*xs)[COLS], const flo
   return s;
 }
 
-template <int COLS>
-__device__ __forceinline__ float stencil(const float (*m)[COLS], int r, int c) {
-  float s = 0.f;
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b) s += G[a][b] * m[r + a][c + b];
-  return s;
-}
-
 __global__ void __launch_bounds__(THREADS)
 photo_error_fwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
                        float* __restrict__ out, int C, int H, int W) {
@@ -141,70 +157,199 @@ photo_error_fwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// ---- Backward ------------------------------------------------------------
+//
+// Tile: BT x BT outputs; its g-maps cover the tile + a 1-px halo, BQ x BQ =
+// 32 x 32, one warp's width, so a lane owns a g-map column and each warp a
+// strip of GROWS rows, every lane busy. The outputs take lanes 0..BT-1.
+constexpr int BT = 30;              // outputs per tile side
+constexpr int BQ = BT + 2;          // g-map side (32)
+constexpr int BWD_THREADS = 128;
+constexpr int WARPS = BWD_THREADS / 32;
+constexpr int GROWS = BQ / WARPS;   // g-map rows per warp (8)
+constexpr int OROWS = (BT + WARPS - 1) / WARPS;  // output rows per warp (8; the last 6)
+constexpr int XY_ROWS = BT + 4;     // staged x / y rows: tile + 2-px halo (34)
+constexpr int COT_ROWS = BQ;        // staged cotangent rows: tile + 1-px halo (32)
+// Staged columns from a 4-float boundary at or left of the tile's 2-px
+// halo, as 16-byte chunks: the halo (BT + 4 = 34) plus up to 3 of lead.
+constexpr int SCOLS = 40;
+// G = [[GA, GB, GA], [GB, GC, GB], [GA, GB, GA]], the entries of G above.
+constexpr float GA = 0.0947f, GB = 0.1183f, GC = 0.1478f;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 (or 4) bytes; a copy that is not `valid` writes zeros and
+// reads nothing (src-size 0; `src` is any mapped address then).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start copying the (ROWS x SCOLS) window of the plane `src` whose slot
+// (0, 0) is image pixel (y0, xa) into dst, zero outside the image. VEC: xa,
+// W and src are 16-byte aligned, so each 16-byte chunk lies wholly inside
+// or outside a row; else 4-byte copies.
+template <int ROWS, bool VEC>
+__device__ __forceinline__ void stage_async(float (*dst)[SCOLS], const float* __restrict__ src,
+                                            int y0, int xa, int H, int W) {
+  if (VEC) {
+    for (int i = threadIdx.x; i < ROWS * (SCOLS / 4); i += BWD_THREADS) {
+      const int r = i / (SCOLS / 4), k = i % (SCOLS / 4) * 4;
+      const int py = y0 + r, px = xa + k;
+      const bool in = py >= 0 && py < H && px >= 0 && px < W;
+      cp_async16(&dst[r][k], in ? src + py * W + px : src, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * SCOLS; i += BWD_THREADS) {
+      const int r = i / SCOLS, k = i % SCOLS;
+      const int py = y0 + r, px = xa + k;
+      const bool in = py >= 0 && py < H && px >= 0 && px < W;
+      cp_async4(&dst[r][k], in ? src + py * W + px : src, in);
+    }
+  }
+}
+
+// The two horizontal gaussian sums of three neighbours v0, v1, v2: with
+// weights (GA, GB, GA) and (GB, GC, GB). A 3x3 window sum is hA of the row
+// above + hB of its own row + hA of the row below: the same nine products.
+__device__ __forceinline__ void hsums(float v0, float v1, float v2, float& ha, float& hb) {
+  const float side = v0 + v2;
+  ha = GA * side + GB * v1;
+  hb = GB * side + GC * v1;
+}
+
+// The five statistics' row sums (x, y, xx, yy, xy) of staged row `xr`, `yr`
+// at columns q..q+2.
+__device__ __forceinline__ void stat_row(const float* xr, const float* yr, int q, float (&ha)[5],
+                                         float (&hb)[5]) {
+  const float x0 = xr[q], x1 = xr[q + 1], x2 = xr[q + 2];
+  const float y0 = yr[q], y1 = yr[q + 1], y2 = yr[q + 2];
+  hsums(x0, x1, x2, ha[0], hb[0]);
+  hsums(y0, y1, y2, ha[1], hb[1]);
+  hsums(x0 * x0, x1 * x1, x2 * x2, ha[2], hb[2]);
+  hsums(y0 * y0, y1 * y1, y2 * y2, ha[3], hb[3]);
+  hsums(x0 * y0, x1 * y1, x2 * y2, ha[4], hb[4]);
+}
+
+// Grid (ceil(W / BT), ceil(H / BT), M), 128 threads, a loop over channels
+// with channel c + 1's copies in flight while channel c computes.
+template <bool VEC>
+__global__ void __launch_bounds__(BWD_THREADS, 1024 / BWD_THREADS)
 photo_error_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
                        const float* __restrict__ cot, float* __restrict__ gx,
                        int C, int H, int W) {
-  constexpr int QY = TY + 2, QX = TX + 2;  // g-map extent: tile + 1-px halo
-  __shared__ float xs[TY + 4][TX + 4];     // tile + 2-px halo
-  __shared__ float ys[TY + 4][TX + 4];
-  __shared__ float cs[QY][QX];
-  __shared__ float g_mu[QY][QX], g_xx[QY][QX], g_xy[QY][QX];
+  __shared__ __align__(16) float xs[2][XY_ROWS][SCOLS];
+  __shared__ __align__(16) float ys[2][XY_ROWS][SCOLS];
+  __shared__ __align__(16) float cs[COT_ROWS][SCOLS];
+  __shared__ float gmap[3][BQ][BQ];  // g_mu, g_xx, g_xy
   const int m = blockIdx.z;
-  const int ty0 = blockIdx.y * TY, tx0 = blockIdx.x * TX;
-  const size_t plane = (size_t)H * W;
+  const int ty0 = blockIdx.y * BT, tx0 = blockIdx.x * BT;
+  const int xa = (tx0 - 2) & ~3;  // image column of staged column 0
+  const int ox = tx0 - 2 - xa;    // staged column of image column tx0 - 2 (0..3)
+  const int plane = H * W;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float ssim_scale = 0.85f / (float)C * 0.5f, l1_scale = 0.15f / (float)C;
+  const float* xm = x + (size_t)m * C * plane;
+  const float* ym = y + (size_t)m * C * plane;
 
-  stage<QY, QX>(cs, cot + (size_t)m * plane, ty0 - 1, tx0 - 1, H, W);
+  // Cotangent rows ty0 - 1.. (the g-maps' region), x and y rows ty0 - 2..
+  stage_async<COT_ROWS, VEC>(cs, cot + (size_t)m * plane, ty0 - 1, xa, H, W);
+  stage_async<XY_ROWS, VEC>(xs[0], xm, ty0 - 2, xa, H, W);
+  stage_async<XY_ROWS, VEC>(ys[0], ym, ty0 - 2, xa, H, W);
+  cp_async_commit();
+
   for (int c = 0; c < C; ++c) {
-    const size_t off = ((size_t)m * C + c) * plane;
-    __syncthreads();  // the previous channel is done with every map
-    stage<TY + 4, TX + 4>(xs, x + off, ty0 - 2, tx0 - 2, H, W);
-    stage<TY + 4, TX + 4>(ys, y + off, ty0 - 2, tx0 - 2, H, W);
-    __syncthreads();
+    const int buf = c & 1;
+    cp_async_wait_all();
+    __syncthreads();  // channel c has landed; channel c - 1 is done with every buffer
+    if (c + 1 < C) {
+      stage_async<XY_ROWS, VEC>(xs[buf ^ 1], xm + (size_t)(c + 1) * plane, ty0 - 2, xa, H, W);
+      stage_async<XY_ROWS, VEC>(ys[buf ^ 1], ym + (size_t)(c + 1) * plane, ty0 - 2, xa, H, W);
+      cp_async_commit();
+    }
 
-    // g-maps on the tile + 1-px halo; zero outside the image.
-    for (int i = threadIdx.x; i < QY * QX; i += THREADS) {
-      const int r = i / QX, q = i % QX;
-      const int py = ty0 - 1 + r, px = tx0 - 1 + q;
-      float gm = 0.f, gxx = 0.f, gxy = 0.f;
-      if (py >= 0 && py < H && px >= 0 && px < W) {
-        const Stats s = window_stats<TX + 4>(xs, ys, r, q);
-        const float a = 2.f * s.mu_x * s.mu_y + C1;
-        const float b = 2.f * (s.e_xy - s.mu_x * s.mu_y) + C2;
-        const float p = s.mu_x * s.mu_x + s.mu_y * s.mu_y + C1;
-        const float qq = s.e_xx + s.e_yy - s.mu_x * s.mu_x - s.mu_y * s.mu_y + C2;
-        const float pq = p * qq;
-        const float val = 1.f - (a * b) / pq;
-        const float g_q = (val >= 0.f && val <= 1.f) ? ssim_scale * cs[r][q] : 0.f;
-        const float inv_pq = 1.f / pq;
-        gm = g_q * (-2.f * s.mu_y * (b - a) * inv_pq +
-                    2.f * s.mu_x * a * b * (qq - p) * inv_pq * inv_pq);
-        gxx = g_q * (a * b * inv_pq * inv_pq * p);
-        gxy = g_q * (-2.f * a * inv_pq);
+    // g-maps at g-map (r, q) = image (ty0 - 1 + r, tx0 - 1 + q): lane q walks
+    // rows r0..r0 + GROWS - 1, keeping the row sums of the two rows above.
+    {
+      const int q = lane, r0 = warp * GROWS, px = tx0 - 1 + q;
+      float a2[5], b1[5], a1[5];  // hA of staged row s - 2, hB and hA of s - 1
+#pragma unroll
+      for (int k = 0; k < GROWS + 2; ++k) {
+        const int s = r0 + k;  // staged row: image row ty0 - 2 + s
+        float ha[5], hb[5];
+        stat_row(xs[buf][s], ys[buf][s], ox + q, ha, hb);
+        if (k >= 2) {
+          const int r = s - 2, py = ty0 - 1 + r;
+          float g0 = 0.f, g1 = 0.f, g2 = 0.f;
+          if (py >= 0 && py < H && px >= 0 && px < W) {
+            const float mu_x = a2[0] + b1[0] + ha[0], mu_y = a2[1] + b1[1] + ha[1];
+            const float e_xx = a2[2] + b1[2] + ha[2], e_yy = a2[3] + b1[3] + ha[3];
+            const float e_xy = a2[4] + b1[4] + ha[4];
+            const float a = 2.f * mu_x * mu_y + C1;
+            const float b = 2.f * (e_xy - mu_x * mu_y) + C2;
+            const float p = mu_x * mu_x + mu_y * mu_y + C1;
+            const float qq = e_xx + e_yy - mu_x * mu_x - mu_y * mu_y + C2;
+            const float inv_pq = __frcp_rn(p * qq);
+            const float ab = a * b;
+            const float val = 1.f - ab * inv_pq;
+            const float g_q = (val >= 0.f && val <= 1.f) ? ssim_scale * cs[r][ox + 1 + q] : 0.f;
+            const float inv2 = inv_pq * inv_pq;
+            g0 = g_q * (-2.f * mu_y * (b - a) * inv_pq + 2.f * mu_x * ab * (qq - p) * inv2);
+            g1 = g_q * (ab * p * inv2);
+            g2 = g_q * (-2.f * a * inv_pq);
+          }
+          gmap[0][r][q] = g0;
+          gmap[1][r][q] = g1;
+          gmap[2][r][q] = g2;
+        }
+#pragma unroll
+        for (int i = 0; i < 5; ++i) a2[i] = a1[i], a1[i] = ha[i], b1[i] = hb[i];
       }
-      g_mu[r][q] = gm;
-      g_xx[r][q] = gxx;
-      g_xy[r][q] = gxy;
     }
     __syncthreads();
 
+    // Outputs at image (ty0 + o, tx0 + j): lane j < BT walks rows o0.. of
+    // its strip, G* of the three g-maps from their row sums.
+    if (lane < BT) {
+      const int j = lane, o0 = warp * OROWS, rows = min(OROWS, BT - o0), px = tx0 + j;
+      float* out = gx + ((size_t)m * C + c) * plane;
+      float a2[3], b1[3], a1[3];
 #pragma unroll
-    for (int k = 0; k < PIX; ++k) {
-      const int i = threadIdx.x + k * THREADS;
-      const int r = i / TX, q = i % TX;
-      const int py = ty0 + r, px = tx0 + q;
-      if (py < H && px < W) {
-        const float xc = xs[r + 2][q + 2], yc = ys[r + 2][q + 2];
-        const float sgn = (float)((xc > yc) - (xc < yc));
-        gx[off + (size_t)py * W + px] = stencil<QX>(g_mu, r, q) +
-                                        2.f * xc * stencil<QX>(g_xx, r, q) +
-                                        yc * stencil<QX>(g_xy, r, q) +
-                                        l1_scale * cs[r + 1][q + 1] * sgn;
+      for (int k = 0; k < OROWS + 2; ++k) {
+        if (k >= rows + 2) break;
+        const int t = o0 + k;  // g-map row
+        float ha[3], hb[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          hsums(gmap[i][t][j], gmap[i][t][j + 1], gmap[i][t][j + 2], ha[i], hb[i]);
+        if (k >= 2) {
+          const int o = t - 2, py = ty0 + o;
+          if (py < H && px < W) {
+            const float xc = xs[buf][o + 2][ox + 2 + j], yc = ys[buf][o + 2][ox + 2 + j];
+            const float sgn = (float)((xc > yc) - (xc < yc));
+            out[py * W + px] = (a2[0] + b1[0] + ha[0]) + 2.f * xc * (a2[1] + b1[1] + ha[1]) +
+                               yc * (a2[2] + b1[2] + ha[2]) +
+                               l1_scale * cs[o + 1][ox + 2 + j] * sgn;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 3; ++i) a2[i] = a1[i], a1[i] = ha[i], b1[i] = hb[i];
       }
     }
   }
 }
+
+bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -224,10 +369,14 @@ int photo_error_fwd_launch(const float* x, const float* y, float* out, int M, in
 // Backward: gx (M, C, H, W) = d(sum(out * cot)) / dx for cot (M, H, W).
 int photo_error_bwd_launch(const float* x, const float* y, const float* cot, float* gx, int M,
                            int C, int H, int W, void* stream) {
-  if (M <= 0 || M > 65535 || C <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, M), block(THREADS);
-  photo_error_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(x, y, cot, gx, C,
-                                                                               H, W);
+  if (M <= 0 || M > 65535 || C <= 0 || H <= 0 || W <= 0 || (long long)H * W > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + BT - 1) / BT, (H + BT - 1) / BT, M), block(BWD_THREADS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (W % 4 == 0 && aligned16(x) && aligned16(y) && aligned16(cot))
+    photo_error_bwd_kernel<true><<<grid, block, 0, s>>>(x, y, cot, gx, C, H, W);
+  else
+    photo_error_bwd_kernel<false><<<grid, block, 0, s>>>(x, y, cot, gx, C, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -99,48 +99,6 @@ constexpr float INV9 = 1.f / 9.f;
 
 enum Out { RAW = 0, CV = 1 };
 
-// One source pixel's C = 3 channels, interleaved and padded to one 16-byte
-// (float32) or 8-byte (bf16: the bit patterns, channel 0 in the low half of
-// x) word, so that a bilinear tap is one load instead of C.
-template <typename T>
-struct Texel;
-template <>
-struct Texel<float> {
-  using type = float4;
-};
-template <>
-struct Texel<__nv_bfloat16> {
-  using type = uint2;
-};
-
-__device__ __forceinline__ float4 make_texel(float a, float b, float c) {
-  return make_float4(a, b, c, 0.f);
-}
-__device__ __forceinline__ uint2 make_texel(__nv_bfloat16 a, __nv_bfloat16 b, __nv_bfloat16 c) {
-  return make_uint2((unsigned)__bfloat16_as_ushort(a) | (unsigned)__bfloat16_as_ushort(b) << 16,
-                    (unsigned)__bfloat16_as_ushort(c));
-}
-// A texel's channels as float32 (bf16 converts exactly).
-__device__ __forceinline__ void unpack(const float4& q, float (&v)[C]) {
-  v[0] = q.x, v[1] = q.y, v[2] = q.z;
-}
-__device__ __forceinline__ void unpack(const uint2& q, float (&v)[C]) {
-  v[0] = __uint_as_float(q.x << 16), v[1] = __uint_as_float(q.x & 0xffff0000u);
-  v[2] = __uint_as_float(q.y << 16);
-}
-
-// (N, C, H, W) sources -> (N, H, W) texels. Grid: (ceil(H W / THREADS), N).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-pack_kernel(const T* __restrict__ images, typename Texel<T>::type* __restrict__ texels,
-            int plane) {
-  const int p = blockIdx.x * THREADS + threadIdx.x;
-  if (p >= plane) return;
-  const size_t n = blockIdx.y;
-  const T* img = images + n * C * plane + p;
-  texels[n * plane + p] = make_texel(img[0], img[plane], img[2 * plane]);
-}
-
 // jnp.pad / F.pad "reflect" index map. Slots two pixels out only feed error
 // values that are zeroed (outside the image), so clamp those in range.
 __device__ __forceinline__ int reflect(int i, int n) {
@@ -207,7 +165,7 @@ __device__ __forceinline__ void strip_error(const float (*ws)[EX], const float (
 
 template <typename T, int MODE>
 __global__ void __launch_bounds__(THREADS, 3)
-plane_sweep_kernel(const typename Texel<T>::type* __restrict__ texels,  // (N, H, W)
+plane_sweep_kernel(const typename sweep::Texel<T>::type* __restrict__ texels,  // (N, H, W)
                    const float* __restrict__ keyframes,  // (B, C, H, W)
                    const double* __restrict__ homs,      // (N, D, 3, 3), m22 == 1
                    float* __restrict__ sad,              // raw: (N, D, H, W); CV: sfcv
@@ -225,7 +183,7 @@ plane_sweep_kernel(const typename Texel<T>::type* __restrict__ texels,  // (N, H
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const size_t plane = (size_t)H * W;
-  const typename Texel<T>::type* tex = texels + (size_t)n * plane;
+  const typename sweep::Texel<T>::type* tex = texels + (size_t)n * plane;
   const float* key = keyframes + (size_t)(n / frames_per_image) * C * plane;
   const float cw[C] = {cw0, cw1, cw2};
   // Error stage: this thread's column and row strip.
@@ -266,7 +224,7 @@ plane_sweep_kernel(const typename Texel<T>::type* __restrict__ texels,  // (N, H
           const int tx = fp.xi + (t & 1), ty = fp.yi + (t >> 1);
           if (tx >= 0 && tx <= W - 1 && ty >= 0 && ty <= H - 1) {
             float s[C];
-            unpack(__ldg(tex + ty * W + tx), s);
+            sweep::unpack(__ldg(tex + ty * W + tx), s);
 #pragma unroll
             for (int c = 0; c < C; ++c) v[c] = __fadd_rn(v[c], __fmul_rn(s[c], fp.w[t]));
           }
@@ -413,9 +371,9 @@ int launch(const void* images, const float* keyframes, const double* homs, void*
            float* sad, float* aux, int N, int D, int H, int W, int frames_per_image,
            int border_radius, int use_ssim, int out, float alpha, float cw0, float cw1,
            float cw2, cudaStream_t s) {
-  using Tex = typename Texel<T>::type;
+  using Tex = typename sweep::Texel<T>::type;
   const int plane = H * W;
-  pack_kernel<T><<<dim3((plane + THREADS - 1) / THREADS, N), THREADS, 0, s>>>(
+  sweep::pack_texels<T, THREADS><<<dim3((plane + THREADS - 1) / THREADS, N), THREADS, 0, s>>>(
       static_cast<const T*>(images), static_cast<Tex*>(texels), plane);
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, N);
   const dim3 block(THREADS);

@@ -1,8 +1,7 @@
 // Device code shared by the gather kernels: source loads in float32 or bf16
-// (K2 grid_warp.cu, K4 warp_plane_sweep.cu; K1 plane_sweep_sad.cu reads its
-// sources as interleaved texels of its own), and for the plane-sweep kernels
-// K1 and K4 the stores, the displacement of a pixel under a homography and
-// its bilinear footprint.
+// (K2 grid_warp.cu, K4 warp_plane_sweep.cu), and for the plane-sweep kernels
+// K1 and K4 the three-channel source texels and their packing pass, the
+// displacement of a pixel under a homography and its bilinear footprint.
 //
 // Coordinates: the homographies arrive in float64 (m22 == 1). A kernel takes
 // M - I from them once per hypothesis, then evaluates in float32 the
@@ -31,9 +30,47 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
 }
 
-// Store a float32 sum in the output type; bf16 rounds to nearest even.
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// One source pixel's 3 channels, interleaved and padded to one 16-byte
+// (float32) or 8-byte (bf16: the bit patterns, channel 0 in the low half of
+// x) word, so that a bilinear tap is one load instead of three.
+template <typename T>
+struct Texel;
+template <>
+struct Texel<float> {
+  using type = float4;
+};
+template <>
+struct Texel<__nv_bfloat16> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ float4 make_texel(float a, float b, float c) {
+  return make_float4(a, b, c, 0.f);
+}
+__device__ __forceinline__ uint2 make_texel(__nv_bfloat16 a, __nv_bfloat16 b, __nv_bfloat16 c) {
+  return make_uint2((unsigned)__bfloat16_as_ushort(a) | (unsigned)__bfloat16_as_ushort(b) << 16,
+                    (unsigned)__bfloat16_as_ushort(c));
+}
+// A texel's channels as float32 (bf16 converts exactly).
+__device__ __forceinline__ void unpack(const float4& q, float (&v)[3]) {
+  v[0] = q.x, v[1] = q.y, v[2] = q.z;
+}
+__device__ __forceinline__ void unpack(const uint2& q, float (&v)[3]) {
+  v[0] = __uint_as_float(q.x << 16), v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+}
+
+// (N, 3, H, W) sources -> (N, H, W) texels. Grid: (ceil(H W / THREADS), N).
+template <typename T, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+pack_texels(const T* __restrict__ images, typename Texel<T>::type* __restrict__ texels,
+            int plane) {
+  const int p = blockIdx.x * THREADS + threadIdx.x;
+  if (p >= plane) return;
+  const size_t n = blockIdx.y;
+  const T* img = images + n * 3 * plane + p;
+  texels[n * plane + p] = make_texel(img[0], img[plane], img[2 * plane]);
+}
 
 // M - I of one (3, 3) homography, in float32 (m22 is not read).
 struct Hom {

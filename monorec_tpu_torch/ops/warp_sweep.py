@@ -49,7 +49,7 @@ def _library() -> ctypes.CDLL:
 
     lib = build.load("warp_plane_sweep")
     lib.warp_plane_sweep_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
     lib.warp_plane_sweep_launch.restype = ctypes.c_int
     lib.warp_plane_sweep_error_string.argtypes = [ctypes.c_int]
@@ -91,10 +91,15 @@ def warp_plane_sweep(images: Tensor, homographies: Tensor, border_radius: int = 
     lib = _library()
     warped = torch.empty(n, d, c, h, w, dtype=images.dtype, device=images.device)
     wmask = torch.empty(n, d, h, w, dtype=torch.float32, device=images.device)
+    # Three channels are packed into one texel per pixel first (a tap is one
+    # load); other channel counts are gathered from their planes.
+    texels = (torch.empty(n, h, w, 4, dtype=images.dtype, device=images.device)
+              if c == 3 else None)
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.warp_plane_sweep_launch(
-            images.data_ptr(), homographies.data_ptr(), warped.data_ptr(), wmask.data_ptr(),
+            images.data_ptr(), homographies.data_ptr(),
+            None if texels is None else texels.data_ptr(), warped.data_ptr(), wmask.data_ptr(),
             n, c, d, h, w, border_radius, int(bf16), stream,
         )
     if code != 0:

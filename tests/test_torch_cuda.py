@@ -22,11 +22,6 @@ from monorec_tpu_torch.ops.cost_volume import (
 
 pytestmark = pytest.mark.cuda
 SAD_TOL = 1.2e-4  # f32 kernel-vs-gather budget (README.md, Performance)
-# K4 against its plain version: the same float32 operations in the same
-# order, so equal bit for bit is expected; the budget allows a last-bit
-# difference of a displacement (~2e-6 px at |d| ~ 30 px, times a value
-# range of 1), and one bf16 rounding step (2^-9 at |value| <= 0.5).
-K4_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-8}
 _KEYS = ("keyframe", "keyframe_intrinsics", "keyframe_pose", "frames", "intrinsics", "poses")
 
 
@@ -96,20 +91,34 @@ def test_plane_sweep_cost_volume_kernel_matches_plain_version(cuda, h, w, f, d, 
     assert (fused - f64).abs().max().item() <= tol
 
 
+def _shifted(t):
+    """A contiguous copy of ``t`` that starts one element into its storage:
+    no 16-byte alignment, so the kernels take their scalar or 4-byte paths."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view_as(t).copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("shift", [False, True])  # aligned sources, and a view 1 element in
+@pytest.mark.parametrize("w", [45, 64, 131])  # W % 4 == 1, 0, 3
+@pytest.mark.parametrize("d", [1, 7])
+@pytest.mark.parametrize("c", [1, 3, 4])  # planar gathers, packed texels, planar
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,w", [(21, 45), (32, 128)])  # ragged and whole blocks
-def test_warp_plane_sweep_kernel_matches_plain_version(cuda, h, w, dtype):
-    images, _, homs = _sweep_inputs(cuda, h, w, d=7)
-    images = images.to(dtype)
+def test_warp_plane_sweep_kernel_matches_plain_version(cuda, dtype, c, d, w, shift):
+    h = 21
+    rgb, _, homs = _sweep_inputs(cuda, h, w, d=d)
+    images = torch.cat([rgb, rgb.flip(1)], 1)[:, :c].contiguous().to(dtype)
+    if shift:
+        images = _shifted(images)
     before = _counter(warp_sweep.warp_plane_sweep, dtype)
     warped, wmask, cov = warp_sweep.warp_plane_sweep(images, homs, 2)
     torch.cuda.synchronize()
     assert _counter(warp_sweep.warp_plane_sweep, dtype) == before + 1
     rwarped, rwmask, _ = warp_sweep.warp_plane_sweep_reference(images, homs, 2)
-    assert warped.dtype == rwarped.dtype == dtype and warped.shape == (4, 7, 3, h, w)
-    assert (warped.float() - rwarped.float()).abs().max().item() <= K4_TOL[dtype]
+    assert warped.dtype == rwarped.dtype == dtype and warped.shape == (4, d, c, h, w)
+    # The same float32 operations in the same order: equal bit for bit.
+    assert torch.equal(warped, rwarped) and torch.equal(wmask, rwmask)
     assert torch.equal(warped == 0, rwarped == 0)  # exact zeros: the sfcv_mult_mask=False rule
-    assert (wmask - rwmask).abs().max().item() <= 1e-6
     assert torch.equal(wmask != 0, rwmask != 0)
     assert not cov.any()
 
@@ -170,10 +179,7 @@ def test_grid_warp_kernel_on_unaligned_tensors(cuda):
     # Views that start 4 bytes into their storage: whole planes of four, but
     # no 16-byte alignment, so the kernel takes its scalar accesses.
     images, xs, ys, cot = _warp_inputs(32, 128, cuda)
-    shifted = [torch.empty(t.numel() + 1, device=cuda)[1:].view_as(t).copy_(t)
-               for t in (xs, ys, cot)]
-    assert all(t.data_ptr() % 16 for t in shifted)
-    sx, sy, scot = shifted
+    sx, sy, scot = (_shifted(t) for t in (xs, ys, cot))
     torch.testing.assert_close(gw.grid_warp(images, sx, sy), gw.grid_warp(images, xs, ys),
                                rtol=0, atol=0)
     for got, want in zip(gw.grid_warp_grad(images, sx, sy, scot),
@@ -192,13 +198,19 @@ def test_warp_pixels_gradient_on_the_card(cuda):
     assert (y.grad - rgy).abs().max().item() <= 2e-5
 
 
-@pytest.mark.parametrize("h,w", [(21, 45), (32, 128)])  # ragged and whole tiles
-def test_photo_error_kernels_match_plain_version(cuda, h, w):
+@pytest.mark.parametrize("shift", [False, True])  # aligned, and views 4 bytes in
+@pytest.mark.parametrize("h,w", [(21, 45), (33, 70), (32, 128), (64, 128), (5, 3)])
+@pytest.mark.parametrize("m,c", [(3, 3), (5, 1), (1, 3)])
+def test_photo_error_kernels_match_plain_version(cuda, m, c, h, w, shift):
+    # Shapes ragged against the backward's 30x30 tile and whole ones; widths
+    # with W % 4 == 0 take its 16-byte copies, the others its 4-byte copies.
     rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.uniform(0.0, 1.0, (3, 3, h, w)).astype(np.float32)).to(cuda)
-    y = torch.from_numpy(rng.uniform(0.0, 1.0, (3, 3, h, w)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.uniform(0.0, 1.0, (m, c, h, w)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.uniform(0.0, 1.0, (m, c, h, w)).astype(np.float32)).to(cuda)
     x[0, :, :3, :5] = -1.0  # invalid-pixel values of the loss
-    cot = torch.from_numpy(rng.uniform(-1, 1, (3, h, w)).astype(np.float32)).to(cuda)
+    cot = torch.from_numpy(rng.uniform(-1, 1, (m, h, w)).astype(np.float32)).to(cuda)
+    if shift:
+        x, y, cot = _shifted(x), _shifted(y), _shifted(cot)
     before = (pe.photo_error_fwd.launches, pe.photo_error_bwd.launches)
     out = pe.photo_error_fwd(x, y)
     gx = pe.photo_error_bwd(x, y, cot)
