@@ -37,7 +37,8 @@ checkout, then:
    edges, tz 0 and 0.5); the exact-zero invalid mask must match exactly;
    times all three;
 8. photometric error: ``photo_error_fwd`` / ``photo_error_bwd`` against
-   their plain versions at M=64, 3x256x512; times both;
+   their plain versions at M=64, 3x256x512; times both, and the forward
+   also at M=16, the step's other launch;
 9. the loss: ``depth_loss`` and its gradient w.r.t. the 4 predicted inverse
    depths at B=8, 256x512, F=2, kernels against plain versions; both timed
    in turns, and each one's device time (K2, K3 and the rest) read from a
@@ -70,7 +71,11 @@ checkout, then:
 15. serving training: phase 10's trainer with ``"precision": "serving"``
    takes 6 steps and a validation pass; checks as phase 10 with the bf16
    kernels' launch counts, then times the step against the exact step in
-   turns, splits it, and reads its busy share from a profiler trace.
+   turns, splits it, and reads its busy share from a profiler trace;
+16. the convergence check: ``monorec_tpu_torch.tools.convergence_check``
+   trains 10 stage-1 steps under each policy at 256x512, B=8, D=32 and
+   evaluates abs_rel on its held-out samples; prints its JSON record, and
+   checks finite losses and abs_rel and two K3 forward launches per step.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -107,6 +112,7 @@ PE_BWD_RTOL, PE_BWD_ATOL = 1e-3, 2e-5  # tests/test_photo_error.py:62
 LOSS_RTOL = 5e-4  # PARITY.md row 9, full-chain reprojection
 TRAIN_STEPS = 6
 PROFILED_STEPS = 5
+CONV_STEPS = 10  # phase 16, per policy
 SOURCES = ("plane_sweep_sad", "grid_warp", "photo_error", "warp_plane_sweep")
 SERVING_CV_TOL = 5e-3  # bf16 sources vs the exact CV (tests/test_pallas_kernel.py:117)
 UNET_REL = 2e-2  # bf16 U-Nets vs float32, mean |diff| / mean |ref| (tests/test_models.py)
@@ -146,17 +152,19 @@ K1_FUSE_FLOPS_PER_FRAME, K1_FUSE_FLOPS = 2, 3
 # the Jacobian adds 2 x 4 mul+add per channel, the gradient contracts it
 # with the cotangent (another 4).
 K2_FLOPS = {"grid_warp": 8 + 4, "grid_warp_jac": 8 + 4 + 16, "grid_warp_grad": 8 + 4 + 16 + 4}
-# K3 per (pixel, channel): forward 5 gaussian window sums 90, the SSIM
-# formula 20, clamp and L1 6, channel mean 2 (146 in all, with the pixel's
-# output terms). The backward as its kernel computes it, per g-map slot:
-# one staged row's sums 34 (x*x, y*y, x*y on 3 taps 9; for each of the 5
-# statistics the two horizontal gaussian sums hA, hB from the pair sum
-# v0 + v2: 1 add + 2 mul-adds each, 25), the 3-row window 10 (2 adds x 5),
-# the formula 41 (a 3, b 4, p 4, q 4, pq 1, its reciprocal 1, ab 1, val 2,
-# clamp test 2, g_q 1, 1/pq^2 1, g_mu 11, g_xx 3, g_xy 3); per output: the
-# three g-maps' row sums 15 and windows 6, the sum 2 x S_xx + y S_xy + S_mu
-# and the L1 term 10 (116 in all).
-K3_FLOPS = {"photo_error_fwd": 146, "photo_error_bwd": 34 + 10 + 41 + 15 + 6 + 10}
+# K3 as its kernels compute it. One staged row's sums, per pixel: x*x, y*y,
+# x*y on 3 taps 9, and for each of the 5 statistics the two horizontal
+# gaussian sums hA, hB from the pair sum v0 + v2 (1 add, then a mul and a
+# mul-add each: 7), 35; the 3-row window 10 (2 adds x 5). The forward per
+# (pixel, channel): the row 44 and window 10, then the formula 27 (mu_x^2,
+# mu_y^2, mu_x mu_y 3, the sigmas 3, n 5, d 5, its reciprocal, n / d, 1 - it
+# and the clamp 5, 0.425 ssim + 0.15 |x - y| into the sum 4, |x - y| 2); per
+# pixel the scale by 1 / C, 1. The backward per g-map slot: the row 44 and
+# window 10, the formula 41 (a 3, b 4, p 4, q 4, pq 1, its reciprocal 1, ab
+# 1, val 2, clamp test 2, g_q 1, 1/pq^2 1, g_mu 11, g_xx 3, g_xy 3); per
+# output: the three g-maps' row sums 21 and windows 6, the sum 2 x S_xx +
+# y S_xy + S_mu and the L1 term 10.
+K3_FLOPS = {"photo_error_fwd": 44 + 10 + 27, "photo_error_bwd": 44 + 10 + 41 + 21 + 6 + 10}
 # K4 per (source, hypothesis, pixel): displacement 16 (the row's products
 # a01 y, a11 y, a21 y are hoisted: e 3, 1 + e 1, each of dx and dy mul,
 # add, add, mul, sub and div 6), footprint 12, taps and border indicator 28.
@@ -438,20 +446,40 @@ def phase_photo_error(dev, card: str, images, xs, ys, tiled) -> dict:
         xg = x.detach().requires_grad_()
         return torch.autograd.grad((pe.photo_error_reference(xg, y) * cot).sum(), xg)
 
+    # The step's other forward launch: the identity errors of the keyframes
+    # against their source frames, M = B * F.
+    m2 = B * F
+    x2, y2 = x[:m2], y[:m2]
     timing = {
         "photo_error_fwd": in_turns(lambda: pe.photo_error_fwd(x, y),
                                     lambda: pe.photo_error_reference(x, y), 20, 3),
+        "photo_error_fwd_m2": in_turns(lambda: pe.photo_error_fwd(x2, y2),
+                                       lambda: pe.photo_error_reference(x2, y2), 20, 3),
         "photo_error_bwd": in_turns(lambda: pe.photo_error_bwd(x, y, cot), plain_bwd, 20, 3),
     }
     for k, (k_ms, p_ms, _, turns, order) in timing.items():
-        log(f"[8 photo error] {k} time at M={n}, 3x{H}x{W} ({order}): "
-            f"{', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs plain "
-            f"{p_ms:.3f} ms on {card}")
-    errs = {"photo_error_fwd": e_fwd, "photo_error_bwd": e_bwd}
-    n_bytes = {"photo_error_fwd": nbytes(x, y, out), "photo_error_bwd": nbytes(x, y, cot, gx)}
-    return {k: {"max_abs_err": errs[k], "ms": timing[k][0], "plain_ms": timing[k][1],
-                "library_ms": None, **bound(n_bytes[k], K3_FLOPS[k] * x.numel())}
-            for k in errs}
+        log(f"[8 photo error] {k} time at M={m2 if k.endswith('_m2') else n}, 3x{H}x{W} "
+            f"({order}): {', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs "
+            f"plain {p_ms:.3f} ms on {card}")
+
+    def fwd_bound(xs, ys):  # x, y in; the (M, H, W) error map out
+        pixels = xs[:, 0].numel()
+        return bound(nbytes(xs, ys) + pixels * 4,
+                     K3_FLOPS["photo_error_fwd"] * xs.numel() + pixels)  # + the scale by 1 / C
+
+    fwd_m2 = fwd_bound(x2, y2)
+    return {
+        "photo_error_fwd": {"max_abs_err": e_fwd, "ms": timing["photo_error_fwd"][0],
+                            "plain_ms": timing["photo_error_fwd"][1], "library_ms": None,
+                            **fwd_bound(x, y), "second_launch_m": m2,
+                            "second_launch_ms": timing["photo_error_fwd_m2"][0],
+                            "second_launch_plain_ms": timing["photo_error_fwd_m2"][1],
+                            "second_launch_bound_ms": fwd_m2["bound_ms"]},
+        "photo_error_bwd": {"max_abs_err": e_bwd, "ms": timing["photo_error_bwd"][0],
+                            "plain_ms": timing["photo_error_bwd"][1], "library_ms": None,
+                            **bound(nbytes(x, y, cot, gx),
+                                    K3_FLOPS["photo_error_bwd"] * x.numel())},
+    }
 
 
 def phase_loss(dev, card: str) -> None:
@@ -1083,6 +1111,32 @@ def phase_warp_sweep(dev, card: str) -> dict:
     return records
 
 
+def phase_convergence(dev) -> None:
+    """Phase 16: the port's serving-vs-exact convergence check
+    (``monorec_tpu_torch.tools.convergence_check.run_policy``) for
+    CONV_STEPS steps under each policy at its defaults (256x512, D=32) and
+    B=8; K3's forward launches twice per step."""
+    from monorec_tpu_torch.ops import photo_error
+    from monorec_tpu_torch.tools import convergence_check as cc
+
+    res = {}
+    for policy in cc.POLICIES:
+        before, t = photo_error.photo_error_fwd.launches, time.perf_counter()
+        res[policy] = cc.run_policy(policy, CONV_STEPS, B, 5, device=dev)
+        launched = photo_error.photo_error_fwd.launches - before
+        log(f"[16 convergence check] {policy}: {CONV_STEPS} steps and abs_rel on 16 held-out "
+            f"samples in {time.perf_counter() - t:.1f} s; photo_error_fwd launches {launched} "
+            f"(expected {2 * CONV_STEPS})")
+        if launched != 2 * CONV_STEPS:
+            raise AssertionError(f"the {policy} convergence run launched K3's forward "
+                                 f"{launched} times in {CONV_STEPS} steps")
+    record = cc.summarize(1, CONV_STEPS, B, res["exact"], res["serving"])
+    log(json.dumps(record))
+    if not all(math.isfinite(record[k]) for k in ("final_loss_exact", "final_loss_serving",
+                                                   "abs_rel_exact", "abs_rel_serving")):
+        raise AssertionError("the convergence check gave a loss or abs_rel that is not finite")
+
+
 def mean_rel(got, ref) -> float:
     return ((got - ref).abs().mean() / ref.abs().mean()).item()
 
@@ -1341,6 +1395,11 @@ def main() -> int:
         serving_counts = phase_serving_training(dev, card, run_dir, exact_trainer)
     for k in ("grid_warp_bf16", "grid_warp_jac_bf16", "grid_warp_grad_bf16"):
         records[k]["launches"] = serving_counts[k]
+    del exact_trainer
+    torch.cuda.empty_cache()
+
+    # ---- 16. the convergence check ---------------------------------------
+    phase_convergence(dev)
 
     replaced = {
         "plane_sweep_sad": ("plane_sweep_sad.cu", "monorec_tpu/ops/pallas/cv_kernel.py:600"),
@@ -1369,7 +1428,9 @@ def main() -> int:
         "replaces": replaces,
         "launches": records[k]["launches"],
         "max_abs_err": records[k]["max_abs_err"],
-        **{f: records[k][f] for f in ("sfcv_max_abs_err", "planar_gather_ms")
+        **{f: records[k][f] for f in ("sfcv_max_abs_err", "planar_gather_ms", "second_launch_m",
+                                      "second_launch_ms", "second_launch_plain_ms",
+                                      "second_launch_bound_ms")
            if f in records[k]},
         "ms": records[k]["ms"],
         "plain_ms": records[k]["plain_ms"],

@@ -9,31 +9,31 @@
 // no gradient. The TPU kernel's row blocks, lane rolls and the H % 16 /
 // W % 128 shape gate are not carried over: ragged tiles are bounds-checked.
 //
-// Forward. What bounds it: per output pixel and channel the five 3x3 window
-// statistics are 45 multiply-adds on values that neighbouring pixels share,
-// against two float32 reads per channel and one write. The design stages
-// each channel's x and y tile with its halo in shared memory, so every
-// input value is read from device memory once per tile and the window sums
-// run out of shared memory; no (M, C, H, W) intermediate is written.
-// Grid: (ceil(W / TX), ceil(H / TY), M) blocks of 256 threads, each thread
-// two pixels of the 16x32 tile, a loop over channels inside.
+// Both directions share one design, made for the backward and carried over
+// to the forward.
 //
-// Backward. What bounds it: bytes by count (x, y, cot read and gx written
-// once: 336 MB at M=64, 3x256x512, 0.10 ms on an H100), but the first port
-// ran at 15% of that, held by its instruction stream: element-wise staging
-// with three barriers per channel, a 612-slot g-map loop over 256 threads
-// (the last pass 39% full), ~53 shared-memory loads per pixel and channel,
-// two divisions per slot, and 71 registers with a spill. The design:
-//   * 30x30 output tiles, so the g-map region (tile + 1 px) is 32x32: a lane
-//     owns a g-map column and each of the 4 warps of a 128-thread block an
-//     8-row strip, every lane busy; the outputs take 30 of each warp's
-//     lanes. A strip recomputes the row sums of its 2 halo rows: 1.25x
-//     the rows here, 1.5x with 256 threads in 4-row strips.
+// What bounds them: bytes by count. The forward reads x and y and writes
+// out once (235 MB at M=64, 3x256x512, 0.070 ms on an H100); the backward
+// also reads the cotangent and writes gx (336 MB, 0.10 ms). The first port
+// of each ran at 15-26% of that, held by its instruction stream:
+// element-wise staging with a division, a remainder and a bounds check per
+// element, barriers that kept every load from overlapping compute, 18
+// shared-memory loads and 45 multiply-adds per pixel and channel for the
+// five window sums, an IEEE division per pixel and channel, and a spill.
+// The design:
+//   * A lane owns a column and each of the 4 warps of a 128-thread block a
+//     strip of 8 rows: the forward's tiles are 32x32 outputs; the
+//     backward's g-map region (tile + 1 px) is 32x32, so its tiles are 30x30
+//     outputs, and the outputs take 30 of each warp's lanes. A strip
+//     recomputes the row sums of its 2 halo rows: 1.25x the rows here, 1.5x
+//     with 256 threads in 4-row strips.
 //   * Staging by cp.async from a 4-float column boundary left of the halo:
 //     16-byte copies where W % 4 == 0 and the tensors are 16-byte aligned,
 //     4-byte copies otherwise, the zero padding by the copies' src-size 0.
-//     Channel c + 1 is in flight while channel c computes (two buffers, two
-//     barriers per channel); the cotangent is staged once per tile.
+//     Channel c + 1 is in flight while channel c computes (two buffers; one
+//     barrier per channel in the forward, two in the backward, whose
+//     g-maps go through shared memory); the cotangent is staged once per
+//     tile.
 //   * Window sums from row sums: G = [[a,b,a],[b,c,b],[a,b,a]], so a window
 //     sum is hA(row above) + hB(own row) + hA(row below) with hA, hB the
 //     horizontal sums under weights (a,b,a) and (b,c,b): the same nine
@@ -41,15 +41,19 @@
 //     two rows above in registers, so each staged row costs 6 shared loads
 //     for all five statistics; the G* stencils of the g-maps run the same
 //     way (9 loads per output row).
-//   * One reciprocal of p q per slot serves the clamp test and the g-maps.
-//   * __launch_bounds__(128, 8): at most 64 registers, no spill; 39 KB of
-//     shared memory a block, so 5 blocks per SM.
+//   * One reciprocal per pixel and channel: of d in the forward, of p q in
+//     the backward, where it also serves the clamp test and the g-maps.
+//   * The forward keeps one running sum per output row of its strip in
+//     registers across the channels and stores each row as one coalesced
+//     128-byte warp write.
+//   * __launch_bounds__(128, 8): at most 64 registers, no spill. Shared
+//     memory a block: 22 KB (forward), 39 KB (backward).
 
 // Forward, per channel: mu_x, mu_y, E[xx], E[yy], E[xy] over the zero-padded
-// window (taps summed row-major, as the plain version's convolution reads
-// them), then the plain version's formula: n = (2 mu_x mu_y + C1)(2 s_xy +
+// window, then the plain version's formula: n = (2 mu_x mu_y + C1)(2 s_xy +
 // C2), d = (mu_x^2 + mu_y^2 + C1)(s_x + s_y + C2), clamp(1 - n / d, 0, 1) / 2.
-// Output 0.85 * mean_c(ssim) + 0.15 * mean_c(|x - y|).
+// Output mean_c(0.85 ssim + 0.15 |x - y|), the plain version's 0.85
+// mean_c(ssim) + 0.15 mean_c(|x - y|) with its terms in another order.
 //
 // Backward (photo_error.py:139-181): with a = 2 mu_x mu_y + C1,
 // b = 2 (E[xy] - mu_x mu_y) + C2, p = mu_x^2 + mu_y^2 + C1,
@@ -66,114 +70,17 @@
 
 namespace {
 
-constexpr int TY = 16;
-constexpr int TX = 32;
-constexpr int THREADS = 256;
-constexpr int PIX = TY * TX / THREADS;  // pixels per thread
-constexpr float C1 = 1e-4f;             // 0.01^2
-constexpr float C2 = 9e-4f;             // 0.03^2
-
-// The reference's 3x3 GaussianAverage window.
-__constant__ float G[3][3] = {
-    {0.0947f, 0.1183f, 0.0947f},
-    {0.1183f, 0.1478f, 0.1183f},
-    {0.0947f, 0.1183f, 0.0947f},
-};
-
-// Stage one channel's (rows x cols) window of `src` whose slot (0, 0) is
-// image pixel (y0, x0) into shared memory, zero outside the image.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void stage(float (*dst)[COLS], const float* __restrict__ src,
-                                      int y0, int x0, int H, int W) {
-  for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
-    const int r = i / COLS, c = i % COLS;
-    const int py = y0 + r, px = x0 + c;
-    dst[r][c] = (py >= 0 && py < H && px >= 0 && px < W) ? __ldg(src + (size_t)py * W + px) : 0.f;
-  }
-}
-
-// Window statistics of the 3x3 window whose top-left slot is (r, c).
-struct Stats {
-  float mu_x, mu_y, e_xx, e_yy, e_xy;
-};
-
-template <int COLS>
-__device__ __forceinline__ Stats window_stats(const float (*xs)[COLS], const float (*ys)[COLS],
-                                              int r, int c) {
-  Stats s = {0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const float g = G[a][b], x = xs[r + a][c + b], y = ys[r + a][c + b];
-      s.mu_x += g * x;
-      s.mu_y += g * y;
-      s.e_xx += g * (x * x);
-      s.e_yy += g * (y * y);
-      s.e_xy += g * (x * y);
-    }
-  return s;
-}
-
-__global__ void __launch_bounds__(THREADS)
-photo_error_fwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                       float* __restrict__ out, int C, int H, int W) {
-  __shared__ float xs[TY + 2][TX + 2];
-  __shared__ float ys[TY + 2][TX + 2];
-  const int m = blockIdx.z;
-  const int ty0 = blockIdx.y * TY, tx0 = blockIdx.x * TX;
-  const size_t plane = (size_t)H * W;
-  float ssim_sum[PIX], l1_sum[PIX];
-#pragma unroll
-  for (int k = 0; k < PIX; ++k) ssim_sum[k] = l1_sum[k] = 0.f;
-
-  for (int c = 0; c < C; ++c) {
-    const size_t off = ((size_t)m * C + c) * plane;
-    __syncthreads();  // the previous channel is done with xs / ys
-    stage<TY + 2, TX + 2>(xs, x + off, ty0 - 1, tx0 - 1, H, W);
-    stage<TY + 2, TX + 2>(ys, y + off, ty0 - 1, tx0 - 1, H, W);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < PIX; ++k) {
-      const int i = threadIdx.x + k * THREADS;
-      const int r = i / TX, q = i % TX;
-      const Stats s = window_stats<TX + 2>(xs, ys, r, q);
-      const float sigma_x = s.e_xx - s.mu_x * s.mu_x;
-      const float sigma_y = s.e_yy - s.mu_y * s.mu_y;
-      const float sigma_xy = s.e_xy - s.mu_x * s.mu_y;
-      const float n = (2.f * s.mu_x * s.mu_y + C1) * (2.f * sigma_xy + C2);
-      const float d = (s.mu_x * s.mu_x + s.mu_y * s.mu_y + C1) * (sigma_x + sigma_y + C2);
-      ssim_sum[k] += fminf(fmaxf(1.f - n / d, 0.f), 1.f) / 2.f;
-      l1_sum[k] += fabsf(xs[r + 1][q + 1] - ys[r + 1][q + 1]);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < PIX; ++k) {
-    const int i = threadIdx.x + k * THREADS;
-    const int py = ty0 + i / TX, px = tx0 + i % TX;
-    if (py < H && px < W)
-      out[(size_t)m * plane + (size_t)py * W + px] =
-          0.85f * (ssim_sum[k] / (float)C) + 0.15f * (l1_sum[k] / (float)C);
-  }
-}
-
-// ---- Backward ------------------------------------------------------------
-//
-// Tile: BT x BT outputs; its g-maps cover the tile + a 1-px halo, BQ x BQ =
-// 32 x 32, one warp's width, so a lane owns a g-map column and each warp a
-// strip of GROWS rows, every lane busy. The outputs take lanes 0..BT-1.
-constexpr int BT = 30;              // outputs per tile side
-constexpr int BQ = BT + 2;          // g-map side (32)
-constexpr int BWD_THREADS = 128;
-constexpr int WARPS = BWD_THREADS / 32;
-constexpr int GROWS = BQ / WARPS;   // g-map rows per warp (8)
-constexpr int OROWS = (BT + WARPS - 1) / WARPS;  // output rows per warp (8; the last 6)
-constexpr int XY_ROWS = BT + 4;     // staged x / y rows: tile + 2-px halo (34)
-constexpr int COT_ROWS = BQ;        // staged cotangent rows: tile + 1-px halo (32)
-// Staged columns from a 4-float boundary at or left of the tile's 2-px
-// halo, as 16-byte chunks: the halo (BT + 4 = 34) plus up to 3 of lead.
+constexpr int THREADS = 128;          // 4 warps a block
+constexpr int WARPS = THREADS / 32;
+constexpr int STRIP = 8;              // rows a warp walks down
+// Staged columns from a 4-float boundary at or left of the tile's halo, as
+// 16-byte chunks: the backward's 2-px halo (30 + 4 = 34) or the forward's
+// 1-px halo (32 + 2 = 34) plus up to 3 (forward: exactly 3) of lead.
 constexpr int SCOLS = 40;
-// G = [[GA, GB, GA], [GB, GC, GB], [GA, GB, GA]], the entries of G above.
+constexpr float C1 = 1e-4f;           // 0.01^2
+constexpr float C2 = 9e-4f;           // 0.03^2
+// The reference's 3x3 GaussianAverage window G = [[GA, GB, GA], [GB, GC,
+// GB], [GA, GB, GA]].
 constexpr float GA = 0.0947f, GB = 0.1183f, GC = 0.1478f;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -203,14 +110,14 @@ template <int ROWS, bool VEC>
 __device__ __forceinline__ void stage_async(float (*dst)[SCOLS], const float* __restrict__ src,
                                             int y0, int xa, int H, int W) {
   if (VEC) {
-    for (int i = threadIdx.x; i < ROWS * (SCOLS / 4); i += BWD_THREADS) {
+    for (int i = threadIdx.x; i < ROWS * (SCOLS / 4); i += THREADS) {
       const int r = i / (SCOLS / 4), k = i % (SCOLS / 4) * 4;
       const int py = y0 + r, px = xa + k;
       const bool in = py >= 0 && py < H && px >= 0 && px < W;
       cp_async16(&dst[r][k], in ? src + py * W + px : src, in);
     }
   } else {
-    for (int i = threadIdx.x; i < ROWS * SCOLS; i += BWD_THREADS) {
+    for (int i = threadIdx.x; i < ROWS * SCOLS; i += THREADS) {
       const int r = i / SCOLS, k = i % SCOLS;
       const int py = y0 + r, px = xa + k;
       const bool in = py >= 0 && py < H && px >= 0 && px < W;
@@ -228,12 +135,9 @@ __device__ __forceinline__ void hsums(float v0, float v1, float v2, float& ha, f
   hb = GB * side + GC * v1;
 }
 
-// The five statistics' row sums (x, y, xx, yy, xy) of staged row `xr`, `yr`
-// at columns q..q+2.
-__device__ __forceinline__ void stat_row(const float* xr, const float* yr, int q, float (&ha)[5],
-                                         float (&hb)[5]) {
-  const float x0 = xr[q], x1 = xr[q + 1], x2 = xr[q + 2];
-  const float y0 = yr[q], y1 = yr[q + 1], y2 = yr[q + 2];
+// The five statistics' row sums (x, y, xx, yy, xy) of three neighbours.
+__device__ __forceinline__ void stat_sums(float x0, float x1, float x2, float y0, float y1,
+                                          float y2, float (&ha)[5], float (&hb)[5]) {
   hsums(x0, x1, x2, ha[0], hb[0]);
   hsums(y0, y1, y2, ha[1], hb[1]);
   hsums(x0 * x0, x1 * x1, x2 * x2, ha[2], hb[2]);
@@ -241,10 +145,110 @@ __device__ __forceinline__ void stat_row(const float* xr, const float* yr, int q
   hsums(x0 * y0, x1 * y1, x2 * y2, ha[4], hb[4]);
 }
 
+// The same of staged row `xr`, `yr` at columns q..q+2.
+__device__ __forceinline__ void stat_row(const float* xr, const float* yr, int q, float (&ha)[5],
+                                         float (&hb)[5]) {
+  stat_sums(xr[q], xr[q + 1], xr[q + 2], yr[q], yr[q + 1], yr[q + 2], ha, hb);
+}
+
+// ---- Forward -------------------------------------------------------------
+//
+// Tile: FT x FT outputs, a lane per column, each warp a strip of STRIP rows.
+constexpr int FT = WARPS * STRIP;   // outputs per tile side (32)
+constexpr int FWD_ROWS = FT + 2;    // staged x / y rows: tile + 1-px halo (34)
+
+// Grid (ceil(W / FT), ceil(H / FT), M), 128 threads, a loop over channels
+// with channel c + 1's copies in flight while channel c computes.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 1024 / THREADS)
+photo_error_fwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                       float* __restrict__ out, int C, int H, int W) {
+  __shared__ __align__(16) float xs[2][FWD_ROWS][SCOLS];
+  __shared__ __align__(16) float ys[2][FWD_ROWS][SCOLS];
+  const int m = blockIdx.z;
+  const int ty0 = blockIdx.y * FT, tx0 = blockIdx.x * FT;
+  const int xa = tx0 - 4;  // image column of staged column 0; tx0 - 1 is staged column 3
+  const int plane = H * W;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * STRIP;  // the strip's first output row in the tile
+  const float* xm = x + (size_t)m * C * plane;
+  const float* ym = y + (size_t)m * C * plane;
+
+  // Per output row of the strip: the sum over channels of 0.85 ssim + 0.15
+  // |x - y|.
+  float acc[STRIP];
+#pragma unroll
+  for (int k = 0; k < STRIP; ++k) acc[k] = 0.f;
+
+  // Rows ty0 - 1.. (the tile and its 1-px halo).
+  stage_async<FWD_ROWS, VEC>(xs[0], xm, ty0 - 1, xa, H, W);
+  stage_async<FWD_ROWS, VEC>(ys[0], ym, ty0 - 1, xa, H, W);
+  cp_async_commit();
+
+  for (int c = 0; c < C; ++c) {
+    const int buf = c & 1;
+    cp_async_wait_all();
+    __syncthreads();  // channel c has landed; channel c - 1 is done with buf ^ 1
+    if (c + 1 < C) {
+      stage_async<FWD_ROWS, VEC>(xs[buf ^ 1], xm + (size_t)(c + 1) * plane, ty0 - 1, xa, H, W);
+      stage_async<FWD_ROWS, VEC>(ys[buf ^ 1], ym + (size_t)(c + 1) * plane, ty0 - 1, xa, H, W);
+      cp_async_commit();
+    }
+
+    // Output (ty0 + r0 + k, tx0 + lane) reads staged rows r0 + k.. r0 + k + 2
+    // and columns lane + 3.. lane + 5: the lane walks down, keeping the row
+    // sums of the two rows above and the centre's |x - y| of the row above.
+    float a2[5], b1[5], a1[5], l1_above;
+#pragma unroll
+    for (int k = 0; k < STRIP + 2; ++k) {
+      const float* xr = xs[buf][r0 + k];
+      const float* yr = ys[buf][r0 + k];
+      const float x0 = xr[lane + 3], x1 = xr[lane + 4], x2 = xr[lane + 5];
+      const float y0 = yr[lane + 3], y1 = yr[lane + 4], y2 = yr[lane + 5];
+      float ha[5], hb[5];
+      stat_sums(x0, x1, x2, y0, y1, y2, ha, hb);
+      if (k >= 2) {
+        const float mu_x = a2[0] + b1[0] + ha[0], mu_y = a2[1] + b1[1] + ha[1];
+        const float e_xx = a2[2] + b1[2] + ha[2], e_yy = a2[3] + b1[3] + ha[3];
+        const float e_xy = a2[4] + b1[4] + ha[4];
+        const float sigma_x = e_xx - mu_x * mu_x;
+        const float sigma_y = e_yy - mu_y * mu_y;
+        const float sigma_xy = e_xy - mu_x * mu_y;
+        const float n = (2.f * mu_x * mu_y + C1) * (2.f * sigma_xy + C2);
+        const float d = (mu_x * mu_x + mu_y * mu_y + C1) * (sigma_x + sigma_y + C2);
+        const float ssim = fminf(fmaxf(1.f - n * __frcp_rn(d), 0.f), 1.f);
+        acc[k - 2] += 0.425f * ssim + 0.15f * l1_above;
+      }
+#pragma unroll
+      for (int i = 0; i < 5; ++i) a2[i] = a1[i], a1[i] = ha[i], b1[i] = hb[i];
+      l1_above = fabsf(x1 - y1);
+    }
+  }
+
+  const int px = tx0 + lane;
+  const float inv_c = 1.f / (float)C;
+#pragma unroll
+  for (int k = 0; k < STRIP; ++k) {
+    const int py = ty0 + r0 + k;
+    if (py < H && px < W) out[(size_t)m * plane + py * W + px] = acc[k] * inv_c;
+  }
+}
+
+// ---- Backward ------------------------------------------------------------
+//
+// Tile: BT x BT outputs; its g-maps cover the tile + a 1-px halo, BQ x BQ =
+// 32 x 32, one warp's width, so a lane owns a g-map column and each warp a
+// strip of STRIP rows, every lane busy. The outputs take lanes 0..BT-1.
+constexpr int BT = 30;              // outputs per tile side
+constexpr int BQ = BT + 2;          // g-map side (32 = WARPS * STRIP)
+constexpr int OROWS = (BT + WARPS - 1) / WARPS;  // output rows per warp (8; the last 6)
+constexpr int XY_ROWS = BT + 4;     // staged x / y rows: tile + 2-px halo (34)
+constexpr int COT_ROWS = BQ;        // staged cotangent rows: tile + 1-px halo (32)
+
 // Grid (ceil(W / BT), ceil(H / BT), M), 128 threads, a loop over channels
 // with channel c + 1's copies in flight while channel c computes.
 template <bool VEC>
-__global__ void __launch_bounds__(BWD_THREADS, 1024 / BWD_THREADS)
+__global__ void __launch_bounds__(THREADS, 1024 / THREADS)
 photo_error_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
                        const float* __restrict__ cot, float* __restrict__ gx,
                        int C, int H, int W) {
@@ -279,12 +283,12 @@ photo_error_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
     }
 
     // g-maps at g-map (r, q) = image (ty0 - 1 + r, tx0 - 1 + q): lane q walks
-    // rows r0..r0 + GROWS - 1, keeping the row sums of the two rows above.
+    // rows r0..r0 + STRIP - 1, keeping the row sums of the two rows above.
     {
-      const int q = lane, r0 = warp * GROWS, px = tx0 - 1 + q;
+      const int q = lane, r0 = warp * STRIP, px = tx0 - 1 + q;
       float a2[5], b1[5], a1[5];  // hA of staged row s - 2, hB and hA of s - 1
 #pragma unroll
-      for (int k = 0; k < GROWS + 2; ++k) {
+      for (int k = 0; k < STRIP + 2; ++k) {
         const int s = r0 + k;  // staged row: image row ty0 - 2 + s
         float ha[5], hb[5];
         stat_row(xs[buf][s], ys[buf][s], ox + q, ha, hb);
@@ -359,10 +363,14 @@ extern "C" {
 // returns cudaGetLastError() (0 on success).
 int photo_error_fwd_launch(const float* x, const float* y, float* out, int M, int C, int H,
                            int W, void* stream) {
-  if (M <= 0 || M > 65535 || C <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, M), block(THREADS);
-  photo_error_fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(x, y, out, C, H,
-                                                                               W);
+  if (M <= 0 || M > 65535 || C <= 0 || H <= 0 || W <= 0 || (long long)H * W > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + FT - 1) / FT, (H + FT - 1) / FT, M), block(THREADS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (W % 4 == 0 && aligned16(x) && aligned16(y))
+    photo_error_fwd_kernel<true><<<grid, block, 0, s>>>(x, y, out, C, H, W);
+  else
+    photo_error_fwd_kernel<false><<<grid, block, 0, s>>>(x, y, out, C, H, W);
   return (int)cudaGetLastError();
 }
 
@@ -371,7 +379,7 @@ int photo_error_bwd_launch(const float* x, const float* y, const float* cot, flo
                            int C, int H, int W, void* stream) {
   if (M <= 0 || M > 65535 || C <= 0 || H <= 0 || W <= 0 || (long long)H * W > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + BT - 1) / BT, (H + BT - 1) / BT, M), block(BWD_THREADS);
+  const dim3 grid((W + BT - 1) / BT, (H + BT - 1) / BT, M), block(THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (W % 4 == 0 && aligned16(x) && aligned16(y) && aligned16(cot))
     photo_error_bwd_kernel<true><<<grid, block, 0, s>>>(x, y, cot, gx, C, H, W);

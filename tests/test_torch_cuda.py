@@ -200,10 +200,12 @@ def test_warp_pixels_gradient_on_the_card(cuda):
 
 @pytest.mark.parametrize("shift", [False, True])  # aligned, and views 4 bytes in
 @pytest.mark.parametrize("h,w", [(21, 45), (33, 70), (32, 128), (64, 128), (5, 3)])
-@pytest.mark.parametrize("m,c", [(3, 3), (5, 1), (1, 3)])
+@pytest.mark.parametrize("m,c", [(3, 3), (5, 1), (1, 3), (2, 4)])  # odd and even channel counts
 def test_photo_error_kernels_match_plain_version(cuda, m, c, h, w, shift):
-    # Shapes ragged against the backward's 30x30 tile and whole ones; widths
-    # with W % 4 == 0 take its 16-byte copies, the others its 4-byte copies.
+    # Shapes ragged against the forward's 32x32 and the backward's 30x30
+    # tiles and whole ones; widths with W % 4 == 0 take the 16-byte copies,
+    # the others the 4-byte copies. An even C ends the channel loop in the
+    # second staging buffer.
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.uniform(0.0, 1.0, (m, c, h, w)).astype(np.float32)).to(cuda)
     y = torch.from_numpy(rng.uniform(0.0, 1.0, (m, c, h, w)).astype(np.float32)).to(cuda)

@@ -37,8 +37,8 @@ def test_port_imports_every_module_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     # geometry, precision, convert, config, ops (8 + cuda/build), models (6), data (2),
-    # utils, losses (2), metrics, train (3), cli (2), with their packages
-    assert int(proc.stdout.split()[-1]) >= 38
+    # utils, losses (2), metrics, train (3), cli (2), tools (1), with their packages
+    assert int(proc.stdout.split()[-1]) >= 40
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
