@@ -75,7 +75,19 @@ checkout, then:
 16. the convergence check: ``monorec_tpu_torch.tools.convergence_check``
    trains 10 stage-1 steps under each policy at 256x512, B=8, D=32 and
    evaluates abs_rel on its held-out samples; prints its JSON record, and
-   checks finite losses and abs_rel and two K3 forward launches per step.
+   checks finite losses and abs_rel and two K3 forward launches per step;
+17. stage 2 of the curriculum: the trainer of ``cli/train_monorec.py``, from
+   ``configs/train/monorec/monorec_mask.json`` with the data loader swapped
+   for ``SyntheticSweepDataloader`` at 256x512, B=8, F=2, D=32 with stereo
+   frames and the moving-object mask as target, takes 6 steps and a
+   validation pass; checks finite losses, moved MaskModule parameters, a
+   fixed encoder, and per step one K1 cost-volume launch, six K2 values
+   launches (the mask augmentation's crops) and no K3 launch; holds K2 at
+   the per-frame CVs' crop (C=32, N=16) to its plain version and times it
+   against ``F.grid_sample``; times the step (CUDA events), splits it and
+   reads its busy share from a profiler trace; then loads phase 10's and
+   this phase's checkpoints into a pretrain-mode-0 model on the card and
+   checks the loaded subtrees equal.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -1188,6 +1200,215 @@ def phase_serving_forward(dev, card: str, requests) -> dict:
     return counts
 
 
+def stage2_trainer(dev, run_dir):
+    """The trainer of ``cli/train_monorec.py`` on monorec_mask.json (stage 2:
+    pretrain mode 2, the mask augmentation, mask_loss), with synthetic data
+    at the operating point: stereo frames and the moving-object mask as the
+    target."""
+    from monorec_tpu_torch.cli.train_monorec import build_trainer
+    from monorec_tpu_torch.precision import set_precision
+
+    with open("configs/train/monorec/monorec_mask.json") as f:
+        config = json.load(f)
+    data = {"frame_count": F, "target_image_size": [H, W], "batch_size": B,
+            "return_stereo": True, "return_mvobj_mask": 2}
+    config["data_loader"] = {"type": "SyntheticSweepDataloader",
+                             "args": {**data, "length": TRAIN_STEPS * B, "shuffle": True}}
+    config["val_data_loader"] = {"type": "SyntheticSweepDataloader",
+                                 "args": {**data, "length": B, "shuffle": False, "seed": 1}}
+    config["trainer"].update(epochs=1, len_epoch=TRAIN_STEPS, log_step=1,
+                             save_dir=f"{run_dir}/stage2", tensorboard=False)
+    set_precision("exact", expect_rebuild=True)
+    return build_trainer(config, dev)
+
+
+STAGE2_CROPS = 6  # keyframe, frames, stereo frame, mask, CV, per-frame CVs
+STAGE2_NAMES = ("cost volume", "augmentation", "features + MaskModule", "loss", "backward",
+                "optimizer")
+
+
+def stage2_split(trainer, batches, alpha, n_steps: int):
+    """Medians of a stage-2 step's parts (CUDA events), the ops of
+    ``MonoRecTrainer._feed`` under stage 2's flags in its order, with the
+    cost volume first: cost volume, augmentation (the six crops),
+    features + MaskModule, loss, backward, optimizer."""
+    import torch
+
+    from monorec_tpu_torch.models.augmentation import (
+        apply_mask_aug,
+        apply_mask_aug_frames,
+        sample_mask_aug_params,
+    )
+
+    model = trainer.model
+    rows = []
+    for i in range(n_steps):
+        batch = batches[i % len(batches)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        with torch.no_grad():
+            cv, sfcv, _ = model.cost_volume(batch, return_coverage=True, use_mono=True,
+                                            use_stereo=False)
+        ev[1].record()
+        params = sample_mask_aug_params(trainer.generator, B, H, W).to(cv.device)
+        crop = {k: apply_mask_aug(batch[k], params) for k in ("keyframe", "stereoframe",
+                                                                 "mvobj_mask")}
+        crop["frames"] = apply_mask_aug_frames(batch["frames"], params)
+        crop["cost_volume"] = apply_mask_aug(cv, params)
+        sfcv_c = apply_mask_aug_frames(sfcv, params)
+        ev[2].record()
+        mask = model.mask(sfcv_c, model.features(crop["keyframe"]), True, trainer.device_generator)
+        ev[3].record()
+        target = (crop["mvobj_mask"] > 0.5).float()
+        loss_dict = trainer.loss_fn({"mvobj_mask": target, "cv_mask": mask}, alpha, None, ())
+        ev[4].record()
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss_dict["loss"].backward()
+        ev[5].record()
+        trainer.optimizer.step()
+        ev[6].record()
+        ev[6].synchronize()
+        rows.append([ev[j].elapsed_time(ev[j + 1]) for j in range(6)])
+    return [statistics.median(c) for c in zip(*rows)]
+
+
+def k2_crop_c32(dev, card: str, trainer, batch) -> dict:
+    """K2's values mode at the crop of the per-frame cost volumes, its widest
+    launch on the stage-2 path: (B * F, D, H, W) at the augmentation's
+    coordinates, against its plain version and timed against
+    ``F.grid_sample`` on the same normalized grid."""
+    import torch
+
+    from monorec_tpu_torch.models.augmentation import (
+        MaskAugParams,
+        conditional_hflip,
+        crop_grid,
+        sample_mask_aug_params,
+    )
+    from monorec_tpu_torch.ops import grid_warp as gw
+    from monorec_tpu_torch.ops.sampling import pixel_coordinates
+
+    with torch.no_grad():
+        _, sfcv = trainer.model.cost_volume(batch, use_mono=True, use_stereo=False)
+    params = sample_mask_aug_params(torch.Generator().manual_seed(5), B, H, W)
+    rep = MaskAugParams(*(p.repeat_interleave(F, 0) for p in params)).to(dev)
+    src = conditional_hflip(sfcv.reshape(B * F, D, H, W), rep.flip).contiguous()
+    grid = crop_grid(rep, H, W)
+    xs, ys = pixel_coordinates(grid, H, W)
+    out = gw.grid_warp(src, xs, ys)
+    torch.cuda.synchronize()
+    ref = gw.grid_warp_reference(src, xs, ys)
+    lib = torch.nn.functional.grid_sample(src, grid, "bilinear", "zeros", align_corners=False)
+    err, lib_err = (out - ref).abs().max().item(), (out - lib).abs().max().item()
+    del ref, lib
+    log(f"[17 stage 2] K2 values at the per-frame CVs' crop, N={B * F}, C={D}, {H}x{W}: max|diff| "
+        f"to the plain version {err:.3e} (gate {WARP_TOL}); to grid_sample on the same grid "
+        f"{lib_err:.3e}")
+    if not (torch.isfinite(out).all() and err <= WARP_TOL):
+        raise AssertionError("grid_warp at C=32 disagrees with its plain version")
+    k_ms, p_ms, l_ms, turns, order = in_turns(
+        lambda: gw.grid_warp(src, xs, ys), lambda: gw.grid_warp_reference(src, xs, ys), 20, 3,
+        lambda: torch.nn.functional.grid_sample(src, grid, "bilinear", "zeros",
+                                                align_corners=False))
+    log(f"[17 stage 2] K2 values time at N={B * F}, C={D}, {H}x{W} ({order}): "
+        f"{', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs plain {p_ms:.3f} ms "
+        f"vs grid_sample {l_ms:.3f} ms on {card}")
+    pixels = B * F * H * W
+    # Bytes: the CVs read, the two coordinate planes read, the crop written.
+    # Operations: the 4 taps' mul+add per value, and 10 per pixel for the
+    # floor, fractions and tap weights.
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            **bound(nbytes(src, xs, ys, out), 8 * src.numel() + 10 * pixels)}
+
+
+def phase_stage2(dev, card: str, run_dir, stage1_checkpoint):
+    """Phase 17: stage 2 of the curriculum. The trainer of
+    ``cli/train_monorec.py`` takes 6 steps and a validation pass; then the
+    per-step launches, K2 at C=32, the step time and its split, the busy
+    share, and the handoff of phase 10's and this phase's checkpoints into a
+    pretrain-mode-0 model. Returns the main path's launch counts and K2's
+    C=32 record."""
+    import torch
+
+    from monorec_tpu_torch import config as config_mod
+    from monorec_tpu_torch.models import MonoRec
+    from monorec_tpu_torch.train.checkpoints import load_checkpoint, load_stage_checkpoints
+
+    trainer = stage2_trainer(dev, run_dir)
+    model = trainer.model
+    att0 = {k: p.detach().clone() for k, p in model.att_module.named_parameters()}
+    enc0 = {k: p.detach().clone() for k, p in model._feature_extractor.named_parameters()}
+    n_val = len(trainer.valid_data_loader)
+    reset_counts()
+    log_ = trainer.train()  # the main path
+    counts = launch_counts()
+    expected = only(plane_sweep_cost_volume=TRAIN_STEPS + n_val,
+                    grid_warp=STAGE2_CROPS * TRAIN_STEPS)
+    lines = [json.loads(s) for s in trainer.log_path.read_text().splitlines()]
+    losses = [r["loss"] for r in lines]
+    moved = sum(not torch.equal(p, att0[k]) for k, p in model.att_module.named_parameters())
+    enc_same = all(torch.equal(p, enc0[k]) for k, p in model._feature_extractor.named_parameters())
+    ious = ", ".join(f"{r['iou']:.4f}" for r in lines)
+    log(f"[17 stage 2] {TRAIN_STEPS} steps + {n_val} validation batch(es) through the trainer of "
+        f"cli/train_monorec.py (monorec_mask.json: pretrain_mode 2, mask augmentation, "
+        f"mask_loss, frozen encoder, amsgrad), B={B}, {H}x{W}, F={F}, D={D}: losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; iou {ious}; "
+        f"val_loss {log_.get('val_loss', float('nan')):.5f}; MaskModule tensors moved {moved} of "
+        f"{len(att0)}, encoder unchanged {enc_same}; launches "
+        f"{ {k: v for k, v in counts.items() if v} } (expected the same, every other kernel 0)")
+    if not (len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses)
+            and moved == len(att0) and enc_same and counts == expected):
+        raise AssertionError("stage-2 training through the entry point failed its checks")
+
+    batches = [b for _, b in zip(range(3), trainer.data_loader)]
+    alpha = trainer._alpha(1)
+    record = k2_crop_c32(dev, card, trainer, batches[0])
+    torch.cuda.empty_cache()
+
+    step_times(trainer, batches, alpha, 1, "exact")
+    times = step_times(trainer, batches, alpha, 10, "exact")
+    want = only(plane_sweep_cost_volume=1, grid_warp=STAGE2_CROPS)
+    for _, delta in times:
+        if delta != want:
+            raise AssertionError(f"a stage-2 step launched {delta}, expected {want}")
+    med = statistics.median(t for t, _ in times)
+    log(f"[17 stage 2] median step (CUDA events, 10 steps) {med:.3f} ms = "
+        f"{B * 1e3 / med:.2f} keyframes/s on {card}; per-step launches "
+        f"{ {k: v for k, v in want.items() if v} }; per-step ms "
+        + ", ".join(f"{t:.2f}" for t, _ in times))
+    torch.cuda.reset_peak_memory_stats(dev)
+    split = stage2_split(trainer, batches, alpha, 5)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[17 stage 2] step split, medians of 5 (CUDA events): " + ", ".join(
+        f"{n} {t:.3f}" for n, t in zip(STAGE2_NAMES, split)) + f" ms; peak memory {peak:.2f} GiB")
+    profile_steps("[17 stage 2]", trainer, batches, alpha, med)
+
+    # The handoff: a stage-3 (pretrain mode 0) model on the card from phase
+    # 10's stage-1 checkpoint (depth) and this phase's (mask).
+    stage2_checkpoint = trainer.run_dir / "checkpoint.pth"
+    with open("configs/train/monorec/monorec_mask_ref.json") as f:
+        arch = json.load(f)["arch"]["args"]
+    arch.update(depth_cp_loc=[str(stage1_checkpoint)], mask_cp_loc=[str(stage2_checkpoint)])
+    stage3 = MonoRec(config_mod.build_model_config(arch), dev,
+                     generator=torch.Generator().manual_seed(0))
+    load_stage_checkpoints(stage3, config_mod.checkpoint_locations(arch))
+    state = {k: v.cpu() for k, v in stage3.state_dict().items()}
+    sources = {"depth_module.": load_checkpoint(stage1_checkpoint, "cpu")["state_dict"],
+               "att_module.": load_checkpoint(stage2_checkpoint, "cpu")["state_dict"]}
+    equal = {prefix: all(torch.equal(v, src[k]) for k, v in state.items() if k.startswith(prefix))
+             and any(k.startswith(prefix) for k in state) for prefix, src in sources.items()}
+    with torch.no_grad():
+        out = stage3(batches[0])
+    finite = all(torch.isfinite(out[k]).all().item() for k in ("result", "cv_mask"))
+    log(f"[17 stage 2] handoff into a pretrain-mode-0 model on the card: depth_module.* equal to "
+        f"phase 10's checkpoint {equal['depth_module.']}, att_module.* equal to this phase's "
+        f"{equal['att_module.']}; its eval forward finite {finite}")
+    if not (all(equal.values()) and finite):
+        raise AssertionError("the stage handoff did not load the earlier stages' subtrees")
+    return counts, record
+
+
 def main() -> int:
     import torch
 
@@ -1393,13 +1614,21 @@ def main() -> int:
         del requests
         torch.cuda.empty_cache()
         serving_counts = phase_serving_training(dev, card, run_dir, exact_trainer)
-    for k in ("grid_warp_bf16", "grid_warp_jac_bf16", "grid_warp_grad_bf16"):
-        records[k]["launches"] = serving_counts[k]
-    del exact_trainer
-    torch.cuda.empty_cache()
+        for k in ("grid_warp_bf16", "grid_warp_jac_bf16", "grid_warp_grad_bf16"):
+            records[k]["launches"] = serving_counts[k]
+        stage1_checkpoint = exact_trainer[0].run_dir / "checkpoint.pth"
+        del exact_trainer
+        torch.cuda.empty_cache()
 
-    # ---- 16. the convergence check ---------------------------------------
-    phase_convergence(dev)
+        # ---- 16. the convergence check -----------------------------------
+        phase_convergence(dev)
+        torch.cuda.empty_cache()
+
+        # ---- 17. stage 2 of the curriculum and the handoff into stage 3 --
+        stage2_counts, records["grid_warp_crop_c32"] = phase_stage2(dev, card, run_dir,
+                                                                    stage1_checkpoint)
+    records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
+    records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
 
     replaced = {
         "plane_sweep_sad": ("plane_sweep_sad.cu", "monorec_tpu/ops/pallas/cv_kernel.py:600"),
@@ -1415,6 +1644,7 @@ def main() -> int:
         "grid_warp_bf16": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:421"),
         "grid_warp_jac_bf16": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:431"),
         "grid_warp_grad_bf16": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:444"),
+        "grid_warp_crop_c32": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:421"),
         "photo_error_fwd": ("photo_error.cu", "monorec_tpu/ops/pallas/photo_error.py:195"),
         "photo_error_bwd": ("photo_error.cu", "monorec_tpu/ops/pallas/photo_error.py:219"),
         "warp_plane_sweep": ("warp_plane_sweep.cu", "monorec_tpu/ops/pallas/warp_kernel.py:291"),
@@ -1428,7 +1658,8 @@ def main() -> int:
         "replaces": replaces,
         "launches": records[k]["launches"],
         "max_abs_err": records[k]["max_abs_err"],
-        **{f: records[k][f] for f in ("sfcv_max_abs_err", "planar_gather_ms", "second_launch_m",
+        **{f: records[k][f] for f in ("sfcv_max_abs_err", "stage2_launches", "planar_gather_ms",
+                                      "second_launch_m",
                                       "second_launch_ms", "second_launch_plain_ms",
                                       "second_launch_bound_ms")
            if f in records[k]},

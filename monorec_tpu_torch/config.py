@@ -24,7 +24,7 @@ from datetime import datetime
 from functools import reduce
 from operator import getitem
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 from monorec_tpu_torch.models.monorec import MonoRecConfig
 from monorec_tpu_torch.precision import apply_to_model_kwargs, set_precision
@@ -36,7 +36,6 @@ _MODEL_KEYS = {f.name for f in dataclasses.fields(MonoRecConfig)} - {"plain_cost
 # equivalent to leaving them out.
 _NOT_PORTED_MODEL_KEYS = {
     "simple_mask": False, "mask_use_cv": True, "mask_use_feats": True, "no_cv": False,
-    "freeze_module": [],
 }
 _LOADER_KEYS = {"batch_size", "shuffle", "validation_split", "num_workers", "drop_last"}
 
@@ -84,31 +83,46 @@ def build_model_config(arch_args: Dict) -> MonoRecConfig:
     kwargs = {}
     for key, value in arch_args.items():
         if key in _MODEL_KEYS:
-            if key == "inv_depth_min_max":
+            if key in ("inv_depth_min_max", "freeze_module"):
                 value = tuple(value)
             elif key in ("pretrain_mode", "use_ssim", "pretrain_dropout_mode"):
                 value = int(value)
             kwargs[key] = value
         elif key in _NOT_PORTED_MODEL_KEYS and value != _NOT_PORTED_MODEL_KEYS[key]:
             raise NotImplementedError(f"arch.args.{key}={value!r} is not ported yet")
-    for key in ("checkpoint_location", "mask_cp_loc", "depth_cp_loc", "imagenet_weights"):
-        if arch_args.get(key):
-            raise NotImplementedError(
-                f"arch.args.{key}: loading weights from checkpoints is not ported yet")
+    if arch_args.get("imagenet_weights"):
+        raise NotImplementedError(
+            "arch.args.imagenet_weights: loading ImageNet encoder weights is not ported yet "
+            "(ROADMAP item 11b)")
     cfg = MonoRecConfig(**apply_to_model_kwargs(kwargs))
-    warn_if_frozen_random_encoder(cfg)
+    warn_if_frozen_random_encoder(cfg, encoder_loaded=bool(arch_args.get("checkpoint_location")))
     return cfg
 
 
-def warn_if_frozen_random_encoder(cfg: MonoRecConfig) -> None:
+def checkpoint_locations(arch_args: Dict) -> Dict[str, List[str]]:
+    """The stage handoff's checkpoint paths of ``arch.args``, each key's as a
+    list (a config may give one path or a list); empty keys left out."""
+    from monorec_tpu_torch.train.checkpoints import STAGE_PREFIXES
+
+    out = {}
+    for key in STAGE_PREFIXES:
+        value = arch_args.get(key)
+        if value:
+            out[key] = [str(v) for v in (value if isinstance(value, (list, tuple)) else [value])]
+    return out
+
+
+def warn_if_frozen_random_encoder(cfg: MonoRecConfig, encoder_loaded: bool = False) -> None:
     """The reference freezes an ImageNet-PRETRAINED encoder; the port loads
-    no encoder weights yet, so a frozen encoder is a random one. Shout."""
-    if not cfg.freeze_resnet:
+    no ImageNet weights yet, so a frozen encoder is a random one unless a
+    full checkpoint (``checkpoint_location``) brings one. Shout."""
+    if not cfg.freeze_resnet or encoder_loaded:
         return
     msg = ("freeze_resnet=True but the ResNet encoder weights are RANDOM: the port loads no "
-           "ImageNet or checkpoint weights yet. The reference freezes an ImageNet-pretrained "
-           "encoder (monorec_model.py:98-111,616-619); training this way will not reproduce "
-           "it. Set \"freeze_resnet\": false in the model args to train the encoder instead.")
+           "ImageNet weights yet, and no checkpoint_location brings an encoder. The reference "
+           "freezes an ImageNet-pretrained encoder (monorec_model.py:98-111,616-619); training "
+           "this way will not reproduce it. Set \"freeze_resnet\": false in the model args to "
+           "train the encoder instead.")
     logger.warning(msg)
     print(f"\n{'!' * 70}\nWARNING: {msg}\n{'!' * 70}\n", file=sys.stderr)
 

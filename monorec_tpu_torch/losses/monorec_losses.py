@@ -1,6 +1,7 @@
 """Stage losses of the MonoRec curriculum (``monorec_tpu/losses/
-monorec_losses.py``). Only the stage-1 ``depth_loss`` is ported so far; the
-mask and refinement losses of stages 2-4 come with a later port slice.
+monorec_losses.py``): the stage-1 ``depth_loss`` and the stage-2
+``mask_loss``. The refinement losses of stages 3-4 are not ported yet
+(ROADMAP item 16).
 
 A loss is ``loss(data, alpha=None, roi=None, options=()) -> dict`` with a
 ``"loss"`` entry, where ``data`` merges the batch, the model outputs and
@@ -78,4 +79,44 @@ def depth_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[str, Tensor
     return loss_dict
 
 
-LOSSES = {"depth_loss": depth_loss}
+_MVG_RATIO = 0.008109558  # the reference's share of moving pixels (monorec_loss.py:57)
+
+
+def _mask_stats(cv_mask: Tensor, gt_mask: Tensor) -> Dict[str, Tensor]:
+    """Accuracy, precision, recall and IoU of ``cv_mask > 0.5`` against
+    ``gt_mask > 0.5``, averaged over the batch. They stay finite: precision
+    (recall) is 1 - clip(intersection, 0, 1) where nothing is predicted
+    (nothing is moving), and IoU is 1 on an empty union
+    (``PARITY.md:319-329``)."""
+    gt_pred, cv_pred = gt_mask > 0.5, cv_mask > 0.5
+    dims = (1, 2, 3)
+    inter = (cv_pred & gt_pred).sum(dims).float()
+    union = (cv_pred | gt_pred).sum(dims).float()
+    gt_sum, cv_sum = gt_pred.sum(dims).float(), cv_pred.sum(dims).float()
+    empty = 1.0 - inter.clamp(0, 1)
+    prec = torch.where(cv_sum == 0, empty, inter / cv_sum.clamp_min(1))
+    rec = torch.where(gt_sum == 0, empty, inter / gt_sum.clamp_min(1))
+    iou = torch.where(union == 0, 1.0, inter / union.clamp_min(1))
+    return {"acc": (cv_pred == gt_pred).float().mean(), "prec": prec.mean(),
+            "rec": rec.mean(), "iou": iou.mean()}
+
+
+def mask_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[str, Tensor]:
+    """Stage-2 mask bootstrap (reference ``monorec_loss.py:50-96``): the
+    class-balanced binary cross-entropy of ``cv_mask`` against
+    ``mvobj_mask``, each class weighted by the inverse of its share
+    ``_MVG_RATIO``, times ``multiplicative_weight_mask`` where the data
+    holds one; each log term clamped at -100 as torch's BCE does. Adds the
+    ``_mask_stats``."""
+    gt_mask, cv_mask = data["mvobj_mask"], data["cv_mask"]
+    weight = torch.where(gt_mask > 0, 1.0 / _MVG_RATIO, 1.0 / (1.0 - _MVG_RATIO))
+    if "multiplicative_weight_mask" in data:
+        weight = weight * data["multiplicative_weight_mask"]
+    p = torch.clamp(cv_mask, 1e-12, 1.0 - 1e-12)
+    g = gt_mask.float()
+    bce = -(g * torch.clamp_min(torch.log(p), -100.0)
+            + (1 - g) * torch.clamp_min(torch.log(1 - p), -100.0))
+    return {"loss": (weight * bce).mean(), **_mask_stats(cv_mask, gt_mask)}
+
+
+LOSSES = {"depth_loss": depth_loss, "mask_loss": mask_loss}

@@ -4,16 +4,19 @@
 A weight-shared encoder runs over each single-frame cost volume (frames
 folded into the batch), encoder features are fused by an element-wise max
 across frames, and a decoder with skips from the fused CV features and the
-ResNet features predicts a 1-channel sigmoid mask. The reference's dropout
-(p=0.5) acts in training only, which this port does not do yet; in eval it
-is the identity. ``dtype`` is the convolution dtype: the per-frame CVs
-and the image features are cast to it at entry, and the mask returns in
-float32. ``SimpleMaskModule`` is not ported yet.
+ResNet features predicts a 1-channel sigmoid mask. In training, dropout
+(rate 0.5, the kept values scaled by 1 / (1 - rate)) acts on each fused
+feature map after the frame fusion (``monorec_tpu/models/mask_module.py:
+129-130``); its keep masks are drawn from a ``torch.Generator`` on the
+features' device, so a step copies nothing from the host. In eval it is
+the identity. ``dtype`` is the convolution dtype: the per-frame CVs and the
+image features are cast to it at entry, and the mask returns in float32.
+``SimpleMaskModule`` is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -25,6 +28,25 @@ Tensor = torch.Tensor
 
 _ENC_CH_TAIL = (48, 64, 96, 96)
 _DEC_CH = (96, 96, 64, 48)
+DROPOUT_RATE = 0.5
+
+
+def dropout_keep(shape, keep_prob: float, generator: torch.Generator,
+                 device: torch.device) -> Tensor:
+    """Bernoulli(``keep_prob``) keep mask (bool, ``shape``), drawn on
+    ``device`` from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
+def dropout(x: Tensor, generator: torch.Generator) -> Tensor:
+    """``flax.linen.Dropout``'s training rule at ``DROPOUT_RATE``: kept values
+    scaled by 1 / (1 - rate), the others 0."""
+    if generator.device.type != x.device.type:
+        raise ValueError(f"the dropout generator is on {generator.device}, the features on "
+                         f"{x.device}: draw on the features' device")
+    keep_prob = 1.0 - DROPOUT_RATE
+    keep = dropout_keep(x.shape, keep_prob, generator, x.device)
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class MaskModule(nn.Module):
@@ -69,15 +91,23 @@ class MaskModule(nn.Module):
         )
         self.classifier = nn.Sequential(SamePadConv(d[3], 1, 1), nn.Sigmoid())
 
-    def forward(self, single_frame_cvs: Tensor, image_features: Sequence[Tensor]) -> Tensor:
-        """single_frame_cvs (B, F, D, H, W), image_features NCHW -> mask (B, 1, H, W)."""
+    def forward(self, single_frame_cvs: Tensor, image_features: Sequence[Tensor],
+                train: bool = False, generator: Optional[torch.Generator] = None) -> Tensor:
+        """single_frame_cvs (B, F, D, H, W), image_features NCHW -> mask
+        (B, 1, H, W). ``train`` applies the dropout, drawn from
+        ``generator`` (on the features' device)."""
+        if train and generator is None:
+            raise ValueError("the MaskModule's training dropout draws from a generator; pass one")
         b, n_frames = single_frame_cvs.shape[:2]
         x = single_frame_cvs.flatten(0, 1).to(self.dtype)
         image_features = [f.to(self.dtype) for f in image_features]
         fused = []
         for stage in self.enc:
             x = stage(x)
+            # amax splits the gradient evenly among tied frames, as jnp.max.
             fused.append(x.unflatten(0, (b, n_frames)).amax(dim=1))
+        if train:
+            fused = [dropout(f, generator) for f in fused]
 
         # Decoder H/16 -> H: each stage upsamples, then takes the fused CV
         # features of its scale and, below full resolution, the ResNet

@@ -3,13 +3,18 @@
 cost volume (no grad) -> ResNet pyramid of keyframe + 0.5 -> MaskModule on
 the per-frame CVs -> mask-attenuated CV -> DepthModule -> affine inverse
 depth ``(1 - p) * lo + p * hi``. ``forward(batch, train=False,
-generator=None)``: the eval forward for pretrain modes 0-3, and the train
-forward of modes 1 and 3 (mode 1 with the random CV-mask dropout, in both
-``pretrain_dropout_mode``s; the depth-flip augmentation with the revert of
-every output), whose random draws come from ``generator``. Not ported yet:
-the train forward of modes 0 and 2 (mask dropout), the mask
-augmentation, and the JAX config's ``no_cv``, ``mask_use_cv``,
-``mask_use_feats``, ``simple_mask`` and ``freeze_module``.
+generator=None, dropout_generator=None)``: the eval and the train forward of
+pretrain modes 0-3. Its small random draws (the depth flip, mode 1's CV-mask
+dropout in both ``pretrain_dropout_mode``s) come from ``generator``, a CPU
+generator; the MaskModule's dropout (modes 0 and 2) from
+``dropout_generator``, on the model's device. The entry points ``features``,
+``cost_volume``, ``mask`` and ``depth`` serve the stage 2-4 protocol
+(``train/monorec_trainer.py``); ``freeze_module`` ("att", "depth") stops
+the gradient at the output of ``mask`` / ``depth``. The mask augmentation
+(``augmentation: "mask"``) belongs to that trainer: the forward applies no
+augmentation for it, as in the JAX package. Not ported yet: the JAX
+config's ``no_cv``, ``mask_use_cv``, ``mask_use_feats`` and
+``simple_mask``.
 
 With ``freeze_resnet`` (the default, as in the JAX config) the encoder's
 parameters do not require gradients and it runs under ``torch.no_grad()``,
@@ -62,8 +67,11 @@ class MonoRecConfig:
     # sample (1).
     pretrain_dropout: float = 0.0
     pretrain_dropout_mode: int = 0
-    augmentation: Optional[str] = None  # None | "depth"
+    # None | "depth" | "mask" (the last is the stage 2-4 trainer's).
+    augmentation: Optional[str] = None
     freeze_resnet: bool = True
+    # Submodules whose output carries no gradient: "att", "depth".
+    freeze_module: Tuple[str, ...] = ()
     use_mono: bool = True
     use_stereo: bool = False
     use_ssim: int = 1
@@ -152,13 +160,18 @@ class MonoRec(nn.Module):
             init_weights(self, generator)
         if cfg.freeze_resnet:
             self._feature_extractor.requires_grad_(False)
-        if cfg.augmentation not in (None, "depth"):
-            raise ValueError(f"augmentation {cfg.augmentation!r} is not ported yet")
+        if cfg.augmentation not in (None, "depth", "mask"):
+            raise ValueError(f"unknown augmentation {cfg.augmentation!r}")
         self.to(device)
 
-    def cost_volume(self, batch: Batch, return_coverage: bool = False):
+    def cost_volume(self, batch: Batch, return_coverage: bool = False,
+                    use_mono: Optional[bool] = None, use_stereo: Optional[bool] = None):
+        """Fused and per-frame cost volumes of the configured source frames,
+        or of those ``use_mono`` / ``use_stereo`` select."""
         cfg = self.config
-        frames, intr, poses = gather_cv_frames(batch, cfg.use_mono, cfg.use_stereo)
+        use_mono = cfg.use_mono if use_mono is None else use_mono
+        use_stereo = cfg.use_stereo if use_stereo is None else use_stereo
+        frames, intr, poses = gather_cv_frames(batch, use_mono, use_stereo)
         return compute_cost_volume(
             batch["keyframe"], batch["keyframe_intrinsics"], batch["keyframe_pose"],
             frames, intr, poses,
@@ -177,11 +190,21 @@ class MonoRec(nn.Module):
                 return self._feature_extractor(keyframe + 0.5)
         return self._feature_extractor(keyframe + 0.5)
 
+    def mask(self, single_frame_cvs: Tensor, image_features, train: bool = False,
+             generator: Optional[torch.Generator] = None) -> Tensor:
+        """The MaskModule's moving-object probability (B, 1, H, W); in
+        training with dropout drawn from ``generator``."""
+        out = self.att_module(single_frame_cvs, image_features, train, generator)
+        return out.detach() if "att" in self.config.freeze_module else out
+
     def depth(self, cost_volume: Tensor, keyframe: Tensor, image_features):
         """4-scale inverse depth, affine-mapped to [inv_depth_min_max[1], [0]]."""
         lo, hi = self.config.inv_depth_min_max[1], self.config.inv_depth_min_max[0]
         preds = self.depth_module(cost_volume, keyframe, image_features)
-        return [(1.0 - p) * lo + p * hi for p in preds]
+        preds = [(1.0 - p) * lo + p * hi for p in preds]
+        if "depth" in self.config.freeze_module:
+            preds = [p.detach() for p in preds]
+        return preds
 
     def _cv_mask_dropout(self, keyframe: Tensor, generator: torch.Generator) -> Tensor:
         """Mode 1's training CV mask (``monorec_tpu/models/monorec.py:285-301``)."""
@@ -196,15 +219,12 @@ class MonoRec(nn.Module):
         return mask.expand(b, 1, h, w)
 
     def forward(self, batch: Batch, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         cfg = self.config
         keyframe = batch["keyframe"]
         b, _, h, w = keyframe.shape
         out: Dict[str, Any] = {}
-        if train and cfg.has_mask_module:
-            raise NotImplementedError(
-                f"the train forward of pretrain mode {cfg.pretrain_mode} (mask dropout) is "
-                "not ported yet")
         if train and generator is None:
             raise ValueError("the train forward draws from a generator; pass one")
 
@@ -221,7 +241,7 @@ class MonoRec(nn.Module):
         out["image_features"] = feats
 
         if cfg.pretrain_mode in (0, 2):
-            cv_mask = self.att_module(sfcv, feats)
+            cv_mask = self.mask(sfcv, feats, train, dropout_generator)
         elif cfg.pretrain_mode == 1:
             cv_mask = (self._cv_mask_dropout(keyframe, generator) if train
                        else keyframe.new_zeros(b, 1, h, w))
@@ -234,12 +254,13 @@ class MonoRec(nn.Module):
             out["cost_volume"] = masked_cv
             out["predicted_inverse_depths"] = self.depth(masked_cv, keyframe, feats)
 
-        if flip is not None:  # train forward: modes 1 and 3, both with depth
+        if flip is not None:
             # Revert: orient every output like the un-augmented inputs.
             for key in ("cost_volume", "single_frame_cvs", "cv_mask"):
                 out[key] = conditional_hflip(out[key], flip)
-            out["predicted_inverse_depths"] = [
-                conditional_hflip(p, flip) for p in out["predicted_inverse_depths"]]
+            if cfg.pretrain_mode != 2:
+                out["predicted_inverse_depths"] = [
+                    conditional_hflip(p, flip) for p in out["predicted_inverse_depths"]]
 
         if cfg.pretrain_mode == 2:
             out["result"] = out["cv_mask"]

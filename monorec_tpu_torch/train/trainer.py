@@ -1,8 +1,10 @@
 """Stage-1 trainer (``monorec_tpu/train/trainer.py``) on one device.
 
 One step: the train forward (augmentation and dropout drawn from the
-trainer's ``torch.Generator``), the loss, the backward and the optimizer
-update, optionally skipped when a gradient is not finite. Around it the
+trainer's ``torch.Generator``s), the loss, the backward and the optimizer
+update, optionally skipped when a gradient is not finite. ``_feed`` (the
+forward and the loss) is what a subclass replaces: ``monorec_trainer.py``
+runs the stage 2-4 protocol there. Around it the
 reference's epoch mechanics: iteration-based epochs (``len_epoch``),
 NaN-metric batch invalidation, value faders (``alpha``), a monitored metric
 with best tracking and early stopping, and checkpoints every
@@ -66,6 +68,11 @@ class Trainer:
         self.valid_data_loader = valid_data_loader
         self.options = tuple(options)
         self.generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        # Draws the size of a feature map (the MaskModule's dropout) come
+        # from a generator on the model's device, seeded like ``generator``.
+        device = next(model.parameters()).device
+        self.device_generator = torch.Generator(device=device).manual_seed(
+            self.generator.initial_seed())
         self.optimizer_type = config.get("optimizer", {}).get("type", "Adam")
 
         tcfg = config.get("trainer", {})
@@ -115,18 +122,26 @@ class Trainer:
                               .to(loss_dict["loss"].device) for k in keys])
         return dict(zip(keys, values.tolist()))
 
+    def _feed(self, batch: Dict, train: bool, alpha: float) -> Tuple[Dict, Dict]:
+        """The forward and the loss: (loss dict, data = batch + outputs)."""
+        if train:
+            out = self.model(batch, train=True, generator=self.generator,
+                             dropout_generator=self.device_generator)
+        else:
+            out = self.model(batch)
+        data = {**batch, **out}
+        return self.loss_fn(data, alpha, self.roi_train, self.options), data
+
     def train_step(self, batch: Dict, alpha: float) -> Tuple[Dict[str, float], np.ndarray]:
         """One optimizer step on ``batch``; returns the loss dict as floats
         and the metrics."""
         self.model.train()
-        out = self.model(batch, train=True, generator=self.generator)
-        data = {**batch, **out}
-        loss_dict = self.loss_fn(data, alpha, self.roi_train, self.options)
+        loss_dict, data = self._feed(batch, True, alpha)
         self.optimizer.zero_grad(set_to_none=True)
         loss_dict["loss"].backward()
         skipped = apply_gradients_guarded(self.optimizer, self.skip_nonfinite_updates)
-        if "cv_uncovered" in out:
-            loss_dict["cv_uncovered"] = out["cv_uncovered"].sum()
+        if "cv_uncovered" in data:
+            loss_dict["cv_uncovered"] = data["cv_uncovered"].sum()
         floats = self._to_floats(loss_dict)
         if skipped is not None:
             floats["skipped_nonfinite"] = skipped
@@ -135,8 +150,7 @@ class Trainer:
     @torch.no_grad()
     def valid_step(self, batch: Dict, alpha: float) -> Tuple[Dict[str, float], np.ndarray]:
         self.model.eval()
-        data = {**batch, **self.model(batch)}
-        loss_dict = self.loss_fn(data, alpha, self.roi_train, self.options)
+        loss_dict, data = self._feed(batch, False, alpha)
         return self._to_floats(loss_dict), self._metrics(data)
 
     # ----- epochs ------------------------------------------------------------

@@ -304,8 +304,8 @@ def test_config_reader_names_what_is_not_ported():
         config_mod.build_data_loader({"type": "KittiOdometryDataloader", "args": {}}, "cpu")
     with pytest.raises(NotImplementedError, match="simple_mask"):
         config_mod.build_model_config({"simple_mask": True})
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        config_mod.build_model_config({"checkpoint_location": ["x.pth"]})
+    with pytest.raises(NotImplementedError, match="imagenet_weights"):
+        config_mod.build_model_config({"imagenet_weights": "x.pth"})
     with open(CONFIGS / "train" / "monorec" / "monorec_depth.json") as f:
         arch = json.load(f)["arch"]["args"]
     cfg = config_mod.build_model_config(arch)
