@@ -36,9 +36,12 @@ checkout, then:
    3x256x512, at the coordinates of a real depth warp (inverse depths with
    edges, tz 0 and 0.5); the exact-zero invalid mask must match exactly;
    times all three;
-8. photometric error: ``photo_error_fwd`` / ``photo_error_bwd`` against
-   their plain versions at M=64, 3x256x512; times both, and the forward
-   also at M=16, the step's other launch;
+8. photometric error: ``photo_error_fwd`` / ``photo_error_bwd`` at M=64,
+   3x256x512, held per element to their plain version run in float64,
+   within the test budgets widened by a first-order bound of float32
+   rounding in SSIM's window statistics (``check_photo_error``); the gate
+   must also reject the kernel's output with its L1 term taken out; times
+   both, and the forward also at M=16, the step's other launch;
 9. the loss: ``depth_loss`` and its gradient w.r.t. the 4 predicted inverse
    depths at B=8, 256x512, F=2, kernels against plain versions; both timed
    in turns, and each one's device time (K2, K3 and the rest) read from a
@@ -73,9 +76,11 @@ checkout, then:
    kernels' launch counts, then times the step against the exact step in
    turns, splits it, and reads its busy share from a profiler trace;
 16. the convergence check: ``monorec_tpu_torch.tools.convergence_check``
-   trains 10 stage-1 steps under each policy at 256x512, B=8, D=32 and
-   evaluates abs_rel on its held-out samples; prints its JSON record, and
-   checks finite losses and abs_rel and two K3 forward launches per step;
+   trains 10 stage-1 steps and 10 stage-4 steps under each policy at
+   256x512, B=8, D=32 and evaluates abs_rel on its held-out samples; prints
+   both JSON records, and checks finite abs_rel (and stage 1's finite
+   losses) and two K3 forward launches per stage-1 step, three per stage-4
+   step;
 17. stage 2 of the curriculum: the trainer of ``cli/train_monorec.py``, from
    ``configs/train/monorec/monorec_mask.json`` with the data loader swapped
    for ``SyntheticSweepDataloader`` at 256x512, B=8, F=2, D=32 with stereo
@@ -87,7 +92,23 @@ checkout, then:
    against ``F.grid_sample``; times the step (CUDA events), splits it and
    reads its busy share from a profiler trace; then loads phase 10's and
    this phase's checkpoints into a pretrain-mode-0 model on the card and
-   checks the loaded subtrees equal.
+   checks the loaded subtrees equal;
+18. stage 3 of the curriculum: the same trainer on
+   ``monorec_mask_ref.json -o mask_loss`` at B=4, from phase 10's and
+   phase 17's checkpoints, takes 6 steps and a validation pass; checks
+   finite losses, moved MaskModule and DepthModule tensors, a fixed encoder
+   and the exact launch counts per step; times the step, splits it, and
+   reads its peak memory and busy share;
+19. stage 4: the same on ``monorec_depth_ref.json -o stereo stereo_repr``
+   at B=8, from phase 10's depth and phase 18's mask checkpoints, the
+   mask's classifier bias shifted to the median of its logits so that
+   static and moving pixels both exist; checks a fixed MaskModule and
+   encoder, a moved DepthModule, finite gradients on every step, a finite
+   loss on at least one step with both kinds of pixel (and on every such
+   step), and the launch counts per step and at N=M=96; times and splits
+   the step as phase 18; then holds K2 ``_jac`` at N=96 and K3 at M=96
+   (the stage-4 loss's first warp) to their plain versions at the trained
+   model's warp of a batch, K3 as in phase 8, and times them.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -121,6 +142,11 @@ SCALES = 4  # depth_loss stacks its 4 scales into one warp: N = SCALES * B * F
 WARP_TOL, JAC_TOL = 2e-4, 2e-5  # tests/test_grid_warp.py:51,298
 PE_FWD_RTOL, PE_FWD_ATOL = 1e-5, 1e-6  # tests/test_photo_error.py:44
 PE_BWD_RTOL, PE_BWD_ATOL = 1e-3, 2e-5  # tests/test_photo_error.py:62
+# K3 is held to its plain version run in float64 within those budgets plus
+# this many float32 unit roundoffs times photo_error_rounding's bound: on
+# smooth images SSIM's float32 window statistics cancel, and the float32
+# plain version itself leaves the budgets there.
+PE_ROUNDING = 16 * 2.0**-24
 LOSS_RTOL = 5e-4  # PARITY.md row 9, full-chain reprojection
 TRAIN_STEPS = 6
 PROFILED_STEPS = 5
@@ -411,52 +437,178 @@ def phase_loss_warp(dev, card: str, dtype=None):
             for k in errs}, (images, xs, ys, tiled)
 
 
+def photo_error_rounding(x, y, cot):
+    """Per element of K3's forward (M, H, W) and backward (M, C, H, W), a
+    first-order bound on how far it moves per unit relative rounding error
+    of SSIM's five 3x3 window statistics (mu_x, mu_y, E[x^2], E[y^2],
+    E[xy]), computed in float64 from the inputs alone.
+
+    A relative error e in a window sum takes statistic s_t off by at most
+    e a_t, a_t the window sum of its terms' absolute values. Per unit e, the
+    forward then moves by sum_t |d out / d s_t| a_t. The backward
+    contracts the per-pixel gradients G_s = d sum(cot * out) / d s_s with
+    the window and (1, 2 x, y), so it moves by the window sum of
+    sum_t |d G_s / d s_t| a_t with the same weights. Where a window's
+    variance is small against C2, E[x^2] - mu_x^2 cancels and these terms
+    are large (smooth images, or the out-of-view x = -1): any float32
+    implementation, the plain version's included, is off by about this
+    much there."""
+    import torch
+    import torch.nn.functional as F_
+
+    from monorec_tpu_torch.ops.ssim import _C1, _C2, _window_avg
+
+    x, y, cot = x.double(), y.double(), cot.double()
+    c = x.shape[1]
+
+    def wsum(t):  # the zero-padded gaussian window, as K3's
+        return _window_avg(F_.pad(t, (1, 1, 1, 1)), True)
+
+    with torch.enable_grad():
+        stats = [wsum(t).requires_grad_() for t in (x, y, x * x, y * y, x * y)]
+        mx, my, exx, eyy, exy = stats
+        a = [wsum(x.abs()), wsum(y.abs()), exx.detach(), eyy.detach(), wsum((x * y).abs())]
+        n = (2.0 * mx * my + _C1) * (2.0 * (exy - mx * my) + _C2)
+        d = (mx * mx + my * my + _C1) * (exx - mx * mx + eyy - my * my + _C2)
+        part = (0.85 / (2 * c)) * torch.clamp(1.0 - n / d, 0.0, 1.0)  # out's SSIM term
+        g = torch.autograd.grad(part.sum(), stats, retain_graph=True)
+        fwd = sum(gt.abs() * at for gt, at in zip(g, a)).sum(1)
+        G = torch.autograd.grad((part * cot[:, None]).sum(), stats, create_graph=True)
+        bwd = torch.zeros_like(x)
+        for s, coef in ((0, 1.0), (2, 2.0 * x.abs()), (4, y.abs())):  # mu_x, E[x^2], E[xy]
+            h = torch.autograd.grad(G[s].sum(), stats, retain_graph=True, allow_unused=True)
+            j = sum(ht.abs() * at for ht, at in zip(h, a) if ht is not None)
+            bwd += coef * wsum(j)
+    return fwd.detach(), bwd
+
+
+def check_photo_error(x, y, cot, tag: str) -> dict:
+    """K3's two kernels on (M, 3, H, W) ``x``, ``y`` and the (M, H, W)
+    cotangent ``cot``, held per element to the plain version run in float64:
+    |kernel - plain64| <= atol + rtol |plain64| + PE_ROUNDING x the bound of
+    ``photo_error_rounding``, the test budgets widened only where float32
+    itself is ill-conditioned. The backward is gated off the SSIM clamp's
+    kink (reported there). The gate must also reject the kernel's output
+    with K3's L1 term taken out. Returns the kernel's max |diff| to the
+    float32 plain version ("max_abs_err", the backward's off the kink) and
+    the kernel's and the float32 plain version's max |diff| to float64,
+    for "forward" and "backward"."""
+    import torch
+    import torch.nn.functional as F_
+
+    from monorec_tpu_torch.ops import photo_error as pe
+    from monorec_tpu_torch.ops.ssim import ssim_pre_clamp
+
+    out = pe.photo_error_fwd(x, y)
+    gx = pe.photo_error_bwd(x, y, cot)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    if not (torch.isfinite(out).all() and torch.isfinite(gx).all()):
+        raise AssertionError(f"{tag} photo_error gave non-finite values")
+    m, c, h, w = x.shape
+    names = ("forward", "backward")
+    err = {k: dict.fromkeys(("kernel_p32", "kernel_p64", "p32_p64", "kink"), 0.0) for k in names}
+    count = {k: dict.fromkeys(("fail", "caught", "widened", "kink"), 0) for k in names}
+    need = {k: {"kernel": 0.0, "plain": 0.0} for k in names}  # PE_ROUNDING's share used
+    tols = {"forward": (PE_FWD_RTOL, PE_FWD_ATOL), "backward": (PE_BWD_RTOL, PE_BWD_ATOL)}
+    for i in range(0, m, 16):  # float64 with a double backward: in chunks of 16 images
+        xs, ys, cs = x[i:i + 16], y[i:i + 16], cot[i:i + 16]
+        k_out, k_gx = out[i:i + 16].double(), gx[i:i + 16].double()
+        refs = {}
+        for dtype in (torch.float32, torch.float64):
+            xr = xs.to(dtype).requires_grad_()
+            ref = pe.photo_error_reference(xr, ys.to(dtype))
+            (grad,) = torch.autograd.grad((ref * cs.to(dtype)).sum(), xr)
+            refs[dtype] = (ref.detach().double(), grad.double())
+        (p32, g32), (p64, g64) = refs[torch.float32], refs[torch.float64]
+        scale = photo_error_rounding(xs, ys, cs)
+        with torch.no_grad():
+            # Where SSIM's pre-clamp value sits within float32 rounding of
+            # the clamp bounds 0 and 1, kernel and plain version may take
+            # different sides of the kink (both subgradients are right). A
+            # gradient element reads the clamp of its 3x3 neighbourhood.
+            v = ssim_pre_clamp(xs, ys, pad_reflection=False, gaussian_average=True)
+            kink = (v.abs() < 1e-5) | ((v - 1.0).abs() < 1e-5)
+            kink = F_.max_pool2d(kink.float(), 3, 1, 1) > 0
+            l1 = {"forward": 0.15 * (xs - ys).abs().mean(1),
+                  "backward": (0.15 / c) * torch.sign(xs - ys) * cs[:, None]}
+            for name, k, p_32, p_64, sc, off in (("forward", k_out, p32, p64, scale[0], None),
+                                                  ("backward", k_gx, g32, g64, scale[1], kink)):
+                rtol, atol = tols[name]
+                budget = atol + rtol * p_64.abs()
+                allowed = budget + PE_ROUNDING * sc
+                gate = lambda got: (got - p_64).abs() <= allowed  # noqa: E731
+                on = torch.ones_like(k, dtype=torch.bool) if off is None else ~off
+                count[name]["fail"] += (~gate(k) & on).sum().item()
+                count[name]["caught"] += (~gate(k - l1[name].double()) & on).sum().item()
+                count[name]["widened"] += ((PE_ROUNDING * sc > budget) & on).sum().item()
+                count[name]["kink"] += (~on).sum().item()
+                for key, a, b in (("kernel_p32", k, p_32), ("kernel_p64", k, p_64),
+                                  ("p32_p64", p_32, p_64)):
+                    err[name][key] = max(err[name][key], (a - b).abs()[on].max().item())
+                if off is not None and off.any():
+                    err[name]["kink"] = max(err[name]["kink"], (k - p_32).abs()[off].max().item())
+                some = on & (sc > 0)  # elsewhere the allowance is 0: counted as outside
+                for who, got in (("kernel", k), ("plain", p_32)):
+                    excess = ((got - p_64).abs() - budget).clamp(min=0)[some]
+                    used = excess / (PE_ROUNDING * sc[some])
+                    need[name][who] = max(need[name][who], used.max().item())
+        del refs, p32, g32, p64, g64, scale
+    for name in names:
+        e, n_ = err[name], count[name]
+        total = out.numel() if name == "forward" else gx.numel()
+        log(f"{tag} {name} at M={m}, {c}x{h}x{w}: max|diff| to the float32 plain version "
+            f"{e['kernel_p32']:.3e}, to float64 {e['kernel_p64']:.3e} (float32 plain "
+            f"{e['p32_p64']:.3e}); gate |kernel - float64| <= {tols[name][1]} + "
+            f"{tols[name][0]} |float64| + {PE_ROUNDING / 2.0**-24:.0f} u x rounding bound, "
+            f"widened past the budget at {n_['widened']} of {total - n_['kink']} elements; "
+            f"outside it {n_['fail']}; share of "
+            f"the rounding allowance used: kernel {need[name]['kernel']:.4f}, float32 plain "
+            f"{need[name]['plain']:.4f}; with K3's L1 term taken out the kernel would fail at "
+            f"{n_['caught']}" + ("" if name == "forward" else
+                                 f"; {n_['kink']} elements read a clamp within 1e-5 of its bound, "
+                                 f"max|diff| there {e['kink']:.3e}"))
+    if any(count[k]["fail"] for k in names) or not all(count[k]["caught"] for k in names):
+        raise AssertionError(f"{tag} photo_error disagrees with its plain version")
+    return {name: {"max_abs_err": err[name]["kernel_p32"],
+                   "max_abs_err_vs_float64": err[name]["kernel_p64"],
+                   "plain_max_abs_err_vs_float64": err[name]["p32_p64"]} for name in names}
+
+
+def photo_error_plain_bwd(x, y, cot):
+    """K3's backward by autograd through the plain version."""
+    import torch
+
+    from monorec_tpu_torch.ops import photo_error as pe
+
+    xg = x.detach().requires_grad_()
+    return torch.autograd.grad((pe.photo_error_reference(xg, y) * cot).sum(), xg)
+
+
+def photo_error_bounds(x, y, cot) -> dict:
+    """K3's bounds: x, y in and the (M, H, W) map out (forward); x, y and
+    the cotangent in and d/dx out (backward)."""
+    pixels = x[:, 0].numel()
+    return {"photo_error_fwd": bound(nbytes(x, y) + pixels * 4,  # the map's scale by 1 / C: 1 op
+                                     K3_FLOPS["photo_error_fwd"] * x.numel() + pixels),
+            "photo_error_bwd": bound(nbytes(x, y, cot) + nbytes(x),
+                                     K3_FLOPS["photo_error_bwd"] * x.numel())}
+
+
 def phase_photo_error(dev, card: str, images, xs, ys, tiled) -> dict:
     """Phase 8: K3 against its plain version, on the warped stack of phase 7
     against its keyframes (the loss's own inputs)."""
     import torch
-    import torch.nn.functional as F_
 
     from monorec_tpu_torch.ops import grid_warp as gw
     from monorec_tpu_torch.ops import photo_error as pe
-    from monorec_tpu_torch.ops.ssim import ssim_pre_clamp
 
     n = images.shape[0]
     x = (gw.grid_warp(images, xs, ys) - 1.0).contiguous()
     y = (tiled["keyframe"] + 0.5)[:, None].expand(-1, F, -1, -1, -1).reshape(n, 3, H, W).contiguous()
     cot = torch.empty(n, H, W, device=dev).uniform_(-1.0, 1.0,
                                                     generator=torch.Generator(dev).manual_seed(2))
-    out = pe.photo_error_fwd(x, y)
-    gx = pe.photo_error_bwd(x, y, cot)
-    torch.cuda.synchronize()
-    ref = pe.photo_error_reference(x, y)
-    xr = x.clone().requires_grad_()
-    (rgx,) = torch.autograd.grad((pe.photo_error_reference(xr, y) * cot).sum(), xr)
-    e_fwd = (out - ref).abs().max().item()
-    fwd_ok = within(out, ref, PE_FWD_RTOL, PE_FWD_ATOL).all().item()
-    # Where SSIM's pre-clamp value sits within float32 rounding of the clamp
-    # bounds 0 and 1, the kernel and the plain version may take different
-    # sides of the kink (both subgradients are right): the gradient there
-    # is reported, and gated everywhere else. A gradient element reads the
-    # clamp of its 3x3 neighbourhood.
-    with torch.no_grad():
-        v = ssim_pre_clamp(x, y, pad_reflection=False, gaussian_average=True)
-        kink = (v.abs() < 1e-5) | ((v - 1.0).abs() < 1e-5)
-        kink = F_.max_pool2d(kink.float(), 3, 1, 1) > 0
-    ok = within(gx, rgx, PE_BWD_RTOL, PE_BWD_ATOL) | kink
-    e_bwd = (gx - rgx).abs()[~kink].max().item()
-    e_kink = (gx - rgx).abs()[kink].max().item() if kink.any() else 0.0
-    log(f"[8 photo error] M={n}, 3x{H}x{W}: forward max|diff| {e_fwd:.3e} (rtol {PE_FWD_RTOL}, "
-        f"atol {PE_FWD_ATOL}); backward max|diff| {e_bwd:.3e} (rtol {PE_BWD_RTOL}, atol "
-        f"{PE_BWD_ATOL}) off the clamp's kink; {kink.sum().item()} of {kink.numel()} gradient "
-        f"elements read a clamp within 1e-5 of its bound, max|diff| there {e_kink:.3e}")
-    if not (torch.isfinite(out).all() and torch.isfinite(gx).all() and fwd_ok and ok.all()):
-        raise AssertionError("photo_error disagrees with its plain version")
-    del ref, xr, rgx, v, kink, ok
-
-    def plain_bwd():
-        xg = x.detach().requires_grad_()
-        return torch.autograd.grad((pe.photo_error_reference(xg, y) * cot).sum(), xg)
+    errs = check_photo_error(x, y, cot, "[8 photo error]")
 
     # The step's other forward launch: the identity errors of the keyframes
     # against their source frames, M = B * F.
@@ -467,30 +619,26 @@ def phase_photo_error(dev, card: str, images, xs, ys, tiled) -> dict:
                                     lambda: pe.photo_error_reference(x, y), 20, 3),
         "photo_error_fwd_m2": in_turns(lambda: pe.photo_error_fwd(x2, y2),
                                        lambda: pe.photo_error_reference(x2, y2), 20, 3),
-        "photo_error_bwd": in_turns(lambda: pe.photo_error_bwd(x, y, cot), plain_bwd, 20, 3),
+        "photo_error_bwd": in_turns(lambda: pe.photo_error_bwd(x, y, cot),
+                                    lambda: photo_error_plain_bwd(x, y, cot), 20, 3),
     }
     for k, (k_ms, p_ms, _, turns, order) in timing.items():
         log(f"[8 photo error] {k} time at M={m2 if k.endswith('_m2') else n}, 3x{H}x{W} "
             f"({order}): {', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs "
             f"plain {p_ms:.3f} ms on {card}")
 
-    def fwd_bound(xs, ys):  # x, y in; the (M, H, W) error map out
-        pixels = xs[:, 0].numel()
-        return bound(nbytes(xs, ys) + pixels * 4,
-                     K3_FLOPS["photo_error_fwd"] * xs.numel() + pixels)  # + the scale by 1 / C
-
-    fwd_m2 = fwd_bound(x2, y2)
+    bounds = photo_error_bounds(x, y, cot)
+    fwd_m2 = photo_error_bounds(x2, y2, cot[:m2])["photo_error_fwd"]
     return {
-        "photo_error_fwd": {"max_abs_err": e_fwd, "ms": timing["photo_error_fwd"][0],
+        "photo_error_fwd": {**errs["forward"], "ms": timing["photo_error_fwd"][0],
                             "plain_ms": timing["photo_error_fwd"][1], "library_ms": None,
-                            **fwd_bound(x, y), "second_launch_m": m2,
+                            **bounds["photo_error_fwd"], "second_launch_m": m2,
                             "second_launch_ms": timing["photo_error_fwd_m2"][0],
                             "second_launch_plain_ms": timing["photo_error_fwd_m2"][1],
                             "second_launch_bound_ms": fwd_m2["bound_ms"]},
-        "photo_error_bwd": {"max_abs_err": e_bwd, "ms": timing["photo_error_bwd"][0],
+        "photo_error_bwd": {**errs["backward"], "ms": timing["photo_error_bwd"][0],
                             "plain_ms": timing["photo_error_bwd"][1], "library_ms": None,
-                            **bound(nbytes(x, y, cot, gx),
-                                    K3_FLOPS["photo_error_bwd"] * x.numel())},
+                            **bounds["photo_error_bwd"]},
     }
 
 
@@ -568,6 +716,14 @@ def reset_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "launches_bf16"):
             fn.launches_bf16 = 0
+        if hasattr(fn, "launches_by_batch"):
+            fn.launches_by_batch.clear()
+
+
+def launches_by_batch() -> dict:
+    """K2's and K3's float32 launches by their leading dim (N or M)."""
+    return {name: dict(fn.launches_by_batch) for name, fn in _counted().items()
+            if hasattr(fn, "launches_by_batch")}
 
 
 def only(**nonzero) -> dict:
@@ -1127,26 +1283,34 @@ def phase_convergence(dev) -> None:
     """Phase 16: the port's serving-vs-exact convergence check
     (``monorec_tpu_torch.tools.convergence_check.run_policy``) for
     CONV_STEPS steps under each policy at its defaults (256x512, D=32) and
-    B=8; K3's forward launches twice per step."""
+    B=8, for stage 1 (K3's forward twice per step) and stage 4 (three times
+    per step: the identity errors, the mono and stereo frames' warps and the
+    stereo_repr warp)."""
     from monorec_tpu_torch.ops import photo_error
     from monorec_tpu_torch.tools import convergence_check as cc
 
-    res = {}
-    for policy in cc.POLICIES:
-        before, t = photo_error.photo_error_fwd.launches, time.perf_counter()
-        res[policy] = cc.run_policy(policy, CONV_STEPS, B, 5, device=dev)
-        launched = photo_error.photo_error_fwd.launches - before
-        log(f"[16 convergence check] {policy}: {CONV_STEPS} steps and abs_rel on 16 held-out "
-            f"samples in {time.perf_counter() - t:.1f} s; photo_error_fwd launches {launched} "
-            f"(expected {2 * CONV_STEPS})")
-        if launched != 2 * CONV_STEPS:
-            raise AssertionError(f"the {policy} convergence run launched K3's forward "
-                                 f"{launched} times in {CONV_STEPS} steps")
-    record = cc.summarize(1, CONV_STEPS, B, res["exact"], res["serving"])
-    log(json.dumps(record))
-    if not all(math.isfinite(record[k]) for k in ("final_loss_exact", "final_loss_serving",
-                                                   "abs_rel_exact", "abs_rel_serving")):
-        raise AssertionError("the convergence check gave a loss or abs_rel that is not finite")
+    for stage, per_step in ((1, 2), (4, 3)):
+        res = {}
+        for policy in cc.POLICIES:
+            before, t = photo_error.photo_error_fwd.launches, time.perf_counter()
+            res[policy] = cc.run_policy(policy, CONV_STEPS, B, 5, stage, device=dev)
+            launched = photo_error.photo_error_fwd.launches - before
+            log(f"[16 convergence check] stage {stage}, {policy}: {CONV_STEPS} steps and abs_rel "
+                f"on 16 held-out samples in {time.perf_counter() - t:.1f} s; photo_error_fwd "
+                f"launches {launched} (expected {per_step * CONV_STEPS})")
+            if launched != per_step * CONV_STEPS:
+                raise AssertionError(f"the stage-{stage} {policy} convergence run launched K3's "
+                                     f"forward {launched} times in {CONV_STEPS} steps")
+        record = cc.summarize(stage, CONV_STEPS, B, res["exact"], res["serving"])
+        log(json.dumps(record))
+        # Stage 4's losses are NaN where no pixel or every pixel is moving
+        # (its seed-0 MaskModule puts them all above 0.5): only abs_rel is
+        # held finite there.
+        keys = ("abs_rel_exact", "abs_rel_serving") + (
+            ("final_loss_exact", "final_loss_serving") if stage == 1 else ())
+        if not all(math.isfinite(record[k]) for k in keys):
+            raise AssertionError(f"the stage-{stage} convergence check gave a number that is not "
+                                 f"finite: {[k for k in keys if not math.isfinite(record[k])]}")
 
 
 def mean_rel(got, ref) -> float:
@@ -1406,7 +1570,326 @@ def phase_stage2(dev, card: str, run_dir, stage1_checkpoint):
         f"{equal['att_module.']}; its eval forward finite {finite}")
     if not (all(equal.values()) and finite):
         raise AssertionError("the stage handoff did not load the earlier stages' subtrees")
-    return counts, record
+    return counts, record, stage2_checkpoint
+
+
+def refinement_trainer(dev, run_dir, name: str, batch_size: int, options, checkpoints: dict):
+    """The trainer of ``cli/train_monorec.py`` on ``configs/train/monorec/
+    <name>.json`` with synthetic data at the operating point (stereo frames,
+    the config's moving-object mask) and batch ``batch_size``, starting from
+    the ``checkpoints`` ({"depth_cp_loc": path, "mask_cp_loc": path})."""
+    from monorec_tpu_torch.cli.train_monorec import build_trainer
+    from monorec_tpu_torch.precision import set_precision
+
+    with open(f"configs/train/monorec/{name}.json") as f:
+        config = json.load(f)
+    data = {"frame_count": F, "target_image_size": [H, W], "batch_size": batch_size,
+            "return_stereo": True, "return_mvobj_mask": 1}
+    config["data_loader"] = {"type": "SyntheticSweepDataloader",
+                             "args": {**data, "length": TRAIN_STEPS * batch_size, "shuffle": True}}
+    config["val_data_loader"] = {"type": "SyntheticSweepDataloader",
+                                 "args": {**data, "length": batch_size, "shuffle": False,
+                                          "seed": 1}}
+    config["arch"]["args"].update({k: [str(v)] for k, v in checkpoints.items()})
+    config["trainer"].update(epochs=1, len_epoch=TRAIN_STEPS, log_step=1,
+                             save_dir=f"{run_dir}/{name}", tensorboard=False)
+    set_precision("exact", expect_rebuild=True)
+    return build_trainer(config, dev, options)
+
+
+REFINEMENT_NAMES = ("cost volumes", "features + mask", "depth decodes", "loss", "backward",
+                    "optimizer")
+
+
+def refinement_split(trainer, batches, alpha, n_steps: int):
+    """Medians of a stage-3 or stage-4 step's parts (CUDA events), the ops of
+    ``MonoRecTrainer._feed`` under the stage's flags (the flip left out):
+    the two cost volumes, features + MaskModule, the two depth decodes, the
+    loss, backward, optimizer."""
+    import torch
+
+    model = trainer.model
+    lo, hi = model.config.inv_depth_min_max[1], model.config.inv_depth_min_max[0]
+    rows = []
+    for i in range(n_steps):
+        batch = batches[i % len(batches)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        with torch.no_grad():
+            cv_s, _ = model.cost_volume(batch, use_mono=False, use_stereo=True)
+            cv_m, sfcv_m = model.cost_volume(batch, use_mono=True, use_stereo=False)
+        ev[1].record()
+        feats = model.features(batch["keyframe"])
+        cv_mask = model.mask(sfcv_m, feats, True, trainer.device_generator)
+        if trainer.mult_mask_on_cv:
+            cv_m = cv_m * (1.0 - cv_mask)
+        ev[2].record()
+        with torch.no_grad():
+            stereo_pred = model.depth(cv_s, batch["keyframe"], feats)
+        mono_pred = model.depth(cv_m, batch["keyframe"], feats)
+        ev[3].record()
+        data = {**batch, "cv_mask": cv_mask, "mono_pred": mono_pred, "stereo_pred": stereo_pred,
+                "inv_depth_min": hi, "inv_depth_max": lo}
+        loss_dict = trainer.loss_fn(data, alpha, None, trainer.options)
+        ev[4].record()
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss_dict["loss"].backward()
+        ev[5].record()
+        trainer.optimizer.step()
+        ev[6].record()
+        ev[6].synchronize()
+        rows.append([ev[j].elapsed_time(ev[j + 1]) for j in range(6)])
+    return [statistics.median(c) for c in zip(*rows)]
+
+
+def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_step: dict):
+    """Six steps and a validation pass through ``trainer.train()``, the main
+    path, with the counts set to 0 just before. Checks that every tensor of
+    the ``trained`` modules moved and none of the ``fixed`` ones did, and
+    the launches: ``per_step`` per train step, and per validation batch the
+    same forwards with every K2 launch in values mode and no backward.
+    Returns the counts, K2's and K3's counts by leading dim, the log lines
+    and each step's moving share."""
+    import torch
+
+    model = trainer.model
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    n_val = len(trainer.valid_data_loader)
+    ratios = []
+
+    stage_loss = trainer.loss_fn
+
+    def loss_fn(data, *args):
+        ratios.append((data["cv_mask"] > 0.5).float().mean().item())
+        return stage_loss(data, *args)
+
+    trainer.loss_fn = loss_fn
+    reset_counts()
+    log_ = trainer.train()  # the main path
+    counts, by_batch = launch_counts(), launches_by_batch()
+    trainer.loss_fn = stage_loss
+    k2_val = per_step.get("grid_warp", 0) + per_step.get("grid_warp_jac", 0)
+    expected = only(**{k: v * TRAIN_STEPS for k, v in per_step.items()})
+    for k, v in (("plane_sweep_cost_volume", per_step["plane_sweep_cost_volume"]),
+                 ("grid_warp", k2_val), ("photo_error_fwd", per_step["photo_error_fwd"])):
+        expected[k] += v * n_val
+    lines = [json.loads(s) for s in trainer.log_path.read_text().splitlines()]
+    moved = {prefix: sum(not torch.equal(p, start[k]) for k, p in model.named_parameters()
+                         if k.startswith(prefix)) for prefix in trained + fixed}
+    total = {prefix: sum(k.startswith(prefix) for k in start) for prefix in trained + fixed}
+    losses = ", ".join(f"{r['loss']:.5f}" for r in lines)
+    shares = [", ".join(f"{x:.4f}" for x in part)
+              for part in (ratios[:TRAIN_STEPS], ratios[TRAIN_STEPS:])]
+    log(f"{tag} {TRAIN_STEPS} steps + {n_val} validation batch(es) through the trainer of "
+        f"cli/train_monorec.py (options {' '.join(trainer.options)}), "
+        f"B={trainer.data_loader.batch_size}, {H}x{W}, F={F}, D={D}: losses {losses}; moving "
+        f"share per step {shares[0]} (validation {shares[1]}); val_loss "
+        f"{log_.get('val_loss', float('nan')):.5f}; tensors moved "
+        + ", ".join(f"{p[:-1]} {moved[p]} of {total[p]}" for p in trained + fixed)
+        + f"; launches { {k: v for k, v in counts.items() if v} } (expected the same, every "
+        f"other kernel 0)")
+    if not (len(lines) == TRAIN_STEPS and counts == expected
+            and all(moved[p] == total[p] > 0 for p in trained)
+            and all(moved[p] == 0 for p in fixed)):
+        raise AssertionError(f"{tag} training through the entry point failed its checks")
+    return counts, by_batch, lines, ratios[:TRAIN_STEPS]
+
+
+def refinement_timing(tag: str, card: str, dev, trainer, per_step: dict) -> None:
+    """The median of 10 steps (CUDA events) with each step's launches, the
+    split of 5, the peak memory and the busy share of a profiler trace."""
+    import torch
+
+    batches = [b for _, b in zip(range(3), trainer.data_loader)]
+    alpha = trainer._alpha(1)
+    step_times(trainer, batches, alpha, 1, "exact")
+    times = step_times(trainer, batches, alpha, 10, "exact")
+    want = only(**per_step)
+    for _, delta in times:
+        if delta != want:
+            raise AssertionError(f"a {tag} step launched {delta}, expected {want}")
+    med = statistics.median(t for t, _ in times)
+    b = trainer.data_loader.batch_size
+    log(f"{tag} median step (CUDA events, 10 steps) {med:.3f} ms = {b * 1e3 / med:.2f} "
+        f"keyframes/s at B={b} on {card}; per-step launches "
+        f"{ {k: v for k, v in want.items() if v} }; per-step ms "
+        + ", ".join(f"{t:.2f}" for t, _ in times))
+    torch.cuda.reset_peak_memory_stats(dev)
+    split = refinement_split(trainer, batches, alpha, 5)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"{tag} step split, medians of 5 (CUDA events): " + ", ".join(
+        f"{n} {t:.3f}" for n, t in zip(REFINEMENT_NAMES, split)) + f" ms (sum {sum(split):.3f}); "
+        f"peak memory {peak:.2f} GiB")
+    profile_steps(tag, trainer, batches, alpha, med)
+
+
+STAGE3_STEP = {"plane_sweep_cost_volume": 2, "grid_warp": 2, "grid_warp_jac": 1,
+               "photo_error_fwd": 2, "photo_error_bwd": 1}
+STAGE4_STEP = {"plane_sweep_cost_volume": 2, "grid_warp": 1, "grid_warp_jac": 2,
+               "photo_error_fwd": 3, "photo_error_bwd": 2}
+STAGE3_B = 4  # monorec_mask_ref.json's batch size
+
+
+def phase_stage3(dev, card: str, run_dir, stage1_checkpoint, stage2_checkpoint):
+    """Phase 18: stage 3 of the curriculum (mask refinement) from phase 10's
+    and phase 17's checkpoints. Returns the launch counts of its main path
+    and its checkpoint."""
+    import torch
+
+    trainer = refinement_trainer(dev, run_dir, "monorec_mask_ref", STAGE3_B, ("mask_loss",),
+                                 {"depth_cp_loc": stage1_checkpoint,
+                                  "mask_cp_loc": stage2_checkpoint})
+    counts, _, lines, _ = refinement_main_path("[18 stage 3]", trainer,
+                                               ("att_module.", "depth_module."),
+                                               ("_feature_extractor.",), STAGE3_STEP)
+    if not all(math.isfinite(r["loss"]) for r in lines):
+        raise AssertionError("a stage-3 loss is not finite")
+    log("[18 stage 3] per step mask_loss (logged x4) "
+        + ", ".join(f"{r['mask_loss']:.5f}" for r in lines) + "; iou "
+        + ", ".join(f"{r['iou']:.4f}" for r in lines))
+    refinement_timing("[18 stage 3]", card, dev, trainer, STAGE3_STEP)
+    torch.cuda.empty_cache()
+    return counts, trainer.run_dir / "checkpoint.pth"
+
+
+def stage4_kernel_records(dev, card: str, trainer, batch) -> dict:
+    """K2 ``_jac`` at N=96 and K3 at M=96 (4 scales x B=8 x the two mono
+    and one stereo frame: the stage-4 loss's first warp) against their plain
+    versions, at the coordinates of the trained model's warp of ``batch``;
+    timed, with their bounds."""
+    import torch
+
+    from monorec_tpu_torch.losses.common import (
+        _gather_frames,
+        loss_warp_grids,
+        tile_batch_for_scales,
+        upsample_nearest_to,
+    )
+    from monorec_tpu_torch.ops import grid_warp as gw
+    from monorec_tpu_torch.ops import photo_error as pe
+    from monorec_tpu_torch.ops.sampling import pixel_coordinates
+
+    with torch.no_grad():
+        _, data = trainer._feed(batch, True, 0.5)
+        stacked = torch.cat([upsample_nearest_to(p, H, W) for p in data["mono_pred"]], 0)
+    tiled = tile_batch_for_scales(batch, SCALES)
+    frames, poses, intr = _gather_frames(tiled, True, True)
+    n = frames.shape[0] * frames.shape[1]
+    grids = loss_warp_grids(1.0 / stacked[:, 0], poses, intr, tiled["keyframe_pose"],
+                            tiled["keyframe_intrinsics"])
+    xs, ys = pixel_coordinates(grids.reshape(n, H, W, 2), H, W)
+    images = (frames + 1.5).reshape(n, 3, H, W).contiguous()
+    out, jx, jy = gw.grid_warp_jac(images, xs, ys)
+    torch.cuda.synchronize()
+    ref, rjx, rjy = gw.grid_warp_jac_reference(images, xs, ys)
+    e_val = (out - ref).abs().max().item()
+    e_jac = max((jx - rjx).abs().max().item(), (jy - rjy).abs().max().item())
+    mism = ((out[:, 0] == 0) != (ref[:, 0] == 0)).sum().item()
+    log(f"[19 stage 4] K2 _jac at N={n}, 3x{H}x{W} (the trained model's warp of 4 scales x B={B} "
+        f"x 3 frames): max|diff| values {e_val:.3e} (gate {WARP_TOL}), Jacobian {e_jac:.3e} "
+        f"(gate {JAC_TOL}); exact-zero mismatches {mism}")
+    if not (torch.isfinite(out).all() and torch.isfinite(jx).all() and e_val <= WARP_TOL
+            and e_jac <= JAC_TOL and mism == 0):
+        raise AssertionError("grid_warp_jac at N=96 disagrees with its plain version")
+    x = (out - 1.0).contiguous()
+    y = (tiled["keyframe"] + 0.5)[:, None].expand(-1, frames.shape[1], -1, -1, -1).reshape(
+        n, 3, H, W).contiguous()
+    del out, jx, jy, ref, rjx, rjy
+    cot = torch.empty(n, H, W, device=dev).uniform_(-1.0, 1.0,
+                                                    generator=torch.Generator(dev).manual_seed(3))
+    k3_errs = check_photo_error(x, y, cot, "[19 stage 4] K3 at the stage-4 warp,")
+    timing = {
+        "grid_warp_jac": in_turns(lambda: gw.grid_warp_jac(images, xs, ys),
+                                  lambda: gw.grid_warp_jac_reference(images, xs, ys), 20, 3),
+        "photo_error_fwd": in_turns(lambda: pe.photo_error_fwd(x, y),
+                                    lambda: pe.photo_error_reference(x, y), 20, 3),
+        "photo_error_bwd": in_turns(lambda: pe.photo_error_bwd(x, y, cot),
+                                    lambda: photo_error_plain_bwd(x, y, cot), 20, 3),
+    }
+    for k, (k_ms, p_ms, _, turns, order) in timing.items():
+        log(f"[19 stage 4] {k} time at {'N' if k.startswith('grid') else 'M'}={n}, 3x{H}x{W} "
+            f"({order}): {', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs "
+            f"plain {p_ms:.3f} ms on {card}")
+    plane = n * H * W * 4
+    bounds = {"grid_warp_jac": bound(nbytes(images) + 2 * plane + 3 * nbytes(images),
+                                     K2_FLOPS["grid_warp_jac"] * images.numel()),
+              **photo_error_bounds(x, y, cot)}
+    errs = {"grid_warp_jac": {"max_abs_err": max(e_val, e_jac)},
+            "photo_error_fwd": k3_errs["forward"], "photo_error_bwd": k3_errs["backward"]}
+    # No PyTorch call computes the warp's Jacobian or K3's error: library_ms null.
+    suffix = {"grid_warp_jac": f"_n{n}", "photo_error_fwd": f"_m{n}", "photo_error_bwd": f"_m{n}"}
+    return {k + suffix[k]: {**errs[k], "ms": timing[k][0], "plain_ms": timing[k][1],
+                            "library_ms": None, **bounds[k]}
+            for k in timing}
+
+
+def mixed_mask(trainer, batch) -> float:
+    """Shift the loaded MaskModule's classifier bias by the median of its
+    logits on ``batch`` (an evaluation forward), so that about half of its
+    pixels are moving. After six synthetic steps stage 3's mask calls every
+    pixel moving, which would leave stage 4's static branch (the automasked
+    reprojection) weight 0 and its loss NaN. Returns the shift."""
+    import torch
+
+    model = trainer.model
+    conv = model.att_module.classifier[0]
+    logits = []
+    hook = conv.register_forward_hook(lambda mod, args, out: logits.append(out.float()))
+    with torch.no_grad():
+        _, sfcv = model.cost_volume(batch, use_mono=True, use_stereo=False)
+        model.att_module(sfcv, model.features(batch["keyframe"]), False)
+        hook.remove()
+        shift = logits[0].median()
+        conv.bias -= shift.to(conv.bias.dtype)
+    return shift.item()
+
+
+def phase_stage4(dev, card: str, run_dir, stage1_checkpoint, stage3_checkpoint):
+    """Phase 19: stage 4 of the curriculum (depth refinement) from phase
+    10's depth checkpoint and phase 18's mask checkpoint, its mask shifted
+    to a mixed moving share, then the stage-4 kernel records. Returns the
+    launch counts of its main path and the records, each with its launches
+    at the shape it names."""
+    import torch
+
+    trainer = refinement_trainer(dev, run_dir, "monorec_depth_ref", B, ("stereo", "stereo_repr"),
+                                 {"depth_cp_loc": stage1_checkpoint,
+                                  "mask_cp_loc": stage3_checkpoint})
+    shift = mixed_mask(trainer, next(iter(trainer.data_loader)))
+    log(f"[19 stage 4] the stage-3 MaskModule's classifier bias lowered by {shift:.5f}, the "
+        f"median of its logits on the first batch, so that about half its pixels are moving")
+    counts, by_batch, lines, ratios = refinement_main_path(
+        "[19 stage 4]", trainer, ("depth_module.",), ("_feature_extractor.", "att_module."),
+        STAGE4_STEP)
+    # skip_nonfinite_updates (on in the config) reads every step's gradients.
+    skipped = [r["skipped_nonfinite"] for r in lines]
+    bad = [i for i, (r, q) in enumerate(zip(lines, ratios))
+           if not math.isfinite(r["loss"]) and 0.0 < q < 1.0]
+    mixed = [i for i, (r, q) in enumerate(zip(lines, ratios))
+             if math.isfinite(r["loss"]) and 0.0 < q < 1.0]
+    log(f"[19 stage 4] steps skipped for non-finite gradients {skipped}; steps with static and "
+        f"moving pixels and a finite loss {mixed}; losses not finite on such steps {bad}")
+    if any(skipped) or bad or not mixed:
+        raise AssertionError("stage 4 gave non-finite gradients, a NaN loss where static and "
+                             "moving pixels both exist, or no step with both")
+    # The records' shapes: one K2 _jac (N=96) and one K3 backward (M=96) per
+    # step, one K3 forward (M=96) per step and per validation batch.
+    n96 = SCALES * B * (F + 1)
+    n_val = len(trainer.valid_data_loader)
+    launches = {"grid_warp_jac": TRAIN_STEPS, "photo_error_fwd": TRAIN_STEPS + n_val,
+                "photo_error_bwd": TRAIN_STEPS}
+    at96 = {k: by_batch[k].get(n96, 0) for k in launches}
+    log(f"[19 stage 4] launches at N=M={n96}: {at96} (expected {launches}); all shapes {by_batch}")
+    if at96 != launches:
+        raise AssertionError(f"stage 4 launched K2 / K3 at N=M={n96} {at96}, expected {launches}")
+    refinement_timing("[19 stage 4]", card, dev, trainer, STAGE4_STEP)
+    torch.cuda.empty_cache()
+    batch = next(iter(trainer.data_loader))
+    records = stage4_kernel_records(dev, card, trainer, batch)
+    for k, record in records.items():
+        record["launches"] = at96[k.rsplit("_", 1)[0]]
+    return counts, records
 
 
 def main() -> int:
@@ -1625,10 +2108,22 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # ---- 17. stage 2 of the curriculum and the handoff into stage 3 --
-        stage2_counts, records["grid_warp_crop_c32"] = phase_stage2(dev, card, run_dir,
-                                                                    stage1_checkpoint)
+        stage2_counts, records["grid_warp_crop_c32"], stage2_checkpoint = phase_stage2(
+            dev, card, run_dir, stage1_checkpoint)
+        torch.cuda.empty_cache()
+
+        # ---- 18-19. stages 3 and 4 of the curriculum ----------------------
+        stage3_counts, stage3_checkpoint = phase_stage3(dev, card, run_dir, stage1_checkpoint,
+                                                        stage2_checkpoint)
+        stage4_counts, stage4_records = phase_stage4(dev, card, run_dir, stage1_checkpoint,
+                                                     stage3_checkpoint)
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
+    for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
+              "photo_error_bwd"):
+        records[k]["stage3_launches"] = stage3_counts[k]
+        records[k]["stage4_launches"] = stage4_counts[k]
+    records.update(stage4_records)
 
     replaced = {
         "plane_sweep_sad": ("plane_sweep_sad.cu", "monorec_tpu/ops/pallas/cv_kernel.py:600"),
@@ -1647,6 +2142,9 @@ def main() -> int:
         "grid_warp_crop_c32": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:421"),
         "photo_error_fwd": ("photo_error.cu", "monorec_tpu/ops/pallas/photo_error.py:195"),
         "photo_error_bwd": ("photo_error.cu", "monorec_tpu/ops/pallas/photo_error.py:219"),
+        "grid_warp_jac_n96": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:431"),
+        "photo_error_fwd_m96": ("photo_error.cu", "monorec_tpu/ops/pallas/photo_error.py:195"),
+        "photo_error_bwd_m96": ("photo_error.cu", "monorec_tpu/ops/pallas/photo_error.py:219"),
         "warp_plane_sweep": ("warp_plane_sweep.cu", "monorec_tpu/ops/pallas/warp_kernel.py:291"),
         "warp_plane_sweep_bf16": ("warp_plane_sweep.cu",
                                   "monorec_tpu/ops/pallas/warp_kernel.py:291"),
@@ -1658,7 +2156,9 @@ def main() -> int:
         "replaces": replaces,
         "launches": records[k]["launches"],
         "max_abs_err": records[k]["max_abs_err"],
-        **{f: records[k][f] for f in ("sfcv_max_abs_err", "stage2_launches", "planar_gather_ms",
+        **{f: records[k][f] for f in ("sfcv_max_abs_err", "stage2_launches", "stage3_launches",
+                                      "stage4_launches", "max_abs_err_vs_float64",
+                                      "plain_max_abs_err_vs_float64", "planar_gather_ms",
                                       "second_launch_m",
                                       "second_launch_ms", "second_launch_plain_ms",
                                       "second_launch_bound_ms")

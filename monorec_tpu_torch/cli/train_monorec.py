@@ -3,15 +3,19 @@
 trainer, ``train/monorec_trainer.py::MonoRecTrainer``.
 
     python -m monorec_tpu_torch.cli.train_monorec -c <stage config>
+    python -m monorec_tpu_torch.cli.train_monorec -c <stage 3 config> -o mask_loss
+    python -m monorec_tpu_torch.cli.train_monorec -c <stage 4 config> -o stereo stereo_repr
     python -m monorec_tpu_torch.cli.train_monorec -c <stage config> --device cpu
 
 The shipped stage configs (``configs/train/monorec/monorec_mask.json``,
 ``monorec_mask_ref.json``, ``monorec_depth_ref.json``) read KITTI, which
 the port cannot yet (ROADMAP item 7c): give them a
-``SyntheticSweepDataloader`` block (``return_mvobj_mask: 2`` for stage 2).
-Arguments as in ``cli/train.py``: ``-c``, ``-r``, ``-o`` (loss options),
-``--device`` (default cuda), ``--lr``, ``--bs`` and ``--precision``; the
-model loads the earlier stages' checkpoints its config names.
+``SyntheticSweepDataloader`` block with ``return_stereo`` and their own
+``return_mvobj_mask`` (2 for stage 2, 1 for stages 3-4). Arguments as in
+``cli/train.py``: ``-c``, ``-r``, ``-o`` (loss options), ``--device``
+(default cuda), ``--lr``, ``--bs`` and ``--precision``; the model loads the
+earlier stages' checkpoints its config names (``depth_cp_loc``,
+``mask_cp_loc``).
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ The images may be float32 or bfloat16 (the serving policy's loss-warp
 dtype); the kernel converts bf16 on load and the plain versions run on
 ``images.float()``. Coordinates, cotangents and all outputs are float32.
 Each entry point counts its launches on float32 images in ``.launches``
-and on bf16 images in ``.launches_bf16``.
+(and by N in the Counter ``.launches_by_batch``) and on bf16 images in
+``.launches_bf16``.
 
 ``warp_pixels`` is the differentiable warp (``ops/sampling.py::
 _grid_sample_tpu`` in the JAX package): its forward runs the Jacobian mode
@@ -31,6 +32,7 @@ gradient.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Tuple
@@ -152,6 +154,7 @@ def _launch(entry, mode: int, images: Tensor, xs: Tensor, ys: Tensor, cot, out, 
         entry.launches_bf16 += 1
     else:
         entry.launches += 1
+        entry.launches_by_batch[n] += 1
 
 
 def _empty_f32(images: Tensor) -> Tensor:
@@ -200,6 +203,7 @@ def grid_warp_grad(images: Tensor, xs: Tensor, ys: Tensor, cot: Tensor
 for _entry in (grid_warp, grid_warp_jac, grid_warp_grad):
     _entry.launches = 0
     _entry.launches_bf16 = 0
+    _entry.launches_by_batch = collections.Counter()
 
 
 class _WarpPixels(torch.autograd.Function):

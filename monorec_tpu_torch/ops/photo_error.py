@@ -22,6 +22,7 @@ backward kernel and gives y no gradient, on every device.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -95,7 +96,8 @@ def _raise_on(code: int, lib: ctypes.CDLL, what: str) -> None:
 
 def photo_error_fwd(x: Tensor, y: Tensor) -> Tensor:
     """Error map (M, H, W). CUDA tensors launch the kernel, CPU tensors run
-    the plain version; ``photo_error_fwd.launches`` counts kernel launches."""
+    the plain version; ``photo_error_fwd.launches`` counts kernel launches,
+    and ``.launches_by_batch`` (a Counter) counts them by M."""
     if x.device.type == "cpu":
         return photo_error_reference(x, y)
     _check(x, y)
@@ -108,12 +110,14 @@ def photo_error_fwd(x: Tensor, y: Tensor) -> Tensor:
                                           m, c, h, w, stream)
     _raise_on(code, lib, "photo_error_fwd")
     photo_error_fwd.launches += 1
+    photo_error_fwd.launches_by_batch[m] += 1
     return out
 
 
 def photo_error_bwd(x: Tensor, y: Tensor, cot: Tensor) -> Tensor:
     """d sum(photo_error_fwd(x, y) * cot) / dx, (M, C, H, W).
-    ``photo_error_bwd.launches`` counts kernel launches."""
+    ``photo_error_bwd.launches`` counts kernel launches, and
+    ``.launches_by_batch`` (a Counter) counts them by M."""
     if x.device.type == "cpu":
         return _photo_error_bwd_reference(x, y, cot)
     _check(x, y, cot)
@@ -126,11 +130,13 @@ def photo_error_bwd(x: Tensor, y: Tensor, cot: Tensor) -> Tensor:
                                           gx.data_ptr(), m, c, h, w, stream)
     _raise_on(code, lib, "photo_error_bwd")
     photo_error_bwd.launches += 1
+    photo_error_bwd.launches_by_batch[m] += 1
     return gx
 
 
-photo_error_fwd.launches = 0
-photo_error_bwd.launches = 0
+for _entry in (photo_error_fwd, photo_error_bwd):
+    _entry.launches = 0
+    _entry.launches_by_batch = collections.Counter()
 
 
 class _PhotoError(torch.autograd.Function):

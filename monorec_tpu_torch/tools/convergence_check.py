@@ -1,20 +1,29 @@
 """Serving-policy convergence evidence: exact-f32 vs bf16-serving training
-(``tools/convergence_check.py``, stage 1).
+(``tools/convergence_check.py``).
 
 The "serving" precision policy changes three dtypes (CV warp sources, U-Net
-convolutions, loss-warp sources). This tool trains N stage-1 (depth
-bootstrap) steps on the synthetic sweep pipeline, once under each policy,
-with the same initial weights, the same batch order and the same random
-draws (dropout and depth flip), through the CLI trainer's step
-(``train/trainer.py::Trainer.train_step``). It then evaluates abs_rel on 16
-held-out synthetic samples with the final weights, the model in eval mode
-under its training policy. The result is one JSON line on stdout, with the
-JAX tool's keys.
+convolutions, loss-warp sources). This tool trains N steps on the synthetic
+sweep pipeline, once under each policy, with the same initial weights, the
+same batch order and the same random draws (dropout and depth flip), then
+evaluates abs_rel on 16 held-out synthetic samples with the final weights,
+the model in eval mode under its training policy. The result is one JSON
+line on stdout, with the JAX tool's keys.
+
+* ``--stage 1`` (the default): the depth bootstrap (pretrain mode 1,
+  ``depth_loss -o stereo``, lr 1e-4) through the CLI trainer's step
+  (``train/trainer.py::Trainer.train_step``).
+* ``--stage 4``: the depth refinement of ``monorec_depth_ref.json``
+  (pretrain mode 0, the depth flip, the MaskModule frozen, the mask on the
+  cost volume, ``depth_refinement_loss -o stereo stereo_repr``, lr 1e-5)
+  through ``train/monorec_trainer.py::MonoRecTrainer``: the stereo branch is
+  the detached pseudo-GT of the moving pixels, where bf16 drift becomes
+  label noise.
+
+Both use amsgrad.
 
     python -m monorec_tpu_torch.tools.convergence_check                 # on the card
+    python -m monorec_tpu_torch.tools.convergence_check --stage 4
     python -m monorec_tpu_torch.tools.convergence_check --device cpu --steps 2
-
-Stage 4 (depth refinement through ``MonoRecTrainer``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,11 +39,11 @@ import torch
 
 from monorec_tpu_torch.data.loader import DataLoader
 from monorec_tpu_torch.data.synthetic import SyntheticSweepDataset
-from monorec_tpu_torch.losses import depth_loss
+from monorec_tpu_torch.losses import depth_loss, depth_refinement_loss
 from monorec_tpu_torch.metrics import get_metric
 from monorec_tpu_torch.models import MonoRec, MonoRecConfig
 from monorec_tpu_torch.precision import apply_to_model_kwargs, set_precision
-from monorec_tpu_torch.train import Trainer, make_optimizer
+from monorec_tpu_torch.train import MonoRecTrainer, Trainer, make_optimizer
 
 POLICIES = ("exact", "serving")
 
@@ -46,31 +55,39 @@ def _note(msg: str) -> None:
 def run_policy(policy: str, steps: int, batch_size: int, log_every: int, stage: int = 1, *,
                device="cuda", image_size: Tuple[int, int] = (256, 512),
                depth_steps: int = 32) -> Dict:
-    """Train ``steps`` stage-1 steps under ``policy`` and evaluate abs_rel;
-    returns the logged loss curve [(step, loss), ...], the final loss and
-    the held-out abs_rel. Selects ``policy`` process-wide."""
-    if stage != 1:
-        raise NotImplementedError(
-            f"stage {stage}: only stage 1 is ported; stage 4 needs MonoRecTrainer "
-            "(ROADMAP item 17)")
+    """Train ``steps`` steps of ``stage`` (1 or 4) under ``policy`` and
+    evaluate abs_rel; returns the logged loss curve [(step, loss), ...], the
+    final loss and the held-out abs_rel. Selects ``policy`` process-wide."""
+    if stage not in (1, 4):
+        raise ValueError(f"stage must be 1 or 4, got {stage}")
     # Everything is built anew under the policy, so the warning about
     # models built under the previous one does not apply.
     set_precision(policy, expect_rebuild=True)
     device = torch.device(device)
-    model = MonoRec(
-        MonoRecConfig(cv_depth_steps=depth_steps, pretrain_mode=1, pretrain_dropout=0.5,
-                      augmentation="depth", **apply_to_model_kwargs({})),
-        device, generator=torch.Generator().manual_seed(0))
+    if stage == 4:
+        cfg = MonoRecConfig(cv_depth_steps=depth_steps, pretrain_mode=0, augmentation="depth",
+                            freeze_module=("att",), **apply_to_model_kwargs({}))
+    else:
+        cfg = MonoRecConfig(cv_depth_steps=depth_steps, pretrain_mode=1, pretrain_dropout=0.5,
+                            augmentation="depth", **apply_to_model_kwargs({}))
+    model = MonoRec(cfg, device, generator=torch.Generator().manual_seed(0))
     ds = SyntheticSweepDataset(length=64, target_image_size=image_size, frame_count=2,
                                return_stereo=True, seed=0)
     dl = DataLoader(ds, batch_size=batch_size, shuffle=True, seed=7, device=device)
+    lr = 1e-5 if stage == 4 else 1e-4
     optimizer = make_optimizer([p for p in model.parameters() if p.requires_grad],
-                               {"type": "Adam", "args": {"lr": 1e-4, "amsgrad": True}})
+                               {"type": "Adam", "args": {"lr": lr, "amsgrad": True}})
 
     curve = []
     with tempfile.TemporaryDirectory() as run_dir:
-        trainer = Trainer(model, depth_loss, [], optimizer, {}, dl, run_dir=run_dir,
-                          options=("stereo",), generator=torch.Generator().manual_seed(1))
+        if stage == 4:  # mono and stereo predictions and the mask are MonoRecTrainer's defaults
+            trainer_cls, loss, config = (MonoRecTrainer, depth_refinement_loss,
+                                         {"trainer": {"mult_mask_on_cv": True}})
+            options = ("stereo", "stereo_repr")
+        else:
+            trainer_cls, loss, config, options = Trainer, depth_loss, {}, ("stereo",)
+        trainer = trainer_cls(model, loss, [], optimizer, config, dl, run_dir=run_dir,
+                              options=options, generator=torch.Generator().manual_seed(1))
         it = iter(dl)
         t0 = time.time()
         for i in range(steps):

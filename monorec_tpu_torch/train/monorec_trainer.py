@@ -3,6 +3,8 @@ multi-pass MonoRec protocol of the reference's ``MonoRecTrainer._feed``.
 
 One ``_feed``, in the JAX package's order:
 
+  0) with ``color_aug_on_device``, in training, the colour jitter of every
+     image key (``Trainer._jitter``) before anything else reads the batch;
   A) augmentation: with ``augmentation: "depth"`` a per-sample flip of the
      keyframe and the moving-object mask; with ``"mask"`` one flip and
      resized crop per sample (``models/augmentation.py``, through K2) of the
@@ -24,8 +26,7 @@ One ``_feed``, in the JAX package's order:
 
 Not ported, and refused: ``joint_cv`` and ``joint_depth_decode`` (one fused
 launch for the mono and stereo CVs or decodes; off in every shipped config,
-and slower on the TPU where they were measured) and ``color_aug_on_device``
-(the colour jitter, ROADMAP item 15).
+and slower on the TPU where they were measured).
 """
 
 from __future__ import annotations
@@ -47,7 +48,6 @@ from monorec_tpu_torch.train.trainer import Trainer
 _NOT_PORTED = {
     "joint_cv": "ROADMAP item 18: one launch for the mono and stereo cost volumes",
     "joint_depth_decode": "ROADMAP item 18: one 2B-batch depth decode",
-    "color_aug_on_device": "ROADMAP item 15, the colour jitter",
 }
 
 
@@ -67,6 +67,7 @@ class MonoRecTrainer(Trainer):
                 raise NotImplementedError(f"trainer.{key} is not ported ({where})")
 
     def _feed(self, batch: Dict, train: bool, alpha: float) -> Tuple[Dict, Dict]:
+        batch = self._jitter(batch, train)
         model = self.model
         cfg = model.config
         b = batch["keyframe"].shape[0]

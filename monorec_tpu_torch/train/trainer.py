@@ -1,7 +1,8 @@
 """Stage-1 trainer (``monorec_tpu/train/trainer.py``) on one device.
 
-One step: the train forward (augmentation and dropout drawn from the
-trainer's ``torch.Generator``s), the loss, the backward and the optimizer
+One step: the optional colour jitter of the images
+(``trainer.color_aug_on_device``), the train forward (augmentation and
+dropout drawn from the trainer's ``torch.Generator``s), the loss, the backward and the optimizer
 update, optionally skipped when a gradient is not finite. ``_feed`` (the
 forward and the loss) is what a subclass replaces: ``monorec_trainer.py``
 runs the stage 2-4 protocol there. Around it the
@@ -24,6 +25,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from monorec_tpu_torch.models.augmentation import jitter_image_keys
 from monorec_tpu_torch.train import checkpoints
 from monorec_tpu_torch.utils import ValueFader, operator_on_dict
 
@@ -88,6 +90,10 @@ class Trainer:
         self.early_stop = tcfg.get("early_stop", math.inf)
         self.save_multiple = tcfg.get("save_multiple", False)
         self.skip_nonfinite_updates = tcfg.get("skip_nonfinite_updates", False)
+        # The colour jitter of the images in training steps, on their device
+        # (the JAX package's on-device jitter; the dataset's own jitter
+        # should then be off).
+        self.color_aug_on_device = tcfg.get("color_aug_on_device", False)
         self.value_faders = {k: ValueFader(v[0], v[1])
                              for k, v in tcfg.get("value_faders", {}).items()}
         for key in ("tensorboard", "module_timing"):
@@ -122,8 +128,17 @@ class Trainer:
                               .to(loss_dict["loss"].device) for k in keys])
         return dict(zip(keys, values.tolist()))
 
+    def _jitter(self, batch: Dict, train: bool) -> Dict:
+        """``batch`` with its images colour-jittered in training when
+        ``color_aug_on_device`` is set, before anything else reads it; the
+        draws come from ``generator``."""
+        if train and self.color_aug_on_device:
+            return jitter_image_keys(batch, self.generator)
+        return batch
+
     def _feed(self, batch: Dict, train: bool, alpha: float) -> Tuple[Dict, Dict]:
         """The forward and the loss: (loss dict, data = batch + outputs)."""
+        batch = self._jitter(batch, train)
         if train:
             out = self.model(batch, train=True, generator=self.generator,
                              dropout_generator=self.device_generator)

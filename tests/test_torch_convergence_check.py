@@ -2,13 +2,16 @@
 at a tiny size on the CPU: both policies at 32x64, D=4, batch 2, 2 steps
 each. Its record has the JAX tool's keys, its numbers are finite, its curves
 hold the logged steps, and two exact runs with the same seeds agree bit for
-bit. The step's parity with flax is held by ``tests/test_torch_train.py``.
+bit; ``--stage 4`` (through ``MonoRecTrainer``) prints its record with the
+same keys. The steps' parity with the JAX package is held by
+``tests/test_torch_train.py`` and ``tests/test_torch_refinement_feed.py``.
 
 The runs use one intra-op thread: with several, the CPU's reductions may
 split differently from run to run under load, and the last bits move.
 """
 
 import ast
+import json
 import math
 from pathlib import Path
 
@@ -73,6 +76,30 @@ def test_exact_runs_repeat_bit_for_bit(runs):
     assert runs["serving"]["curve"] != runs["exact"]["curve"]  # the policy took effect
 
 
-def test_stage_4_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        cc.main(["--stage", "4", "--device", "cpu"])
+def test_stage_4_prints_its_record(monkeypatch, capsys):
+    """``main(["--stage", "4"])`` at the tiny size: stage 4's two policies
+    through ``MonoRecTrainer``, their record on stdout with the JAX tool's
+    keys, finite abs_rel and the logged steps. (Its losses are NaN here: the
+    seed-0 MaskModule puts every pixel above 0.5, a ratio of 1, where
+    ``depth_refinement_loss`` means over no static pixel.)"""
+    run_policy = cc.run_policy
+
+    def tiny(*args, **kwargs):
+        return run_policy(*args, **kwargs, image_size=(32, 64), depth_steps=4)
+
+    monkeypatch.setattr(cc, "run_policy", tiny)
+    saved, threads = (precision._current, precision._consumed), torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert cc.main(["--stage", "4", "--device", "cpu", "--steps", str(STEPS),
+                        "--batch", str(BATCH)]) == 0
+    finally:
+        precision._current, precision._consumed = saved
+        torch.set_num_threads(threads)
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(record) == _jax_tool_keys()
+    assert (record["stage"], record["steps"], record["batch"]) == (4, STEPS, BATCH)
+    assert math.isfinite(record["abs_rel_exact"]) and math.isfinite(record["abs_rel_serving"])
+    for key in ("curve_exact", "curve_serving"):
+        assert [step for step, _ in record[key]] == [0, STEPS - 1]
+    assert record["abs_rel_serving"] != record["abs_rel_exact"]  # the policy took effect

@@ -78,7 +78,6 @@ def _fresh(**arch) -> MonoRec:
 
 def _handoff_trainer(stages, **arch):
     config = _stage_config("monorec_mask_ref.json", stages["tmp"], **arch)
-    config["loss"] = "mask_loss"  # the stage-3 loss waits for ROADMAP item 16
     trainer = train_monorec.build_trainer(config, "cpu", run_dir=stages["tmp"] / "handoff")
     assert isinstance(trainer, MonoRecTrainer)
     return trainer

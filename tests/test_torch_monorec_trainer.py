@@ -9,7 +9,9 @@
   (flip + resized crop through K2's plain version) and the mask loss;
 * ``_feed`` under the flags of stage 3 (pretrain mode 0, mono and stereo
   predictions, the depth flip) and stage 4 (``mult_mask_on_cv``,
-  ``freeze_module: ["att"]``), with ``mask_loss`` as the loss.
+  ``freeze_module: ["att"]``), with ``mask_loss`` as the loss;
+* ``trainer.color_aug_on_device``: both trainers jitter the images of a
+  training batch, and only of a training batch (port only).
 
 The two packages draw from different generators, so the tests inject the
 same draws into both: the augmentation parameters through each trainer
@@ -348,11 +350,51 @@ def test_feed_matches_jax_under_later_stage_flags(monkeypatch, tmp_path, stage):
 
 
 @pytest.mark.parametrize("flag,match", [("joint_cv", "item 18"),
-                                        ("joint_depth_decode", "item 18"),
-                                        ("color_aug_on_device", "item 15")])
+                                        ("joint_depth_decode", "item 18")])
 def test_unported_trainer_flags_raise(tmp_path, flag, match):
     with pytest.raises(NotImplementedError, match=match):
         _trainer(tmp_path, 2, {flag: True}, 2)
+
+
+@pytest.mark.parametrize("stage", ["stage1", "stage3"])
+def test_color_aug_on_device_jitters_training_batches_only(monkeypatch, tmp_path, stage):
+    """``trainer.color_aug_on_device`` jitters every image key of a training
+    batch before the forward reads it, in the stage-1 trainer and in
+    ``MonoRecTrainer``, and leaves validation batches alone."""
+    import monorec_tpu_torch.models.augmentation as t_aug
+    from monorec_tpu_torch.cli import train as train_cli
+
+    params = t_aug.sample_color_jitter_batch(torch.Generator().manual_seed(4), B)
+    monkeypatch.setattr(t_aug, "sample_color_jitter_batch", lambda gen, b: params)
+    stage1 = stage == "stage1"
+    data = {"length": B, "batch_size": B, "frame_count": F, "target_image_size": [H, W],
+            "return_stereo": True, "return_mvobj_mask": 1, "shuffle": False}
+    config = {
+        "name": stage, "loss": "depth_loss" if stage1 else "mask_loss", "metrics": [],
+        "arch": {"type": "MonoRecModel", "args": {"pretrain_mode": 1 if stage1 else 0,
+                                                  "cv_depth_steps": D, "augmentation": "depth"}},
+        "data_loader": {"type": "SyntheticSweepDataloader", "args": data},
+        "optimizer": {"type": "Adam", "args": {"lr": 1e-4}},
+        "trainer": {"epochs": 1, "color_aug_on_device": True,
+                    **({} if stage1 else STAGES["stage3"][0])},
+    }
+    build = train_cli.build_trainer if stage1 else train_monorec.build_trainer
+    trainer = build(config, "cpu", run_dir=tmp_path / "run")
+    seen = []
+
+    def spy(data, *args):
+        seen.append({k: data[k].detach().clone() for k in ("keyframe", "frames", "stereoframe")})
+        return loss_fn(data, *args)
+
+    loss_fn, trainer.loss_fn = trainer.loss_fn, spy
+    batch = batch_to_torch(_batch_cached(1), "cpu")
+    trainer.train_step(batch, 0.5)
+    trainer.valid_step(batch, 0.5)
+    for key in ("keyframe", "frames", "stereoframe"):
+        want = t_aug.apply_color_jitter_batch(batch[key], params)
+        assert torch.equal(seen[0][key], want), key
+        assert not torch.equal(want, batch[key]), key
+        assert torch.equal(seen[1][key], batch[key]), key
 
 
 def test_freeze_module_stops_each_outputs_gradient():
