@@ -108,7 +108,26 @@ checkout, then:
    step), and the launch counts per step and at N=M=96; times and splits
    the step as phase 18; then holds K2 ``_jac`` at N=96 and K3 at M=96
    (the stage-4 loss's first warp) to their plain versions at the trained
-   model's warp of a batch, K3 as in phase 8, and times them.
+   model's warp of a batch, K3 as in phase 8, and times them;
+20. evaluation: writes a KITTI Odometry tree (sequence 07, 24 frames at
+   KITTI's native 370x1226, a textured plane seen by a camera moving 0.8 m
+   forward per frame, sequence 07's calibration, the poses, annotated depth
+   at 5% of the pixels) with its own PNG encoder cycling the five row
+   filters, and times the host's ``read_png`` and ``crop_resize_bilinear``
+   per image; runs ``cli.evaluate`` on a copy of
+   ``configs/evaluate/eval_monorec.json`` with phase 19's checkpoint on the
+   card (the main path: one K1 cost-volume launch per batch, 7 finite
+   metrics, every batch valid) and over its first two batches on the card
+   and on the CPU (agreeing within rtol 1e-3); times the eval forward per
+   batch (CUDA events) and the evaluate loop from the tree and from a cache
+   ``build_cache`` makes of it (keyframes/s, and the device's busy share
+   from a torch.profiler pass);
+21. the point cloud: ``cli.create_pointcloud`` on a copy of
+   ``configs/test/pointcloud_monorec.json`` with the mask on and off (one
+   K1 cost-volume launch per frame; the PLY parses, its vertex count fills
+   its size, its coordinates are finite, the unmasked cloud has points and
+   the masked one no more), and ``pointcloud_masks`` on the card against
+   the CPU.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -1849,8 +1868,8 @@ def phase_stage4(dev, card: str, run_dir, stage1_checkpoint, stage3_checkpoint):
     """Phase 19: stage 4 of the curriculum (depth refinement) from phase
     10's depth checkpoint and phase 18's mask checkpoint, its mask shifted
     to a mixed moving share, then the stage-4 kernel records. Returns the
-    launch counts of its main path and the records, each with its launches
-    at the shape it names."""
+    launch counts of its main path, the records, each with its launches at
+    the shape it names, and its checkpoint."""
     import torch
 
     trainer = refinement_trainer(dev, run_dir, "monorec_depth_ref", B, ("stereo", "stereo_repr"),
@@ -1889,7 +1908,388 @@ def phase_stage4(dev, card: str, run_dir, stage1_checkpoint, stage3_checkpoint):
     records = stage4_kernel_records(dev, card, trainer, batch)
     for k, record in records.items():
         record["launches"] = at96[k.rsplit("_", 1)[0]]
-    return counts, records
+    return counts, records, trainer.run_dir / "checkpoint.pth"
+
+
+# ---- phases 20-21: a KITTI-layout tree written without PIL ------------------
+
+# KITTI odometry sequence 07's calib.txt (P0-P3 of sequences 04-12), at its
+# native image size 370x1226; write_kitti_tree scales it to other sizes.
+KITTI_SIZE = (370, 1226)
+KITTI_CALIB = {
+    "P0": (707.0912, 0.0, 601.8873, 0.0, 0.0, 707.0912, 183.1104, 0.0, 0.0, 0.0, 1.0, 0.0),
+    "P1": (707.0912, 0.0, 601.8873, -379.8145, 0.0, 707.0912, 183.1104, 0.0, 0.0, 0.0, 1.0,
+           0.0),
+    "P2": (707.0912, 0.0, 601.8873, 46.88783, 0.0, 707.0912, 183.1104, 0.1178601, 0.0, 0.0,
+           1.0, 0.006203223),
+    "P3": (707.0912, 0.0, 601.8873, -333.4597, 0.0, 707.0912, 183.1104, 1.930130, 0.0, 0.0,
+           1.0, 0.003318498),
+}
+FRAME_STEP = 0.8  # metres forward per frame, KITTI's ~8 m/s at 10 Hz
+# The scene's plane: n . X = PLANE_D in the world frame (the first camera's),
+# tilted about both image axes: its depth runs from ~20 m (top right) to
+# ~60 m (bottom left) at the first camera.
+PLANE_N = (0.3, -1.0, 1.0)
+PLANE_D = 30.0
+
+
+def encode_png(img, n_idat: int = 3) -> bytes:
+    """A PNG of a uint8 or uint16 (H, W) or (H, W, 3) array, row r filtered
+    with filter r % 5 (None, Sub, Up, Average, Paeth), the compressed data
+    split over ``n_idat`` IDAT chunks."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    depth = 16 if img.dtype == np.uint16 else 8
+    bpp = channels * depth // 8
+    raw = (img.astype(">u2") if depth == 16 else img.astype(np.uint8)).tobytes()
+    x = np.frombuffer(raw, np.uint8).reshape(h, w * bpp).astype(np.int32)
+    a = np.pad(x, ((0, 0), (bpp, 0)))[:, :-bpp]  # left
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]  # up
+    c = np.pad(b, ((0, 0), (bpp, 0)))[:, :-bpp]  # up-left
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = [0 * x, a, b, (a + b) // 2, paeth]
+    kinds = np.arange(h) % 5
+    filtered = np.stack([(x[r] - preds[k][r]) % 256 for r, k in enumerate(kinds)])
+    scan = np.concatenate([kinds[:, None], filtered], axis=1).astype(np.uint8).tobytes()
+    data = zlib.compress(scan, 6)
+    cuts = np.linspace(0, len(data), n_idat + 1).astype(int)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    colour = 0 if channels == 1 else 2
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour,
+                                                             0, 0, 0))
+            + b"".join(chunk(b"IDAT", data[s:e]) for s, e in zip(cuts[:-1], cuts[1:]))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path, img) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def render_plane(k, cam_pos, size):
+    """The textured plane seen by a camera at ``cam_pos`` (world axes): an
+    (H, W, 3) uint8 image and its (H, W) depth in metres."""
+    import numpy as np
+
+    h, w = size
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    rays = np.stack([(u - k[0, 2]) / k[0, 0], (v - k[1, 2]) / k[1, 1], np.ones_like(u)], -1)
+    n = np.asarray(PLANE_N)
+    depth = (PLANE_D - n @ np.asarray(cam_pos)) / (rays @ n)
+    world = np.asarray(cam_pos) + depth[..., None] * rays
+    px, py = world[..., 0], world[..., 1] + world[..., 2] * 0.5  # coordinates on the plane
+    img = np.empty((h, w, 3))
+    for ch, (f1, f2, ph) in enumerate(((1.3, 0.7, 0.0), (0.9, 1.9, 1.0), (2.3, 1.1, 2.0))):
+        img[..., ch] = (0.5 + 0.25 * np.sin(f1 * px + ph) * np.cos(f2 * py)
+                        + 0.15 * np.sin(5.1 * px + 3.7 * py + ph))
+    return np.clip(np.round(img * 255), 0, 255).astype(np.uint8), depth
+
+
+def write_kitti_tree(root, size=KITTI_SIZE, n_frames: int = 24, seq: str = "07",
+                     write=write_png, depth_share: float = 0.05, stereo: bool = False,
+                     seed: int = 0):
+    """A KITTI Odometry tree under ``root``: sequence ``seq`` with
+    ``n_frames`` images (image_2, and image_3 when ``stereo``) of the plane
+    scene seen by a camera moving FRAME_STEP m forward per frame, a
+    calib.txt (sequence 07's, scaled to ``size``), the poses in poses/ and
+    poses_dvso/, and 16-bit annotated depth PNGs (depth x 256) at
+    ``depth_share`` of the pixels in image_depth_annotated/. ``write(path,
+    array)`` writes each PNG. Returns the depth maps in metres."""
+    from pathlib import Path
+
+    import numpy as np
+
+    root = Path(root)
+    seq_dir = root / "sequences" / seq
+    for sub in ("image_2", "image_3", "image_depth_annotated"):
+        (seq_dir / sub).mkdir(parents=True, exist_ok=True)
+    (root / "poses").mkdir(exist_ok=True)
+    (root / "poses_dvso").mkdir(exist_ok=True)
+    sx, sy = size[1] / KITTI_SIZE[1], size[0] / KITTI_SIZE[0]
+    calib = {}
+    for name, vals in KITTI_CALIB.items():
+        p = np.asarray(vals).reshape(3, 4).copy()
+        p[0] *= sx
+        p[1] *= sy
+        calib[name] = p
+    (seq_dir / "calib.txt").write_text("".join(
+        f"{name}: " + " ".join(f"{v:.12e}" for v in p.reshape(-1)) + "\n"
+        for name, p in calib.items()))
+    k = calib["P2"][:, :3]
+    baseline = abs(calib["P3"][0, 3] / calib["P3"][0, 0] - calib["P2"][0, 3] / calib["P2"][0, 0])
+    rng = np.random.default_rng(seed)
+    lines, depths = [], []
+    for i in range(n_frames):
+        pos = (0.0, 0.0, FRAME_STEP * i)
+        pose = np.eye(4)[:3]
+        pose[:, 3] = pos
+        lines.append(" ".join(f"{v:.12e}" for v in pose.reshape(-1)))
+        img, depth = render_plane(k, pos, size)
+        write(seq_dir / "image_2" / f"{i:06d}.png", img)
+        if stereo:
+            write(seq_dir / "image_3" / f"{i:06d}.png",
+                  render_plane(k, (baseline, 0.0, FRAME_STEP * i), size)[0])
+        sparse = np.where(rng.random(size) < depth_share, np.round(depth * 256), 0)
+        write(seq_dir / "image_depth_annotated" / f"{i:06d}.png", sparse.astype(np.uint16))
+        depths.append(depth)
+    for d in ("poses", "poses_dvso"):
+        (root / d / f"{seq}.txt").write_text("\n".join(lines) + "\n")
+    return depths
+
+
+EVAL_FRAMES = 24  # phase 20's tree: annotated depth leaves out 5 frames at each end
+EVAL_RTOL = 1e-3  # the forward's budget (tests/test_convert.py)
+
+
+def write_config(path, config) -> str:
+    with open(path, "w") as f:
+        json.dump(config, f)
+    return str(path)
+
+
+def eval_config(work, tree, checkpoint, tag: str, **data_args):
+    """A copy of configs/evaluate/eval_monorec.json on the phase-20 tree
+    (sequence 07) and ``checkpoint``; returns its path and run directory."""
+    from pathlib import Path
+
+    with open("configs/evaluate/eval_monorec.json") as f:
+        config = json.load(f)
+    config["models"][0]["args"]["checkpoint_location"] = [str(checkpoint)]
+    config["data_loader"]["args"].update(dataset_dir=str(tree), sequences=["07"],
+                                         target_image_size=[H, W], **data_args)
+    config["evaluater"].update(save_dir=str(Path(work) / tag), verbosity=0)
+    path = write_config(Path(work) / f"{tag}.json", config)
+    return path, Path(work) / tag / "log" / config["name"] / config["timestamp_replacement"]
+
+
+def busy_window(fn):
+    """(wall ms, device busy ms) of one call of ``fn`` under torch.profiler:
+    the window runs from the host's start of the call to the end of the last
+    device activity, busy is the union of the device activities in it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke_window"):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    t0 = min(e.time_range.start for e in events
+             if e.name == "chip_smoke_window" and e.device_type == DeviceType.CPU)
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA and e.name not in host_names)
+    t1 = max(end for _, end in spans)
+    busy, reach = 0.0, t0
+    for start, end in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return (t1 - t0) / 1e3, busy / 1e3
+
+
+def phase_evaluate(dev, card: str, work, checkpoint) -> dict:
+    """Phase 20: evaluation on the card through ``cli.evaluate`` on a
+    KITTI-layout tree at KITTI's native size, from phase 19's checkpoint.
+    Returns the K1 launches of its main path."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from monorec_tpu_torch import config as config_mod
+    from monorec_tpu_torch.cli import evaluate
+    from monorec_tpu_torch.data.cache import CachedDataset, build_cache
+    from monorec_tpu_torch.data.kitti import compute_crop_and_intrinsics, load_calib
+    from monorec_tpu_torch.data.loader import DataLoader
+    from monorec_tpu_torch.data.png import read_png
+    from monorec_tpu_torch.data.resize import crop_resize_bilinear
+    from monorec_tpu_torch.eval import Evaluator
+    from monorec_tpu_torch.models import MonoRec
+    from monorec_tpu_torch.train.checkpoints import load_stage_checkpoints
+
+    tree = Path(work) / "kitti"
+    t = time.perf_counter()
+    write_kitti_tree(tree, n_frames=EVAL_FRAMES)
+    log(f"[20 evaluate] wrote a KITTI tree (sequence 07, {EVAL_FRAMES} frames at "
+        f"{KITTI_SIZE[0]}x{KITTI_SIZE[1]}, PNG row filters cycling 0-4) in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    # The host's decode and resize of one native image.
+    seq = tree / "sequences" / "07"
+    box, _ = compute_crop_and_intrinsics(load_calib(seq / "calib.txt")["P2"], KITTI_SIZE, (H, W))
+    decode, resize = [], []
+    for p in sorted((seq / "image_2").glob("*.png"))[:8]:
+        t0 = time.perf_counter()
+        img = read_png(p)
+        t1 = time.perf_counter()
+        crop_resize_bilinear(img, box, (H, W))
+        decode.append((t1 - t0) * 1e3)
+        resize.append((time.perf_counter() - t1) * 1e3)
+    log(f"[20 evaluate] host per {KITTI_SIZE[0]}x{KITTI_SIZE[1]} RGB image (8 images, median): "
+        f"read_png {statistics.median(decode):.3f} ms, crop_resize_bilinear to {H}x{W} "
+        f"{statistics.median(resize):.3f} ms, together "
+        f"{statistics.median(a + b for a, b in zip(decode, resize)):.3f} ms (host clock, the "
+        f"host of {card})")
+
+    # The main path: the CLI on the card.
+    n_samples = EVAL_FRAMES - 10
+    n_batches = n_samples // 2
+    path, run_dir = eval_config(work, tree, checkpoint, "eval_card")
+    reset_counts()
+    evaluate.main(["-c", path, "--device", str(dev)])
+    counts = launch_counts()
+    if counts != only(plane_sweep_cost_volume=n_batches):
+        raise AssertionError(f"the evaluation launched {counts}, expected plane_sweep_cost_volume "
+                             f"once per batch ({n_batches})")
+    result = json.loads((run_dir / "results_0.json").read_text())["metrics"]
+    log(f"[20 evaluate] cli.evaluate on the card: {n_batches} batches of 2, one K1 cost-volume "
+        f"launch each; valid_batches {result['valid_batches']}, num_samples "
+        f"{result['num_samples']}; " + ", ".join(
+            f"{k} {result[k]:.6f}" for k in result if k.endswith("_metric")))
+    if not (len(result["metrics"]) == 7 and all(math.isfinite(v) for v in result["metrics"])
+            and result["valid_batches"] == n_batches and result["num_samples"] == n_samples):
+        raise AssertionError(f"the evaluation's results are off: {result}")
+
+    # The same evaluation over the first two batches, on the card and on the
+    # CPU (the plain versions).
+    first = {}
+    for tag, device in (("card", str(dev)), ("cpu", "cpu")):
+        path, run_dir = eval_config(work, tree, checkpoint, f"eval_first_{tag}", start=0, end=4)
+        evaluate.main(["-c", path, "--device", device])
+        first[tag] = json.loads((run_dir / "results_0.json").read_text())["metrics"]
+    g, c = np.asarray(first["card"]["metrics"]), np.asarray(first["cpu"]["metrics"])
+    rel = np.abs(g - c) / np.where(c == 0, 1.0, np.abs(c))
+    log(f"[20 evaluate] first 2 batches, card vs CPU: max relative diff {rel.max():.3e} "
+        f"(metrics {', '.join(f'{v:.6f}' for v in g)} vs {', '.join(f'{v:.6f}' for v in c)})")
+    if not np.isclose(g, c, rtol=EVAL_RTOL, atol=0).all() or first["card"]["valid_batches"] != 2:
+        raise AssertionError("the card's evaluation disagrees with the CPU's")
+
+    # Timing: the forward per batch, and the evaluate loop from the raw tree
+    # and from a cache of it.
+    with open(path) as f:
+        config = json.load(f)
+    model_cfg, locations = config_mod.build_models(config)[0]
+    model = MonoRec(model_cfg, dev)
+    load_stage_checkpoints(model, locations)
+    model.eval()
+    raw = config_mod.build_data_loader({"type": "KittiOdometryDataloader",
+                                        "args": dict(config["data_loader"]["args"], start=0,
+                                                     end=n_samples)}, dev)
+    batch = next(iter(raw))
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model(batch), 10)
+    log(f"[20 evaluate] eval forward, batch 2 at {H}x{W}, D={D}, F={F}: {fwd_ms:.3f} ms per batch "
+        f"(CUDA events, 10 calls) on {card}")
+    t = time.perf_counter()
+    build_cache(raw.dataset, Path(work) / "cache", log_every=0)
+    cache_s = time.perf_counter() - t
+    cached = DataLoader(CachedDataset(str(Path(work) / "cache")), 2, shuffle=False, device=dev)
+    metric_fns = config_mod.build_metrics(config)
+    logs = {}
+    for tag, loader in (("raw tree", raw), ("cache", cached)):
+        evaluator = Evaluator(model, metric_fns, config, loader, Path(work) / "timing")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logs[tag] = evaluator.eval()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        window_ms, busy_ms = busy_window(evaluator.eval)
+        log(f"[20 evaluate] evaluate loop from the {tag}: {n_samples} keyframes in {wall:.3f} s = "
+            f"{n_samples / wall:.3f} keyframes/s (host clock); profiled pass: device busy "
+            f"{busy_ms:.1f} of {window_ms:.1f} ms = {100 * busy_ms / window_ms:.1f}% on {card}")
+    cached_m, raw_m = np.asarray(logs["cache"]["metrics"]), np.asarray(logs["raw tree"]["metrics"])
+    log(f"[20 evaluate] cache of {n_samples} samples built in {cache_s:.3f} s; its metrics vs "
+        f"the raw tree's: max |diff| {np.abs(cached_m - raw_m).max():.3e}")
+    if not np.allclose(cached_m, raw_m, rtol=1e-6, atol=0):
+        raise AssertionError("the cache's evaluation differs from the raw tree's")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"eval_launches": counts["plane_sweep_cost_volume"]}
+
+
+def read_ply(path):
+    """(vertices (N, 6)) of a binary little-endian PLY; raises when the
+    header does not parse or the vertex count does not match the size."""
+    import numpy as np
+
+    data = open(path, "rb").read()
+    head, sep, body = data.partition(b"end_header\n")
+    lines = head.decode("ascii").splitlines()
+    if not sep or lines[:2] != ["ply", "format binary_little_endian 1.0"]:
+        raise AssertionError(f"{path}: not a binary little-endian PLY")
+    n = int(next(line for line in lines if line.startswith("element vertex")).split()[-1])
+    if len([line for line in lines if line.startswith("property float")]) != 6 or (
+            len(body) != n * 6 * 4):
+        raise AssertionError(f"{path}: {n} vertices do not fill its {len(body)} bytes")
+    return np.frombuffer(body, "<f4").reshape(n, 6)
+
+
+def phase_pointcloud(dev, card: str, work, checkpoint) -> dict:
+    """Phase 21: ``cli.create_pointcloud`` on phase 20's tree with the mask on
+    and off, and ``pointcloud_masks`` on the card against the CPU. Returns
+    the K1 launches of its main path."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from monorec_tpu_torch.cli import create_pointcloud
+    from monorec_tpu_torch.export import pointcloud_masks
+
+    n_frames = EVAL_FRAMES - 10
+    points, launches = {}, 0
+    for use_mask in (True, False):
+        with open("configs/test/pointcloud_monorec.json") as f:
+            config = json.load(f)
+        config["arch"]["args"]["checkpoint_location"] = [str(checkpoint)]
+        config["data_set"]["args"].update(dataset_dir=str(Path(work) / "kitti"),
+                                          target_image_size=[H, W])
+        # The checkpoint is a few steps of synthetic training: its depths need
+        # not fall inside the shipped 3-30 m, so every depth the model can
+        # give (up to 1 / 0.0025 m) is kept.
+        config.update(output_dir=str(Path(work) / "pointclouds"), use_mask=use_mask, max_d=400)
+        config["file_name"] = f"seq07_mask_{use_mask}.ply"
+        path = write_config(Path(work) / f"pointcloud_{use_mask}.json", config)
+        reset_counts()
+        t = time.perf_counter()
+        create_pointcloud.main(["-c", path, "--device", str(dev)])
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        if counts != only(plane_sweep_cost_volume=n_frames):
+            raise AssertionError(f"the export launched {counts}, expected plane_sweep_cost_volume "
+                                 f"once per frame ({n_frames})")
+        launches += counts["plane_sweep_cost_volume"]
+        cloud = read_ply(Path(config["output_dir"]) / config["file_name"])
+        if not np.isfinite(cloud).all():
+            raise AssertionError("a point-cloud coordinate is not finite")
+        points[use_mask] = len(cloud)
+        log(f"[21 pointcloud] use_mask={use_mask}: {len(cloud)} points from {n_frames} frames "
+            f"({n_frames - 4} exported) in {wall:.3f} s (host clock, the CLI whole) on {card}")
+    if points[False] == 0 or points[True] > points[False]:
+        raise AssertionError(f"point counts off: {points}")
+    rng = np.random.default_rng(0)
+    cv_mask = rng.uniform(0, 0.1, (2, 1, H, W)).astype(np.float32)
+    cv_mask.reshape(-1)[rng.choice(cv_mask.size, 16, replace=False)] = 0.5  # sparse hits
+    cv_mask = torch.from_numpy(cv_mask)
+    on_card = pointcloud_masks(cv_mask.to(dev)).cpu()
+    if not torch.equal(on_card, pointcloud_masks(cv_mask)):
+        raise AssertionError("pointcloud_masks on the card differs from the CPU")
+    log(f"[21 pointcloud] pointcloud_masks on the card equals the CPU's (kept share "
+        f"{on_card.mean().item():.4f} on a random cv_mask)")
+    return {"pointcloud_launches": launches}
 
 
 def main() -> int:
@@ -2115,8 +2515,16 @@ def main() -> int:
         # ---- 18-19. stages 3 and 4 of the curriculum ----------------------
         stage3_counts, stage3_checkpoint = phase_stage3(dev, card, run_dir, stage1_checkpoint,
                                                         stage2_checkpoint)
-        stage4_counts, stage4_records = phase_stage4(dev, card, run_dir, stage1_checkpoint,
-                                                     stage3_checkpoint)
+        stage4_counts, stage4_records, stage4_checkpoint = phase_stage4(
+            dev, card, run_dir, stage1_checkpoint, stage3_checkpoint)
+        torch.cuda.empty_cache()
+
+        # ---- 20-21. evaluation and the point cloud on a KITTI tree ---------
+        records["plane_sweep_cost_volume"].update(
+            phase_evaluate(dev, card, run_dir, stage4_checkpoint))
+        torch.cuda.empty_cache()
+        records["plane_sweep_cost_volume"].update(
+            phase_pointcloud(dev, card, run_dir, stage4_checkpoint))
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
     for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
@@ -2157,7 +2565,8 @@ def main() -> int:
         "launches": records[k]["launches"],
         "max_abs_err": records[k]["max_abs_err"],
         **{f: records[k][f] for f in ("sfcv_max_abs_err", "stage2_launches", "stage3_launches",
-                                      "stage4_launches", "max_abs_err_vs_float64",
+                                      "stage4_launches", "eval_launches", "pointcloud_launches",
+                                      "max_abs_err_vs_float64",
                                       "plain_max_abs_err_vs_float64", "planar_gather_ms",
                                       "second_launch_m",
                                       "second_launch_ms", "second_launch_plain_ms",

@@ -15,7 +15,9 @@ build the CUDA kernel and warm the allocator.
 "exact" (float32 everywhere, the default) or "serving" (bf16 cost-volume
 sources and bf16 U-Net convolutions).
 
-KITTI input waits for a data path of the port; requests are synthetic.
+Requests are synthetic: this entry point has no KITTI mode yet (the
+port's KITTI reader serves ``cli/evaluate.py`` and
+``cli/create_pointcloud.py``).
 """
 
 from __future__ import annotations

@@ -8,10 +8,10 @@ trainer, ``train/monorec_trainer.py::MonoRecTrainer``.
     python -m monorec_tpu_torch.cli.train_monorec -c <stage config> --device cpu
 
 The shipped stage configs (``configs/train/monorec/monorec_mask.json``,
-``monorec_mask_ref.json``, ``monorec_depth_ref.json``) read KITTI, which
-the port cannot yet (ROADMAP item 7c): give them a
-``SyntheticSweepDataloader`` block with ``return_stereo`` and their own
-``return_mvobj_mask`` (2 for stage 2, 1 for stages 3-4). Arguments as in
+``monorec_mask_ref.json``, ``monorec_depth_ref.json``) read KITTI; without
+the data, give them a ``SyntheticSweepDataloader`` block with
+``return_stereo`` and their own ``return_mvobj_mask`` (2 for stage 2, 1 for
+stages 3-4). Arguments as in
 ``cli/train.py``: ``-c``, ``-r``, ``-o`` (loss options), ``--device``
 (default cuda), ``--lr``, ``--bs`` and ``--precision``; the model loads the
 earlier stages' checkpoints its config names (``depth_cp_loc``,

@@ -3,13 +3,15 @@ port: the counterpart of ``monorec_tpu/config/parser.py``, which the port
 cannot import (it imports the flax model).
 
 It maps ``arch.args`` onto ``MonoRecConfig``, ``loss``, ``metrics``,
-``optimizer`` and ``lr_scheduler`` onto their ported counterparts and
-``data_loader`` onto the port's loader, applies the CLI's key-path
-overrides (``--lr`` -> ``optimizer.args.lr``), and lays out the run
-directory ``<save_dir>/models/<name>/<timestamp>`` with a snapshot of the
-config. The top-level ``"precision"`` key selects the precision policy
-(``precision.set_precision``) when the config is loaded, and the model's
-dtype knobs it does not set come from that policy. Whatever a config asks
+``optimizer`` and ``lr_scheduler`` onto their ported counterparts,
+``data_loader`` (and the point-cloud export's ``data_set``) onto the port's
+datasets and loader, an evaluation config's ``models`` list onto model
+configs, applies the CLI's key-path overrides (``--lr`` ->
+``optimizer.args.lr``), and lays out the run directory
+``<save_dir>/models/<name>/<timestamp>`` (``log/`` for an evaluation) with a
+snapshot of the config. The top-level ``"precision"`` key selects the
+precision policy (``precision.set_precision``) when the config is loaded,
+and the model's dtype knobs it does not set come from that policy. Whatever a config asks
 for that is not ported yet raises, naming it; reference knobs with no
 meaning here (``num_workers``) are ignored.
 """
@@ -37,7 +39,8 @@ _MODEL_KEYS = {f.name for f in dataclasses.fields(MonoRecConfig)} - {"plain_cost
 _NOT_PORTED_MODEL_KEYS = {
     "simple_mask": False, "mask_use_cv": True, "mask_use_feats": True, "no_cv": False,
 }
-_LOADER_KEYS = {"batch_size", "shuffle", "validation_split", "num_workers", "drop_last"}
+_LOADER_KEYS = {"batch_size", "shuffle", "validation_split", "num_workers", "drop_last",
+                "start", "end", "every_nth"}
 
 
 def load_config(config_path: Optional[str] = None, resume: Optional[str] = None,
@@ -64,13 +67,17 @@ def load_config(config_path: Optional[str] = None, resume: Optional[str] = None,
     return config
 
 
-def make_run_dir(config: Dict) -> Path:
-    """``<save_dir>/models/<name>/<timestamp>`` (``trainer.timestamp_replacement``
-    fixes the last part), created, with the config written into it."""
-    section = config.get("trainer", {})
+def make_run_dir(config: Dict, kind: str = "models") -> Path:
+    """``<save_dir>/<kind>/<name>/<timestamp>``, created, with the config
+    written into it. ``save_dir`` and the timestamp come from the
+    ``trainer`` (or ``evaluater``) block, else from the top level; a
+    ``timestamp_replacement`` there fixes the last part. The trainers use
+    kind "models", the evaluation "log", as the JAX package does."""
+    section = config.get("trainer", config.get("evaluater", {}))
     save_dir = Path(section.get("save_dir", config.get("save_dir", "saved/")))
-    ts = section.get("timestamp_replacement", datetime.now().strftime(r"%m%d_%H%M%S"))
-    run_dir = save_dir / "models" / config.get("name", "run") / ts
+    ts = section.get("timestamp_replacement", config.get(
+        "timestamp_replacement", datetime.now().strftime(r"%m%d_%H%M%S")))
+    run_dir = save_dir / kind / config.get("name", "run") / ts
     run_dir.mkdir(parents=True, exist_ok=True)
     with open(run_dir / "config.json", "w") as f:
         json.dump(config, f, indent=4)
@@ -127,23 +134,50 @@ def warn_if_frozen_random_encoder(cfg: MonoRecConfig, encoder_loaded: bool = Fal
     print(f"\n{'!' * 70}\nWARNING: {msg}\n{'!' * 70}\n", file=sys.stderr)
 
 
-def build_data_loader(block: Dict, device):
-    """A ``data_loader`` block -> the port's ``DataLoader`` on ``device``."""
-    from monorec_tpu_torch.data.loader import DataLoader
+_NOT_PORTED_DATASETS = {"OxfordRobotCarDataset", "TUMMonoVODataset", "TUMRGBDDataset"}
+
+
+def build_dataset(kind: str, args: Dict):
+    """The dataset ``kind`` names (a dataset's class name, or a reference
+    data loader's: ``KittiOdometryDataloader`` -> ``KittiOdometryDataset``)
+    with its ``args``; the loader-only keys are left out."""
+    from monorec_tpu_torch.data.cache import CachedDataset
+    from monorec_tpu_torch.data.kitti import KittiOdometryDataset
     from monorec_tpu_torch.data.synthetic import SyntheticSweepDataset
 
-    kind, args = block["type"], dict(block.get("args", {}))
-    if kind == "KittiOdometryDataloader":
-        raise NotImplementedError(
-            "KittiOdometryDataloader is not ported yet: the port has no KITTI data path "
-            "(ROADMAP item 7c); use SyntheticSweepDataloader")
-    if kind != "SyntheticSweepDataloader":
-        raise NotImplementedError(f"data loader '{kind}' is not ported yet")
-    dataset = SyntheticSweepDataset(**{k: v for k, v in args.items() if k not in _LOADER_KEYS})
+    datasets = {"KittiOdometryDataset": KittiOdometryDataset,
+                "SyntheticSweepDataset": SyntheticSweepDataset, "CachedDataset": CachedDataset}
+    name = kind.replace("Dataloader", "Dataset")
+    if name in _NOT_PORTED_DATASETS:
+        raise NotImplementedError(f"'{kind}' is not ported yet: the RobotCar and TUM readers "
+                                  "are ROADMAP item 17b")
+    if name not in datasets:
+        raise NotImplementedError(f"data set '{kind}' is not ported yet")
+    return datasets[name](**{k: v for k, v in args.items() if k not in _LOADER_KEYS})
+
+
+def build_data_loader(block: Dict, device):
+    """A ``data_loader`` block -> the port's ``DataLoader`` on ``device``; its
+    ``start`` / ``end`` / ``every_nth`` select a ``DatasetWrapper`` view."""
+    from monorec_tpu_torch.data.loader import DataLoader, DatasetWrapper
+
+    args = dict(block.get("args", {}))
+    dataset = build_dataset(block["type"], args)
+    if any(k in args for k in ("start", "end", "every_nth")):
+        dataset = DatasetWrapper(dataset, start=args.get("start", 0), end=args.get("end", -1),
+                                 every_nth=args.get("every_nth", 1))
     return DataLoader(dataset, batch_size=args.get("batch_size", 1),
                       shuffle=args.get("shuffle", True),
                       validation_split=args.get("validation_split", 0.0),
                       drop_last=args.get("drop_last", True), device=device)
+
+
+def build_models(config: Dict) -> List:
+    """(``MonoRecConfig``, checkpoint locations) of each block of an
+    evaluation config's ``models`` list, or of its ``arch`` block."""
+    blocks = config.get("models") or [config["arch"]]
+    return [(build_model_config(b.get("args", {})), checkpoint_locations(b.get("args", {})))
+            for b in blocks]
 
 
 def build_loss(config: Dict):

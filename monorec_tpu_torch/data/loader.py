@@ -1,8 +1,8 @@
 """Batching for the port (``monorec_tpu/data/loader.py``): a deterministic
-validation split, seeded per-epoch shuffling, ``collate`` and the move to the
-device. There is no thread pool: samples are assembled in the caller's
-thread, and on CUDA each batch goes through pinned memory with a
-non-blocking copy.
+validation split, seeded per-epoch shuffling, ``collate``, the move to the
+device, and ``DatasetWrapper``, a start/end/every_nth view of a dataset.
+There is no thread pool: samples are assembled in the caller's thread, and
+on CUDA each batch goes through pinned memory with a non-blocking copy.
 """
 
 from __future__ import annotations
@@ -13,6 +13,24 @@ import numpy as np
 import torch
 
 from monorec_tpu_torch.data.synthetic import batch_to_torch
+
+
+class DatasetWrapper:
+    """The ``start``, ``end`` and ``every_nth`` view of a dataset
+    (``monorec_tpu/data/loader.py::DatasetWrapper``); ``end`` -1 is its
+    length."""
+
+    def __init__(self, dataset, start: int = 0, end: int = -1, every_nth: int = 1):
+        self.dataset = dataset
+        self.start = start
+        self.end = len(dataset) if end == -1 else end
+        self.every_nth = every_nth
+
+    def __getitem__(self, i: int):
+        return self.dataset[i * self.every_nth + self.start]
+
+    def __len__(self) -> int:
+        return -(-(self.end - self.start) // self.every_nth)
 
 
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:

@@ -6,6 +6,7 @@ from monorec_tpu_torch.utils.core import (
     get_mask,
     get_positive_depth,
     mask_mean,
+    median_scaling,
     operator_on_dict,
     preprocess_roi,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "get_mask",
     "get_positive_depth",
     "mask_mean",
+    "median_scaling",
     "operator_on_dict",
     "preprocess_roi",
 ]

@@ -1,4 +1,4 @@
-"""Masked reductions, ROI and depth helpers, value faders
+"""Masked reductions, ROI and depth helpers, median scaling, value faders
 (``monorec_tpu/utils/core.py``), on NCHW tensors."""
 
 from __future__ import annotations
@@ -69,6 +69,26 @@ def get_mask(pred: Tensor, gt: Tensor, max_distance: Optional[float] = None,
     if not pred_all_valid:
         mask = mask | (pred == 0)
     return mask
+
+
+def median_scaling(result: Tensor, target: Tensor) -> Tensor:
+    """``result`` scaled per sample by median(target) / median(result), both
+    medians over the pixels with target > 0 (``monorec_tpu/utils/core.py``).
+    The median is the JAX package's: the mean of the two middle values of
+    the sorted valid pixels (one value when their count is odd); a sample
+    with no valid pixel gets inf / inf = NaN."""
+    b = result.shape[0]
+    valid = (target > 0).reshape(b, -1)
+    n_valid = valid.sum(1, keepdim=True)
+    lo = ((n_valid - 1) // 2).clamp_min(0)
+    hi = n_valid // 2
+
+    def masked_median(x):
+        s = torch.where(valid, x.reshape(b, -1), torch.inf).sort(dim=1).values
+        return (s.gather(1, lo) + s.gather(1, hi)) / 2.0
+
+    ratio = masked_median(target) / masked_median(result)
+    return result * ratio.reshape((b,) + (1,) * (result.dim() - 1))
 
 
 class ValueFader:
