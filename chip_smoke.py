@@ -127,7 +127,32 @@ checkout, then:
    K1 cost-volume launch per frame; the PLY parses, its vertex count fills
    its size, its coordinates are finite, the unmasked cloud has points and
    the masked one no more), and ``pointcloud_masks`` on the card against
-   the CPU.
+   the CPU;
+22. RobotCar: writes a tree in the RobotCar SDK's layout at RobotCar's
+   native raw size (10 Bayer PNGs at 960x1280 of the plane scene, a
+   distortion LUT, ``vo.csv``, extrinsics, LDMRS scans of the plane), times
+   the host's ``read_png``, ``demosaic_gb2rgb``, undistortion and
+   ``crop_resize_bilinear`` per image; runs ``cli.evaluate`` on a copy of
+   ``configs/evaluate/eval_monorec_oxrc.json`` (B=4, scale 0.5, cutout to
+   320x640, the cutout written as 1/3 to the double's last digit: the
+   shipped 0.333333333333333 leaves 321 rows, which the model cannot take)
+   from phase 19's checkpoint (the main path: one K1 cost-volume launch per
+   batch, 7 finite metrics, every batch valid), its first batch on the card
+   and on the CPU (within rtol 1e-3); times the eval forward and the
+   evaluate loop (keyframes/s, busy share); holds K1 at 320x640, B=4, F=2
+   to its plain version and times it; exports through
+   ``cli.create_pointcloud`` on a copy of
+   ``configs/test/pointcloud_monorec_oxrc.json``, mask on and off (one K1
+   launch per frame, a PLY that parses);
+23. TUM mono VO: writes a sequence of 9 greyscale JPEGs at 1280x1024 with
+   its own baseline encoder (``encode_jpeg``: the standard luminance table
+   at quality 90, the standard Huffman tables, every third file with
+   restart markers), times ``read_jpeg`` and checks its images against the
+   encoded ones (mean |diff| under 2 levels); exports through
+   ``cli.create_pointcloud`` on a copy of
+   ``configs/test/pointcloud_monorec_tmvo.json`` (F=4, 480x640, ``end`` cut
+   to the sequence, mask off: one K1 launch per frame, points in the PLY);
+   holds K1 at 480x640, B=1, F=4 to its plain version and times it.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -1057,15 +1082,16 @@ def k1_raw_bound(images, keyframes, homs) -> dict:
                  K1_FLOPS * n * d * h * w)
 
 
-def k1_cv_bound(images, keyframes, homs) -> dict:
+def k1_cv_bound(images, keyframes, homs, frames: int = F) -> dict:
     """K1's cost-volume mode: sources, keyframes and homographies in; the
-    per-frame CVs (N, D, H, W) and the fused CV (B, D, H, W) out."""
+    per-frame CVs (N, D, H, W) and the fused CV (B, D, H, W) out, B = N /
+    ``frames``."""
     n, _, h, w = images.shape
     d = homs.shape[1]
-    fused = n // F * d * h * w
+    fused = n // frames * d * h * w
     return bound(nbytes(images, keyframes, homs) + (n * d * h * w + fused) * 4,
                  K1_CV_FLOPS * n * d * h * w
-                 + (K1_FUSE_FLOPS_PER_FRAME * F + K1_FUSE_FLOPS) * fused)
+                 + (K1_FUSE_FLOPS_PER_FRAME * frames + K1_FUSE_FLOPS) * fused)
 
 
 def phase_cost_volume_kernel(dev, card: str, dtype) -> dict:
@@ -2292,6 +2318,578 @@ def phase_pointcloud(dev, card: str, work, checkpoint) -> dict:
     return {"pointcloud_launches": launches}
 
 
+# ---- phases 22-23: RobotCar and TUM mono VO trees written without PIL -------
+
+# RobotCar's stereo narrow-left camera at its native raw size (960x1280):
+# RobotCar-like intrinsics, fx fy cx cy.
+ROBOTCAR_SIZE = (960, 1280)
+ROBOTCAR_K = (983.044, 983.044, 643.647, 493.379)
+ROBOTCAR_FRAMES = 10  # 8 samples at F=2: two batches of 4
+ROBOTCAR_DT_US = 62500  # 16 Hz
+ROBOTCAR_STEP = 0.6  # metres forward per frame
+# The RobotCar SDK's extrinsics as x y z roll pitch yaw. The camera's turns
+# the SDK's body axes (x forward, y right, z down) into the camera's axes
+# (x right, y down, z forward), so that the reader's projection of the
+# LiDAR returns agrees with the poses; the LiDAR sits at the body's origin.
+ROBOTCAR_CAMERA_XYZRPY = (0.0, 0.0, 0.0, 0.0, -math.pi / 2, -math.pi / 2)
+# The shipped oxrc configs' cutout (0, 0.333333333333333, 0, 0) leaves 321
+# of 480 rows at scale 0.5 (int(0.333333333333333 * 480) = 159), which the
+# model's U-Net cannot take; 1/3 to the double's last digit leaves 320.
+ROBOTCAR_CUTOUT = [0, 1 / 3, 0, 0]
+TUM_SIZE = (1024, 1280)  # TUM mono VO's native size
+TUM_FRAMES = 9  # 5 samples at F=4
+TUM_K = (0.7, 0.875, 0.5, 0.5)  # relative fx fy cx cy: a pinhole of 71 x 60 degrees
+TUM_STEP = 0.3  # metres forward per frame
+TUM_SCALE = 3.0  # the shipped config's scale_factor; result.txt holds step / scale
+# The JPEG standard's luminance quantization table (Annex K.1), natural
+# order, and its luminance DC and AC Huffman tables (K.3, K.5): the count of
+# codes of each length 1-16, then the symbols.
+JPEG_LUMA_QUANT = (
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99)
+JPEG_DC_BITS = (0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0)
+JPEG_DC_SYMBOLS = tuple(range(12))
+JPEG_AC_BITS = (0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D)
+JPEG_AC_SYMBOLS = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a434445464748494a"
+    "535455565758595a636465666768696a737475767778797a838485868788898a"
+    "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7"
+    "c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+JPEG_ZIGZAG = (
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+
+
+def jpeg_quant_table(quality: int):
+    """The luminance table scaled to ``quality`` as libjpeg scales it, each
+    entry kept in 1..255 (8-bit tables)."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return [min(max((q * scale + 50) // 100, 1), 255) for q in JPEG_LUMA_QUANT]
+
+
+def _huffman_codes(bits, symbols) -> dict:
+    """symbol -> (code, length) of a canonical Huffman table."""
+    codes, code, k = {}, 0, 0
+    for length, count in enumerate(bits, start=1):
+        for _ in range(count):
+            codes[symbols[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+def encode_jpeg(img, quality: int = 90, restart_interval: int = 0) -> bytes:
+    """A baseline greyscale JFIF of an (H, W) uint8 array: the luminance
+    table at ``quality`` and the standard Huffman tables
+    (``jpeg_from_coefficients``), with ``restart_interval`` > 0 an RSTn
+    marker every that many blocks."""
+    import numpy as np
+
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape
+    bh, bw = -(-h // 8), -(-w // 8)
+    padded = np.pad(img, ((0, bh * 8 - h), (0, bw * 8 - w)), mode="edge").astype(np.float64)
+    blocks = (padded - 128.0).reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
+    u = np.arange(8)
+    dct = np.sqrt(2 / 8) * np.cos((2 * u[None, :] + 1) * u[:, None] * np.pi / 16)
+    dct[0] /= np.sqrt(2)
+    quant = np.asarray(jpeg_quant_table(quality), np.int64).reshape(8, 8)
+    coef = np.round(dct @ blocks @ dct.T / quant).astype(np.int64).reshape(-1, 64)
+    return jpeg_from_coefficients(coef, quant, h, w, restart_interval)
+
+
+def jpeg_from_coefficients(coef, quant, h: int, w: int, restart_interval: int = 0) -> bytes:
+    """A baseline greyscale JFIF (SOF0) of quantized coefficients ``coef``
+    (one row of 64 per 8x8 block, natural order, blocks row by row) of an
+    h x w image, with the (8, 8) quantization table ``quant`` (8-bit
+    entries), the standard Huffman tables, a COM segment, and with
+    ``restart_interval`` > 0 a DRI segment and an RSTn marker every that
+    many blocks."""
+    import struct
+
+    import numpy as np
+
+    n_blocks = coef.shape[0]
+    zz = np.asarray(coef)[:, list(JPEG_ZIGZAG)]
+    dc_codes = _huffman_codes(JPEG_DC_BITS, JPEG_DC_SYMBOLS)
+    ac_codes = _huffman_codes(JPEG_AC_BITS, JPEG_AC_SYMBOLS)
+
+    def magnitude(v):
+        s = abs(v).bit_length()
+        return s, (v if v >= 0 else v + (1 << s) - 1)
+
+    def interval(rows) -> bytes:
+        """The entropy-coded data of a run of blocks, the DC predictor from
+        0, padded with 1-bits to a byte and byte-stuffed."""
+        codes, lengths, pred = [], [], 0
+        nz_blocks, nz_pos = np.nonzero(zz[rows, 1:])
+        nz_by_block = np.split(nz_pos + 1, np.searchsorted(nz_blocks, np.arange(1, len(rows))))
+        for b, nz in zip(rows.tolist(), nz_by_block):
+            s, m = magnitude(int(zz[b, 0]) - pred)
+            pred = int(zz[b, 0])
+            code, length = dc_codes[s]
+            codes.append((code << s) | m)
+            lengths.append(length + s)
+            last = 0
+            for k in nz.tolist():
+                run = k - last - 1
+                while run > 15:
+                    code, length = ac_codes[0xF0]
+                    codes.append(code)
+                    lengths.append(length)
+                    run -= 16
+                s, m = magnitude(int(zz[b, k]))
+                code, length = ac_codes[(run << 4) | s]
+                codes.append((code << s) | m)
+                lengths.append(length + s)
+                last = k
+            if last < 63:
+                code, length = ac_codes[0x00]
+                codes.append(code)
+                lengths.append(length)
+        codes, lengths = np.asarray(codes, np.int64), np.asarray(lengths, np.int64)
+        starts = np.cumsum(lengths) - lengths
+        idx = np.arange(int(lengths.sum())) - np.repeat(starts, lengths)
+        bits = (np.repeat(codes, lengths) >> (np.repeat(lengths, lengths) - 1 - idx)) & 1
+        bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.int64)])
+        return np.packbits(bits.astype(np.uint8)).tobytes().replace(b"\xff", b"\xff\x00")
+
+    per = restart_interval or n_blocks
+    data = b""
+    for i, start in enumerate(range(0, n_blocks, per)):
+        if i:
+            data += bytes((0xFF, 0xD0 + (i - 1) % 8))
+        data += interval(np.arange(start, min(start + per, n_blocks)))
+
+    def segment(marker: int, body: bytes) -> bytes:
+        return bytes((0xFF, marker)) + struct.pack(">H", len(body) + 2) + body
+
+    q_zz = bytes(int(np.asarray(quant).reshape(-1)[k]) for k in JPEG_ZIGZAG)
+    return (b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+            + segment(0xFE, b"chip_smoke.py baseline greyscale encoder")
+            + segment(0xDB, b"\x00" + q_zz)
+            + segment(0xC0, struct.pack(">BHHBBBB", 8, h, w, 1, 1, 0x11, 0))
+            + segment(0xC4, b"\x00" + bytes(JPEG_DC_BITS) + bytes(JPEG_DC_SYMBOLS)
+                      + b"\x10" + bytes(JPEG_AC_BITS) + JPEG_AC_SYMBOLS)
+            + (segment(0xDD, struct.pack(">H", restart_interval)) if restart_interval else b"")
+            + segment(0xDA, bytes((1, 1, 0x00, 0, 63, 0))) + data + b"\xff\xd9")
+
+
+def write_jpeg(path, img, **kwargs) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_jpeg(img, **kwargs))
+
+
+def mosaic_gb(rgb):
+    """The Bayer samples of an (H, W, 3) image in the pattern OpenCV calls
+    GB (``COLOR_BayerGB2RGB``): red on even rows at odd columns, blue on odd
+    rows at even columns, green elsewhere."""
+    import numpy as np
+
+    h, w = rgb.shape[:2]
+    rows, cols = np.mgrid[0:h, 0:w] % 2
+    channel = np.where(rows == cols, 1, np.where(rows == 0, 0, 2))
+    return np.take_along_axis(rgb, channel[..., None], axis=2)[..., 0]
+
+
+def write_robotcar_tree(root, size=ROBOTCAR_SIZE, n_frames: int = ROBOTCAR_FRAMES,
+                        write=write_png):
+    """A RobotCar tree in the SDK's layout under ``root``: ``stereo/centre``
+    with ``n_frames`` Bayer PNGs (``mosaic_gb``) of the plane scene seen by a
+    camera moving ROBOTCAR_STEP m forward per frame; ``models/`` with the
+    intrinsics (ROBOTCAR_K scaled to ``size``) and a distortion LUT that
+    samples each pixel ~0.3 px off; ``vo/vo.csv`` with the motion;
+    ``extrinsics/`` for the camera and the LDMRS; and ``ldmrs/`` scans, one
+    per frame and one between frames, of 400 points on the plane each, with
+    a point repeated in the next scan and one behind it on the same ray
+    (two returns on one pixel). ``write(path, array)`` writes each PNG.
+    Returns the reader's folder arguments."""
+    from pathlib import Path
+
+    import numpy as np
+
+    root = Path(root)
+    for sub in ("stereo/centre", "models", "vo", "extrinsics", "ldmrs"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    h, w = size
+    sy, sx = h / ROBOTCAR_SIZE[0], w / ROBOTCAR_SIZE[1]
+    fx, fy, cx, cy = (ROBOTCAR_K[0] * sx, ROBOTCAR_K[1] * sy, ROBOTCAR_K[2] * sx,
+                      ROBOTCAR_K[3] * sy)
+    (root / "models" / "stereo_narrow_left.txt").write_text(f"{fx} {fy} {cx} {cy}\n")
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    lut = np.stack([u + 0.3 - 0.4 * v / h, v - 0.2 + 0.3 * u / w])
+    lut.reshape(-1).tofile(root / "models" / "stereo_narrow_left_distortion_lut.bin")
+    (root / "extrinsics" / "stereo_narrow_left.txt").write_text(
+        " ".join(repr(x) for x in ROBOTCAR_CAMERA_XYZRPY) + "\n")
+    (root / "extrinsics" / "ldmrs.txt").write_text("0 0 0 0 0 0\n")
+    k = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])
+    t0 = 1_400_000_000_000_000
+    times = [t0 + ROBOTCAR_DT_US * i for i in range(n_frames)]
+    lines = ["source_timestamp,destination_timestamp,x,y,z,roll,pitch,yaw"]
+    for i in range(1, n_frames):
+        lines.append(f"{times[i]},{times[i - 1]},{ROBOTCAR_STEP},0,0,0,0,0")
+    (root / "vo" / "vo.csv").write_text("\n".join(lines) + "\n")
+    for i, t in enumerate(times):
+        rgb, _ = render_plane(k, (0.0, 0.0, ROBOTCAR_STEP * i), size)
+        write(root / "stereo" / "centre" / f"{t}.png", mosaic_gb(rgb))
+    # A scan at each frame and halfway between: the points on the plane in
+    # the body frame at the scan's time, (z, x, y) of the camera's.
+    rng = np.random.default_rng(0)
+    repeat = None
+    for j in range(2 * n_frames - 1):
+        s = ROBOTCAR_STEP * j / 2
+        pu, pv = rng.uniform(0, w - 1, 400), rng.uniform(0, h - 1, 400)
+        rays = np.stack([(pu - cx) / fx, (pv - cy) / fy, np.ones_like(pu)], -1)
+        n = np.asarray(PLANE_N)
+        depth = (PLANE_D - n[2] * s) / (rays @ n)
+        cam = rays * depth[:, None]
+        if repeat is not None:
+            cam[0] = repeat - (0.0, 0.0, ROBOTCAR_STEP / 2)  # the last scan's first point
+        repeat = cam[0].copy()
+        cam = np.concatenate([cam, cam[1:2] * 1.05])  # a farther return on a ray
+        scan = cam[:, [2, 0, 1]]
+        scan.astype(np.float64).tofile(root / "ldmrs" / f"{t0 + ROBOTCAR_DT_US * j // 2}.bin")
+    return {"sequence_folders": [str(root / "stereo" / "centre")],
+            "pose_files": [str(root / "vo" / "vo.csv")],
+            "lidar_folders": [str(root / "ldmrs")], "model_folder": str(root / "models"),
+            "extrinsics_folder": str(root / "extrinsics")}
+
+
+def write_tum_tree(root, size=TUM_SIZE, n_frames: int = TUM_FRAMES, write=write_jpeg):
+    """A TUM mono VO sequence under ``root``: ``images/`` with ``n_frames``
+    greyscale JPEGs (the plane scene's mean over its channels, seen by a
+    camera moving TUM_STEP m forward per frame; every third file with a
+    restart interval of 61 blocks), ``times.txt``,
+    ``result.txt`` (the motion divided by TUM_SCALE), an identity
+    ``pcalib.txt`` and ``camera.txt`` with relative intrinsics after a
+    model name. ``write(path, array, **kwargs)`` writes each JPEG. Returns
+    the grey images."""
+    from pathlib import Path
+
+    import numpy as np
+
+    root = Path(root)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    h, w = size
+    k = np.array([[TUM_K[0] * w, 0, TUM_K[2] * w], [0, TUM_K[1] * h, TUM_K[3] * h], [0, 0, 1]])
+    times, result, images = [], [], []
+    for i in range(n_frames):
+        rgb, _ = render_plane(k, (0.0, 0.0, TUM_STEP * i), size)
+        grey = np.round(rgb.mean(axis=2)).astype(np.uint8)
+        restart = {"restart_interval": 61} if i % 3 == 0 else {}
+        write(root / "images" / f"{i:05d}.jpg", grey, **restart)
+        images.append(grey)
+        t = 1000.0 + 0.05 * i
+        times.append(f"{i:05d} {t:.6f} 0.0200")
+        result.append(f"{t:.6f} 0 0 {TUM_STEP * i / TUM_SCALE:.9f} 0 0 0 1")
+    (root / "times.txt").write_text("\n".join(times) + "\n")
+    (root / "result.txt").write_text("\n".join(result) + "\n")
+    (root / "pcalib.txt").write_text(" ".join(str(v) for v in range(256)) + "\n")
+    (root / "camera.txt").write_text("Pinhole " + " ".join(str(v) for v in TUM_K) + " 0\n"
+                                     f"{w} {h}\ncrop\n640 480\n")
+    return images
+
+
+def k1_hold(dev, card: str, tag: str, batch, frames: int) -> dict:
+    """K1's cost-volume mode at a main path's shapes: the sources, keyframes
+    and homographies the model's cost volume builds from ``batch`` (a
+    reader's batch on the card), for every use_ssim, against its plain
+    version run in float64 (the exact answer): the per-frame and the fused
+    CVs each within the kernel budget, or within twice the float32 plain
+    version's own error where that is larger (SSIM in float32 is
+    ill-conditioned on smooth images: on phase 23's grey plane the float32
+    plain version's per-frame CVs leave the budget). Times both in turns at
+    the model's use_ssim=1."""
+    import torch
+
+    from monorec_tpu_torch.ops import plane_sweep
+    from monorec_tpu_torch.ops.cost_volume import CostVolumeConfig, _sweep_sources
+
+    images, homs = _sweep_sources(batch["keyframe"], batch["keyframe_intrinsics"],
+                                  batch["keyframe_pose"], batch["frames"], batch["intrinsics"],
+                                  batch["poses"], 0.0025, 0.33, CostVolumeConfig(depth_steps=D))
+    keyframes = batch["keyframe"].contiguous()
+    b, _, h, w = keyframes.shape
+    max_err = sfcv_err = vs64 = plain_vs64 = 0.0
+    for mode in MODES:
+        fused, sfcv = plane_sweep.plane_sweep_cost_volume(images, keyframes, homs, 2, frames, mode)
+        torch.cuda.synchronize()
+        pf, psf = plane_sweep.plane_sweep_cost_volume_reference(images, keyframes, homs, 2,
+                                                                frames, mode)
+        e32 = [(fused - pf).abs().max().item(), (sfcv - psf).abs().max().item()]
+        e64, e32_64 = [0.0, 0.0], [0.0, 0.0]  # [fused, sfcv]
+        for k in range(b):  # float64 one keyframe at a time, to bound memory
+            exact = plane_sweep.plane_sweep_cost_volume_reference(
+                images[k * frames : (k + 1) * frames].double(), keyframes[k : k + 1].double(),
+                homs[k * frames : (k + 1) * frames], 2, frames, mode)
+            for i, (kern, plain, x) in enumerate(zip((fused, sfcv), (pf, psf), exact)):
+                e64[i] = max(e64[i], (kern[k : k + 1] - x).abs().max().item())
+                e32_64[i] = max(e32_64[i], (plain[k : k + 1] - x).abs().max().item())
+        gates = [max(SAD_TOL, 2.0 * e) for e in e32_64]
+        log(f"{tag} K1 cost-volume mode at B={b}, F={frames}, D={D}, {h}x{w}, use_ssim={mode}: "
+            f"max|diff| fused / sfcv: kernel vs plain float64 {e64[0]:.3e} / {e64[1]:.3e} "
+            f"(gates {gates[0]:.3e} / {gates[1]:.3e}); plain float32 vs float64 "
+            f"{e32_64[0]:.3e} / {e32_64[1]:.3e}; kernel vs plain float32 {e32[0]:.3e} / "
+            f"{e32[1]:.3e}")
+        if not (fused.shape == (b, D, h, w) and sfcv.shape == (b, frames, D, h, w)
+                and torch.isfinite(fused).all() and torch.isfinite(sfcv).all()
+                and e64[0] <= gates[0] and e64[1] <= gates[1]):
+            raise AssertionError(f"plane_sweep_cost_volume disagrees with its plain version at "
+                                 f"B={b}, F={frames}, {h}x{w} (use_ssim={mode})")
+        max_err, sfcv_err = max(max_err, *e32), max(sfcv_err, e32[1])
+        vs64, plain_vs64 = max(vs64, *e64), max(plain_vs64, *e32_64)
+        del fused, sfcv, pf, psf, exact
+    kernel = lambda: plane_sweep.plane_sweep_cost_volume(  # noqa: E731
+        images, keyframes, homs, 2, frames, 1)
+    plain = lambda: plane_sweep.plane_sweep_cost_volume_reference(  # noqa: E731
+        images, keyframes, homs, 2, frames, 1)
+    k_ms, p_ms, _, turns, order = in_turns(kernel, plain, 20, 3)
+    record = {"max_abs_err": max_err, "sfcv_max_abs_err": sfcv_err,
+              "max_abs_err_vs_float64": vs64, "plain_max_abs_err_vs_float64": plain_vs64,
+              "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+              **k1_cv_bound(images, keyframes, homs, frames)}
+    log(f"{tag} K1 time at B={b}, F={frames}, D={D}, {h}x{w}, use_ssim=1 ({order}): "
+        f"{', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs plain {p_ms:.3f} "
+        f"ms, bound {record['bound_ms']:.3f} ms ({record['bound_by']}) on {card}")
+    return record
+
+
+def shipped_copy(work, name: str, tag: str, checkpoint, data_args: dict, **top) -> str:
+    """A copy of ``configs/<name>`` with phase 19's ``checkpoint``, its data
+    block's args updated by ``data_args`` and its top level by ``top`` (a
+    dict updates the block of its key)."""
+    from pathlib import Path
+
+    with open(f"configs/{name}") as f:
+        config = json.load(f)
+    (config.get("models") or [config.get("arch")])[0]["args"]["checkpoint_location"] = [
+        str(checkpoint)]
+    (config.get("data_loader") or config["data_set"])["args"].update(data_args)
+    for key, value in top.items():
+        if isinstance(value, dict):
+            config[key].update(value)
+        else:
+            config[key] = value
+    return write_config(Path(work) / f"{tag}.json", config)
+
+
+def export_run(dev, card: str, tag: str, path: str, n_frames: int) -> dict:
+    """``cli.create_pointcloud`` on the config at ``path``: one K1 launch per
+    frame, a PLY that parses with finite coordinates. Returns the launches,
+    the points and the CLI's wall time."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from monorec_tpu_torch.cli import create_pointcloud
+
+    with open(path) as f:
+        config = json.load(f)
+    reset_counts()
+    t = time.perf_counter()
+    create_pointcloud.main(["-c", path, "--device", str(dev)])
+    wall = time.perf_counter() - t
+    counts = launch_counts()
+    if counts != only(plane_sweep_cost_volume=n_frames):
+        raise AssertionError(f"{tag}: the export launched {counts}, expected "
+                             f"plane_sweep_cost_volume once per frame ({n_frames})")
+    cloud = read_ply(Path(config["output_dir"]) / config["file_name"])
+    if not np.isfinite(cloud).all():
+        raise AssertionError(f"{tag}: a point-cloud coordinate is not finite")
+    log(f"{tag} cli.create_pointcloud, use_mask={config['use_mask']}: {len(cloud)} points from "
+        f"{n_frames} frames ({max(n_frames - 4, 0)} exported), one K1 launch each, in "
+        f"{wall:.3f} s (host clock, the CLI whole) on {card}")
+    return {"launches": counts["plane_sweep_cost_volume"], "points": len(cloud)}
+
+
+def phase_robotcar(dev, card: str, work, checkpoint) -> dict:
+    """Phase 22: RobotCar through the port's CLIs from phase 19's checkpoint,
+    on a tree in the SDK's layout at RobotCar's native raw size. Returns
+    K1's record at the evaluation's shape, with its launches."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from monorec_tpu_torch import config as config_mod
+    from monorec_tpu_torch.cli import evaluate
+    from monorec_tpu_torch.data.bayer import demosaic_gb2rgb
+    from monorec_tpu_torch.data.png import read_png
+    from monorec_tpu_torch.data.resize import crop_resize_bilinear
+    from monorec_tpu_torch.data.robotcar import CameraModel
+    from monorec_tpu_torch.eval import Evaluator
+    from monorec_tpu_torch.models import MonoRec
+    from monorec_tpu_torch.train.checkpoints import load_stage_checkpoints
+
+    tag = "[22 robotcar]"
+    t = time.perf_counter()
+    folders = write_robotcar_tree(Path(work) / "robotcar")
+    log(f"{tag} wrote a RobotCar tree ({ROBOTCAR_FRAMES} Bayer PNGs at {ROBOTCAR_SIZE[0]}x"
+        f"{ROBOTCAR_SIZE[1]}, a distortion LUT, vo.csv, extrinsics, "
+        f"{2 * ROBOTCAR_FRAMES - 1} LDMRS scans) in {time.perf_counter() - t:.2f} s")
+
+    # The host's chain per raw image, as the reader runs it.
+    h, w = ROBOTCAR_SIZE
+    model = CameraModel(folders["model_folder"], folders["sequence_folders"][0])
+    steps = {k: [] for k in ("read_png", "demosaic_gb2rgb", "undistort", "crop_resize_bilinear")}
+    for path in sorted(Path(folders["sequence_folders"][0]).glob("*.png"))[:4]:
+        t0 = time.perf_counter()
+        raw = read_png(path)
+        t1 = time.perf_counter()
+        rgb = demosaic_gb2rgb(raw)
+        t2 = time.perf_counter()
+        undistorted = model.undistort(rgb.astype(np.float64))
+        t3 = time.perf_counter()
+        crop_resize_bilinear((undistorted / 256.0 * 255).astype(np.uint8), (0, 0, w, h),
+                             (h // 2, w // 2))
+        t4 = time.perf_counter()
+        for k, dt in zip(steps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            steps[k].append(dt * 1e3)
+    log(f"{tag} host per {h}x{w} Bayer image (4 images, median): " + ", ".join(
+        f"{k} {statistics.median(v):.3f} ms" for k, v in steps.items())
+        + f", together {statistics.median(map(sum, zip(*steps.values()))):.3f} ms "
+        f"(host clock, the host of {card})")
+
+    # The main path: cli.evaluate on the shipped eval config, on the card.
+    data = dict(folders, cutout=ROBOTCAR_CUTOUT)
+    n_samples = ROBOTCAR_FRAMES - 2
+    n_batches = n_samples // 4
+
+    def eval_copy(name, **extra):
+        path = shipped_copy(work, "evaluate/eval_monorec_oxrc.json", name, checkpoint,
+                            dict(data, **extra),
+                            evaluater={"save_dir": str(Path(work) / name), "verbosity": 0})
+        return path, Path(work) / name / "log" / "Eval_monorec_oxrc" / "00"
+
+    path, run_dir = eval_copy("oxrc_card")
+    reset_counts()
+    evaluate.main(["-c", path, "--device", str(dev)])
+    counts = launch_counts()
+    if counts != only(plane_sweep_cost_volume=n_batches):
+        raise AssertionError(f"{tag} the evaluation launched {counts}, expected "
+                             f"plane_sweep_cost_volume once per batch ({n_batches})")
+    result = json.loads((run_dir / "results_0.json").read_text())["metrics"]
+    log(f"{tag} cli.evaluate on the card: {n_batches} batches of 4 at 320x640, one K1 "
+        f"cost-volume launch each; valid_batches {result['valid_batches']}, num_samples "
+        f"{result['num_samples']}; " + ", ".join(
+            f"{k} {result[k]:.6f}" for k in result if k.endswith("_metric")))
+    if not (len(result["metrics"]) == 7 and all(math.isfinite(v) for v in result["metrics"])
+            and result["valid_batches"] == n_batches and result["num_samples"] == n_samples):
+        raise AssertionError(f"{tag} the evaluation's results are off: {result}")
+
+    # The first batch on the card and on the CPU (the plain versions).
+    first = {}
+    for where, device in (("card", str(dev)), ("cpu", "cpu")):
+        path, run_dir = eval_copy(f"oxrc_first_{where}", start=0, end=4)
+        evaluate.main(["-c", path, "--device", device])
+        first[where] = json.loads((run_dir / "results_0.json").read_text())["metrics"]
+    g, c = np.asarray(first["card"]["metrics"]), np.asarray(first["cpu"]["metrics"])
+    rel = np.abs(g - c) / np.where(c == 0, 1.0, np.abs(c))
+    log(f"{tag} first batch, card vs CPU: max relative diff {rel.max():.3e} (metrics "
+        f"{', '.join(f'{v:.6f}' for v in g)} vs {', '.join(f'{v:.6f}' for v in c)})")
+    if not np.isclose(g, c, rtol=EVAL_RTOL, atol=0).all() or first["card"]["valid_batches"] != 1:
+        raise AssertionError(f"{tag} the card's evaluation disagrees with the CPU's")
+
+    # The eval forward per batch, and the evaluate loop's pace and busy share.
+    with open(path) as f:
+        config = json.load(f)
+    model_cfg, locations = config_mod.build_models(config)[0]
+    net = MonoRec(model_cfg, dev)
+    load_stage_checkpoints(net, locations)
+    net.eval()
+    loader = config_mod.build_data_loader({"type": "OxfordRobotCarDataloader",
+                                           "args": dict(config["data_loader"]["args"],
+                                                        start=0, end=n_samples)}, dev)
+    batch = next(iter(loader))
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: net(batch), 10)
+    log(f"{tag} eval forward, batch 4 at 320x640, D={D}, F=2: {fwd_ms:.3f} ms per batch (CUDA "
+        f"events, 10 calls) on {card}")
+    evaluator = Evaluator(net, config_mod.build_metrics(config), config, loader,
+                          Path(work) / "oxrc_timing")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    evaluator.eval()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    window_ms, busy_ms = busy_window(evaluator.eval)
+    log(f"{tag} evaluate loop from the tree: {n_samples} keyframes in {wall:.3f} s = "
+        f"{n_samples / wall:.3f} keyframes/s (host clock); profiled pass: device busy "
+        f"{busy_ms:.1f} of {window_ms:.1f} ms = {100 * busy_ms / window_ms:.1f}% on {card}")
+    record = k1_hold(dev, card, tag, batch, 2)
+    del net, batch, evaluator
+    torch.cuda.empty_cache()
+
+    # The export, mask on and off.
+    points = {}
+    for use_mask in (True, False):
+        path = shipped_copy(work, "test/pointcloud_monorec_oxrc.json", f"oxrc_pc_{use_mask}",
+                            checkpoint, data, output_dir=str(Path(work) / "pointclouds"),
+                            file_name=f"oxrc_mask_{use_mask}.ply", use_mask=use_mask, max_d=400)
+        run = export_run(dev, card, tag, path, n_samples)
+        points[use_mask] = run["points"]
+    if points[False] == 0 or points[True] > points[False]:
+        raise AssertionError(f"{tag} point counts off: {points}")
+    return dict(record, launches=counts["plane_sweep_cost_volume"],
+                pointcloud_launches=run["launches"])
+
+
+def phase_tum(dev, card: str, work, checkpoint) -> dict:
+    """Phase 23: TUM mono VO through ``cli.create_pointcloud`` from phase
+    19's checkpoint, on a sequence of greyscale JPEGs at TUM's native size.
+    Returns K1's record at F=4, with its launches."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from monorec_tpu_torch.data.jpeg import read_jpeg
+    from monorec_tpu_torch.data.loader import DataLoader
+    from monorec_tpu_torch.data.tum_mono_vo import TUMMonoVODataset
+
+    tag = "[23 tum mono vo]"
+    tree = Path(work) / "tum"
+    t = time.perf_counter()
+    images = write_tum_tree(tree)
+    log(f"{tag} wrote a TUM mono VO sequence ({TUM_FRAMES} greyscale JPEGs at {TUM_SIZE[0]}x"
+        f"{TUM_SIZE[1]}, quality 90, every third with restart markers) in "
+        f"{time.perf_counter() - t:.2f} s")
+    decode, diffs = [], []
+    for i, path in enumerate(sorted((tree / "images").glob("*.jpg"))[:4]):
+        t = time.perf_counter()
+        img = read_jpeg(path)
+        decode.append((time.perf_counter() - t) * 1e3)
+        diffs.append(float(np.abs(img.astype(np.int64) - images[i]).mean()))
+    log(f"{tag} read_jpeg per {TUM_SIZE[0]}x{TUM_SIZE[1]} image (4 images): "
+        f"{', '.join(f'{v:.1f}' for v in decode)} ms, median {statistics.median(decode):.3f} ms "
+        f"(host clock, the host of {card}); mean |decoded - encoded source| "
+        f"{', '.join(f'{v:.3f}' for v in diffs)} levels")
+    if max(diffs) > 2.0:
+        raise AssertionError(f"{tag} the decoded images are off the encoded ones: {diffs}")
+
+    # The main path: the shipped export config at F=4, 480x640.
+    n_samples = TUM_FRAMES - 4
+    path = shipped_copy(work, "test/pointcloud_monorec_tmvo.json", "tmvo_pc", checkpoint,
+                        {"dataset_dir": str(tree)}, end=n_samples, use_mask=False, max_d=400,
+                        output_dir=str(Path(work) / "pointclouds"))
+    run = export_run(dev, card, tag, path, n_samples)
+    if run["points"] == 0:
+        raise AssertionError(f"{tag} the unmasked cloud is empty")
+    with open(path) as f:
+        args = json.load(f)["data_set"]["args"]
+    batch = next(iter(DataLoader(TUMMonoVODataset(**args), 1, shuffle=False, device=dev)))
+    record = k1_hold(dev, card, tag, batch, 4)
+    del batch
+    torch.cuda.empty_cache()
+    return dict(record, launches=run["launches"])
+
+
 def main() -> int:
     import torch
 
@@ -2525,6 +3123,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         records["plane_sweep_cost_volume"].update(
             phase_pointcloud(dev, card, run_dir, stage4_checkpoint))
+        torch.cuda.empty_cache()
+
+        # ---- 22-23. RobotCar and TUM mono VO trees -------------------------
+        records["plane_sweep_cost_volume_320x640"] = phase_robotcar(dev, card, run_dir,
+                                                                    stage4_checkpoint)
+        torch.cuda.empty_cache()
+        records["plane_sweep_cost_volume_f4_480x640"] = phase_tum(dev, card, run_dir,
+                                                                  stage4_checkpoint)
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
     for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
@@ -2541,6 +3147,10 @@ def main() -> int:
                                     "monorec_tpu/ops/pallas/cv_kernel.py:600"),
         "plane_sweep_cost_volume_bf16": ("plane_sweep_sad.cu",
                                          "monorec_tpu/ops/pallas/cv_kernel.py:600"),
+        "plane_sweep_cost_volume_320x640": ("plane_sweep_sad.cu",
+                                            "monorec_tpu/ops/pallas/cv_kernel.py:600"),
+        "plane_sweep_cost_volume_f4_480x640": ("plane_sweep_sad.cu",
+                                               "monorec_tpu/ops/pallas/cv_kernel.py:600"),
         "grid_warp": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:421"),
         "grid_warp_jac": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:431"),
         "grid_warp_grad": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:444"),

@@ -134,23 +134,22 @@ def warn_if_frozen_random_encoder(cfg: MonoRecConfig, encoder_loaded: bool = Fal
     print(f"\n{'!' * 70}\nWARNING: {msg}\n{'!' * 70}\n", file=sys.stderr)
 
 
-_NOT_PORTED_DATASETS = {"OxfordRobotCarDataset", "TUMMonoVODataset", "TUMRGBDDataset"}
-
-
 def build_dataset(kind: str, args: Dict):
     """The dataset ``kind`` names (a dataset's class name, or a reference
     data loader's: ``KittiOdometryDataloader`` -> ``KittiOdometryDataset``)
     with its ``args``; the loader-only keys are left out."""
     from monorec_tpu_torch.data.cache import CachedDataset
     from monorec_tpu_torch.data.kitti import KittiOdometryDataset
+    from monorec_tpu_torch.data.robotcar import OxfordRobotCarDataset
     from monorec_tpu_torch.data.synthetic import SyntheticSweepDataset
+    from monorec_tpu_torch.data.tum_mono_vo import TUMMonoVODataset
+    from monorec_tpu_torch.data.tum_rgbd import TUMRGBDDataset
 
     datasets = {"KittiOdometryDataset": KittiOdometryDataset,
-                "SyntheticSweepDataset": SyntheticSweepDataset, "CachedDataset": CachedDataset}
+                "SyntheticSweepDataset": SyntheticSweepDataset, "CachedDataset": CachedDataset,
+                "OxfordRobotCarDataset": OxfordRobotCarDataset,
+                "TUMMonoVODataset": TUMMonoVODataset, "TUMRGBDDataset": TUMRGBDDataset}
     name = kind.replace("Dataloader", "Dataset")
-    if name in _NOT_PORTED_DATASETS:
-        raise NotImplementedError(f"'{kind}' is not ported yet: the RobotCar and TUM readers "
-                                  "are ROADMAP item 17b")
     if name not in datasets:
         raise NotImplementedError(f"data set '{kind}' is not ported yet")
     return datasets[name](**{k: v for k, v in args.items() if k not in _LOADER_KEYS})

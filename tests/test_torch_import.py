@@ -2,6 +2,7 @@
 fallback: without a visible CUDA device, or without the package beside it,
 ``chip_smoke.py`` exits non-zero and prints no result."""
 
+import json
 import os
 import shutil
 import subprocess
@@ -14,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
-for blocked in ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "monorec_tpu"):
+for blocked in ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "cv2", "monorec_tpu"):
     sys.modules[blocked] = None  # any import of these raises ImportError
 import monorec_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(monorec_tpu_torch.__path__, "monorec_tpu_torch.")]
@@ -36,10 +37,45 @@ def test_port_imports_every_module_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    # geometry, precision, convert, config, ops (8 + cuda/build), models (6), data (7: png,
-    # resize, color_jitter, kitti, cache, loader, synthetic), utils, losses (2), metrics,
-    # eval, export (2), train (3), cli (5), tools (2), with their packages
-    assert int(proc.stdout.split()[-1]) >= 57
+    # geometry, precision, convert, config, ops (8 + cuda/build), models (6), data (13: png,
+    # resize, color_jitter, kitti, cache, loader, synthetic, pose_interp, bayer, robotcar,
+    # jpeg, tum_mono_vo, tum_rgbd), utils, losses (2), metrics, eval, export (2), train (3),
+    # cli (5), tools (2), with their packages
+    assert int(proc.stdout.split()[-1]) >= 63
+
+
+_READ_ONE_SAMPLE = """
+import json, sys
+for blocked in ("jax", "jaxlib", "flax", "PIL", "cv2", "monorec_tpu"):
+    sys.modules[blocked] = None
+from monorec_tpu_torch import config
+kind, args = json.loads(sys.argv[1])
+sample = config.build_dataset(kind, args)[0]
+print(sorted((k, v.shape) for k, v in sample.items()))
+"""
+
+
+@pytest.mark.parametrize("reader", ["OxfordRobotCarDataset", "TUMMonoVODataset",
+                                    "TUMRGBDDataset"])
+def test_readers_read_without_pil_cv2_or_jax(reader, tmp_path):
+    """The readers import their decoders inside their methods too (scipy's
+    ``map_coordinates``): one sample of each, read in a process where PIL,
+    cv2, JAX and the JAX package cannot be imported."""
+    from tests import torch_trees
+
+    if reader == "OxfordRobotCarDataset":
+        args = dict(torch_trees.write_robotcar(tmp_path), cutout=[0, 0, 0, 0])
+    elif reader == "TUMMonoVODataset":
+        args = {"dataset_dir": str(torch_trees.write_tum_mono(tmp_path)),
+                "target_image_size": list(torch_trees.TARGET)}
+    else:
+        args = {"dataset_dir": str(torch_trees.write_tum_rgbd(tmp_path))}
+    proc = subprocess.run(
+        [sys.executable, "-c", _READ_ONE_SAMPLE, json.dumps([reader, args])], cwd=ROOT,
+        env=_env(PYTHONPATH=str(ROOT)), capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "keyframe" in proc.stdout and "target" in proc.stdout
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

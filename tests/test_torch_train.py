@@ -300,8 +300,8 @@ def test_cli_trains_from_a_config_file(tmp_path, capsys):
 
 
 def test_config_reader_names_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="17b"):
-        config_mod.build_data_loader({"type": "OxfordRobotCarDataloader", "args": {}}, "cpu")
+    with pytest.raises(NotImplementedError, match="NuScenesDataloader"):
+        config_mod.build_data_loader({"type": "NuScenesDataloader", "args": {}}, "cpu")
     with pytest.raises(NotImplementedError, match="simple_mask"):
         config_mod.build_model_config({"simple_mask": True})
     with pytest.raises(NotImplementedError, match="imagenet_weights"):
