@@ -152,7 +152,17 @@ checkout, then:
    ``cli.create_pointcloud`` on a copy of
    ``configs/test/pointcloud_monorec_tmvo.json`` (F=4, 480x640, ``end`` cut
    to the sequence, mask off: one K1 launch per frame, points in the PLY);
-   holds K1 at 480x640, B=1, F=4 to its plain version and times it.
+   holds K1 at 480x640, B=1, F=4 to its plain version and times it;
+24. the stage-1 CLI: ``cli.train.main`` on phase 10's config with
+   ``arch.args.imagenet_weights`` pointing at a seeded torchvision-keyed
+   ResNet-18 ``.pth`` it writes (``torchvision_resnet``), AdamW under
+   CosineAnnealingLR, ``module_timing`` and ``tensorboard``, 6 steps and a
+   validation pass; holds the encoder on the card bit for bit to the file
+   after the build and after the steps, reads ``loss/train`` of every step
+   and the ``*_module_time`` scalars of every log step from
+   ``tb/metrics.jsonl``, prints the module times, counts K1-K3 (K1 also
+   twice per log step for the timing) and holds every optimizer of
+   ``train/state.py`` on the card to the CPU over 5 steps.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -775,6 +785,18 @@ def only(**nonzero) -> dict:
     return dict(dict.fromkeys(launch_counts(), 0), **nonzero)
 
 
+def train_log(run_dir) -> list:
+    """Each train step's loss dict with its ``step``, in step order, from
+    the ``loss_<key>/train`` scalars of a run's ``tb/metrics.jsonl``."""
+    from pathlib import Path
+
+    from monorec_tpu_torch.train.loggers import read_scalars
+
+    scalars = read_scalars(Path(run_dir) / "tb" / "metrics.jsonl")
+    return [dict({k.removeprefix("loss_"): v for k, v in scalars[s].items()}, step=s)
+            for s in sorted(scalars)]
+
+
 def stage1_trainer(dev, run_dir, precision: str):
     """The CLI's stage-1 trainer on monorec_depth.json under ``precision``,
     with synthetic data at the operating point."""
@@ -813,7 +835,7 @@ def train_main_path(trainer, tag: str, bf: str) -> dict:
                        "grid_warp_jac" + bf: TRAIN_STEPS,
                        "photo_error_fwd": 2 * (TRAIN_STEPS + n_val),
                        "photo_error_bwd": TRAIN_STEPS})
-    lines = [json.loads(s) for s in trainer.log_path.read_text().splitlines()]
+    lines = train_log(trainer.run_dir)
     losses = [r["loss"] for r in lines]
     moved = sum(not torch.equal(p, depth0[k]) for k, p in model.depth_module.named_parameters())
     enc_same = all(torch.equal(p, enc0[k]) for k, p in model._feature_extractor.named_parameters())
@@ -1554,7 +1576,7 @@ def phase_stage2(dev, card: str, run_dir, stage1_checkpoint):
     counts = launch_counts()
     expected = only(plane_sweep_cost_volume=TRAIN_STEPS + n_val,
                     grid_warp=STAGE2_CROPS * TRAIN_STEPS)
-    lines = [json.loads(s) for s in trainer.log_path.read_text().splitlines()]
+    lines = train_log(trainer.run_dir)
     losses = [r["loss"] for r in lines]
     moved = sum(not torch.equal(p, att0[k]) for k, p in model.att_module.named_parameters())
     enc_same = all(torch.equal(p, enc0[k]) for k, p in model._feature_extractor.named_parameters())
@@ -1719,7 +1741,7 @@ def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_st
     for k, v in (("plane_sweep_cost_volume", per_step["plane_sweep_cost_volume"]),
                  ("grid_warp", k2_val), ("photo_error_fwd", per_step["photo_error_fwd"])):
         expected[k] += v * n_val
-    lines = [json.loads(s) for s in trainer.log_path.read_text().splitlines()]
+    lines = train_log(trainer.run_dir)
     moved = {prefix: sum(not torch.equal(p, start[k]) for k, p in model.named_parameters()
                          if k.startswith(prefix)) for prefix in trained + fixed}
     total = {prefix: sum(k.startswith(prefix) for k in start) for prefix in trained + fixed}
@@ -2890,6 +2912,192 @@ def phase_tum(dev, card: str, work, checkpoint) -> dict:
     return dict(record, launches=run["launches"])
 
 
+OPT_RTOL, OPT_ATOL = 1e-6, 1e-7  # tests/test_torch_optimizers.py
+# Each optimizer with its options for phase 24's card-vs-CPU check.
+OPTIMIZER_ARGS = {"Adam": {"amsgrad": True}, "AdamW": {},
+                  "SGD": {"momentum": 0.9, "nesterov": True},
+                  "RMSprop": {"momentum": 0.5, "centered": True}, "Adagrad": {}, "Adadelta": {},
+                  "Adamax": {}, "RAdam": {}, "NAdam": {}}
+
+
+def torchvision_resnet(seed: int, blocks=(2, 2, 2, 2), counters: bool = True) -> dict:
+    """A torchvision-keyed ResNet state_dict (``conv1.weight``,
+    ``layer1.0.bn1.running_mean``, ..., ``fc.*``) with seeded values at
+    ImageNet scale: He-initialised convs, BatchNorm near identity, and with
+    ``counters`` BatchNorm's ``num_batches_tracked``. ``blocks`` per layer:
+    (2, 2, 2, 2) is ResNet-18, (3, 4, 6, 3) ResNet-34."""
+    import numpy as np
+    import torch
+
+    from monorec_tpu_torch.models.resnet import ResNetEncoder
+
+    rng = np.random.default_rng(seed)
+    keys = dict(ResNetEncoder().encoder.state_dict())
+    for layer, n in enumerate(blocks, 1):  # the extra blocks of a deeper net
+        for b in range(2, n):
+            for k, v in list(keys.items()):
+                if k.startswith(f"layer{layer}.1."):
+                    keys[k.replace(f"layer{layer}.1.", f"layer{layer}.{b}.")] = v
+    sd = {}
+    for k, v in keys.items():
+        if k.endswith("num_batches_tracked"):
+            if counters:
+                sd[k] = torch.tensor(int(rng.integers(1, 1000)))
+            continue
+        if v.dim() == 4:
+            value = rng.normal(0, np.sqrt(2.0 / np.prod(v.shape[1:])), v.shape)
+        elif k.endswith("running_var") or k.endswith(".weight"):
+            value = rng.uniform(0.5, 1.5, v.shape)
+        else:  # bias, running_mean
+            value = rng.normal(0, 0.1, v.shape)
+        sd[k] = torch.from_numpy(value.astype(np.float32))
+    sd["fc.weight"] = torch.from_numpy(rng.normal(0, 0.01, (1000, 512)).astype(np.float32))
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def bits_equal(a, b) -> bool:
+    """``a`` and ``b`` hold the same bits (floats compared as integers)."""
+    import torch
+
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def optimizers_card_vs_cpu(dev) -> dict:
+    """Each optimizer of ``train/state.py`` (with weight decay, a cosine
+    schedule and ``OPTIMIZER_ARGS``) on the card and on the CPU, on the same
+    parameters and 5 gradients: the largest |card - cpu| / (atol + rtol
+    |cpu|) over the parameters, by name (at most 1 passes)."""
+    import torch
+
+    from monorec_tpu_torch.train.state import OPTIMIZERS, make_optimizer
+
+    gen = torch.Generator().manual_seed(24)
+    params = [0.3 * torch.randn(64, 33, generator=gen), 0.3 * torch.randn(257, generator=gen)]
+    grads = [[s * torch.randn(p.shape, generator=gen) for p in params]
+             for s in (3.0, 0.1, 0.5, 1.0, 2.0)]
+    sched = {"type": "CosineAnnealingLR", "args": {"T_max": 2}}
+    ratios = {}
+    for kind in OPTIMIZERS:
+        cfg = {"type": kind, "args": {"lr": 1e-2, "weight_decay": 0.01, **OPTIMIZER_ARGS[kind]}}
+        final = []
+        for where in ("cpu", dev):
+            ps = [p.clone().to(where).requires_grad_() for p in params]
+            opt = make_optimizer(ps, cfg, sched, steps_per_epoch=2)
+            for g in grads:
+                for p, x in zip(ps, g):
+                    p.grad = x.to(where)
+                opt.step()
+            final.append([p.detach().cpu() for p in ps])
+        ratios[kind] = max(((a - b).abs() / (OPT_ATOL + OPT_RTOL * b.abs())).max().item()
+                           for a, b in zip(final[1], final[0]))
+    return ratios
+
+
+def phase_stage1_cli(dev, card: str, run_dir) -> dict:
+    """Phase 24: stage 1 through ``cli.train.main`` (the main path) with an
+    ImageNet encoder file, AdamW and CosineAnnealingLR, module timing and
+    TensorBoard. Returns the launch counts of the run."""
+    from pathlib import Path
+
+    import torch
+
+    from monorec_tpu_torch.cli import train as train_cli
+    from monorec_tpu_torch.precision import set_precision
+    from monorec_tpu_torch.train import Trainer
+    from monorec_tpu_torch.train.loggers import read_scalars
+
+    tag = "[24 stage-1 CLI]"
+    work = Path(run_dir) / "stage1_cli"
+    work.mkdir()
+    weights = torchvision_resnet(24)
+    torch.save(weights, work / "resnet18-seeded.pth")
+    encoder = {f"_feature_extractor.encoder.{k}": v.to(dev) for k, v in weights.items()
+               if not k.startswith("fc.")}
+
+    with open("configs/train/monorec/monorec_depth.json") as f:
+        config = json.load(f)
+    data = {"frame_count": F, "target_image_size": [H, W], "batch_size": B}
+    config["data_loader"] = {"type": "SyntheticSweepDataloader",
+                             "args": {**data, "length": TRAIN_STEPS * B, "shuffle": True}}
+    config["val_data_loader"] = {"type": "SyntheticSweepDataloader",
+                                 "args": {**data, "length": B, "shuffle": False, "seed": 1}}
+    config["arch"]["args"]["imagenet_weights"] = str(work / "resnet18-seeded.pth")
+    config["optimizer"] = {"type": "AdamW", "args": {"lr": 1e-4, "weight_decay": 0.01}}
+    config["lr_scheduler"] = {"type": "CosineAnnealingLR", "args": {"T_max": 2, "eta_min": 1e-6}}
+    log_step = 2
+    config["trainer"].update(epochs=1, len_epoch=TRAIN_STEPS, log_step=log_step,
+                             save_dir=str(work), module_timing=True, tensorboard=True)
+    config["precision"] = "exact"
+    path = write_config(work / "monorec_depth_cli.json", config)
+
+    def encoder_is_the_file(model) -> bool:
+        state = model.state_dict()
+        return all(bits_equal(state[k], v) for k, v in encoder.items())
+
+    built = []
+
+    class Recorded(Trainer):
+        """The CLI's trainer, noting itself and whether its freshly built
+        model holds the file's encoder."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append((self, encoder_is_the_file(self.model)))
+
+    set_precision("exact", expect_rebuild=True)
+    reset_counts()
+    train_cli.main(["-c", path, "--device", str(dev)], trainer_cls=Recorded)  # the main path
+    counts = launch_counts()
+    (trainer, after_build), = built
+    after_steps = encoder_is_the_file(trainer.model)
+    n_val = len(trainer.valid_data_loader)
+    log_steps = list(range(0, TRAIN_STEPS, log_step))
+    expected = only(plane_sweep_cost_volume=TRAIN_STEPS + n_val + 2 * len(log_steps),
+                    grid_warp=n_val, grid_warp_jac=TRAIN_STEPS,
+                    photo_error_fwd=2 * (TRAIN_STEPS + n_val), photo_error_bwd=TRAIN_STEPS)
+    scalars = read_scalars(trainer.run_dir / "tb" / "metrics.jsonl")
+    modules = ("cv", "resnet", "depth")  # pretrain mode 1 has no MaskModule
+    times = {m: [scalars.get(s, {}).get(f"{m}_module_time", math.nan) for s in log_steps]
+             for m in modules}
+    timed_steps = sorted(s for s, v in scalars.items()
+                         if any(k.endswith("_module_time") for k in v))
+    losses = [scalars.get(s, {}).get("loss", math.nan) for s in range(TRAIN_STEPS)]
+    info_log = (trainer.run_dir / "info.log").read_text()
+    tb = ("event files written" if trainer.writer.tensorboard
+          else "no tensorboard package: metrics.jsonl only")
+    log(f"{tag} cli.train.main, monorec_depth.json with imagenet_weights (a seeded "
+        f"torchvision-keyed ResNet-18 file), AdamW under CosineAnnealingLR, module_timing, "
+        f"tensorboard ({tb}), "
+        f"B={B}, {H}x{W}, F={F}, D={D}, {TRAIN_STEPS} steps + {n_val} validation batch(es): "
+        f"encoder bit-equal to the file after the build {after_build}, after the steps "
+        f"{after_steps}; loss/train {', '.join(f'{x:.5f}' for x in losses)}; module times at "
+        f"steps {timed_steps}; launches { {k: v for k, v in counts.items() if v} } (expected "
+        f"the same, every other kernel 0: K1 also twice per log step for the timing)")
+    log(f"{tag} module times at B={B}, {H}x{W}, D={D}, F={F} (the trainer's module_timing: host "
+        f"clock fenced by torch.cuda.synchronize, one run after an untimed one, at steps "
+        f"{log_steps}): " + "; ".join(
+            f"{m} {', '.join(f'{t:.3f}' for t in v)} ms, median {statistics.median(v):.3f} ms"
+            for m, v in times.items()) + f" on {card}")
+    if not (after_build and after_steps and counts == expected
+            and all(math.isfinite(x) for x in losses)
+            and timed_steps == log_steps and all(t > 0 for v in times.values() for t in v)
+            and not any("mask_module_time" in scalars[s] for s in log_steps)
+            and "cv=" in info_log and not (trainer.run_dir / "train_log.jsonl").exists()):
+        raise AssertionError(f"{tag} the stage-1 CLI run failed its checks")
+
+    ratios = optimizers_card_vs_cpu(dev)
+    log(f"{tag} optimizers on the card vs the CPU, 5 steps (weight decay 0.01, "
+        f"CosineAnnealingLR), largest |diff| / ({OPT_ATOL:g} + {OPT_RTOL:g} |cpu|): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()))
+    if not all(v <= 1.0 for v in ratios.values()):
+        raise AssertionError(f"{tag} an optimizer on the card disagrees with the CPU")
+    del trainer, built
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3131,6 +3339,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         records["plane_sweep_cost_volume_f4_480x640"] = phase_tum(dev, card, run_dir,
                                                                   stage4_checkpoint)
+        torch.cuda.empty_cache()
+
+        # ---- 24. the stage-1 CLI: ImageNet encoder, AdamW, module timing --
+        cli_counts = phase_stage1_cli(dev, card, run_dir)
+        for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
+                  "photo_error_bwd"):
+            records[k]["stage1_cli_launches"] = cli_counts[k]
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
     for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
@@ -3175,7 +3390,8 @@ def main() -> int:
         "launches": records[k]["launches"],
         "max_abs_err": records[k]["max_abs_err"],
         **{f: records[k][f] for f in ("sfcv_max_abs_err", "stage2_launches", "stage3_launches",
-                                      "stage4_launches", "eval_launches", "pointcloud_launches",
+                                      "stage4_launches", "stage1_cli_launches", "eval_launches",
+                                      "pointcloud_launches",
                                       "max_abs_err_vs_float64",
                                       "plain_max_abs_err_vs_float64", "planar_gather_ms",
                                       "second_launch_m",

@@ -5,31 +5,31 @@
     python -m monorec_tpu_torch.cli.train -c configs/train/monorec/monorec_depth.json \
         --precision serving
 
-Reads the same JSON configs as the JAX package. ``--lr`` and ``--bs``
-override ``optimizer.args.lr`` and ``data_loader.args.batch_size``, and
-``--precision`` the config's top-level ``"precision"`` key (the precision
-policy, "exact" when neither sets it); ``-o``
-passes loss options (``-o stereo`` adds the stereo frame to the depth
-loss's reprojection); ``-r`` resumes from a checkpoint. The model starts
-from seed-0 weights, then loads the checkpoints of earlier stages that
-``arch.args`` names (``checkpoint_location``, ``mask_cp_loc``,
-``depth_cp_loc``); every random draw comes from seed 0.
+Reads the same JSON configs as the JAX package, with its arguments
+(``cli/common.py``): ``--lr`` and ``--bs`` override ``optimizer.args.lr``
+and ``data_loader.args.batch_size``, and ``--precision`` the config's
+top-level ``"precision"`` key (the precision policy, "exact" when neither
+sets it); ``-o`` passes loss options (``-o stereo`` adds the stereo frame
+to the depth loss's reprojection); ``-r`` resumes from a checkpoint and its
+run's ``config.json``. The model starts from seed-0 weights, then loads the
+checkpoints of earlier stages that ``arch.args`` names
+(``checkpoint_location``, ``mask_cp_loc``, ``depth_cp_loc``) and, without a
+``checkpoint_location``, the ImageNet encoder (``imagenet_weights``); every
+random draw comes from seed 0. The run directory gets ``info.log`` and
+``tb/metrics.jsonl`` (``train/loggers.py``).
 """
 
 from __future__ import annotations
 
-import argparse
-import logging
 import sys
 from typing import Dict, Sequence, Type
 
 import torch
 
 from monorec_tpu_torch import config as config_mod
-from monorec_tpu_torch.models import MonoRec
+from monorec_tpu_torch.cli import common
 from monorec_tpu_torch.precision import POLICIES, set_precision
 from monorec_tpu_torch.train import Trainer
-from monorec_tpu_torch.train.checkpoints import load_stage_checkpoints
 
 
 def build_trainer(config: Dict, device, options: Sequence[str] = (), run_dir=None,
@@ -44,9 +44,8 @@ def build_trainer(config: Dict, device, options: Sequence[str] = (), run_dir=Non
     valid_loader = (config_mod.build_data_loader(config["val_data_loader"], device)
                     if "val_data_loader" in config else data_loader.split_validation())
     arch_args = config["arch"].get("args", {})
-    model = MonoRec(config_mod.build_model_config(arch_args), device,
-                    generator=torch.Generator().manual_seed(0))
-    load_stage_checkpoints(model, config_mod.checkpoint_locations(arch_args))
+    model = common.init_model_with_checkpoints(config_mod.build_model_config(arch_args),
+                                               config_mod.checkpoint_locations(arch_args), device)
     optimizer = config_mod.build_optimizer(
         config, [p for p in model.parameters() if p.requires_grad], len(data_loader))
     return trainer_cls(
@@ -59,23 +58,13 @@ def build_trainer(config: Dict, device, options: Sequence[str] = (), run_dir=Non
 
 def main(argv=None, trainer_cls: Type[Trainer] = Trainer,
          description: str = "monorec_tpu_torch stage-1 training") -> int:
-    p = argparse.ArgumentParser(description=description)
-    p.add_argument("-c", "--config", default=None, help="config file path")
-    p.add_argument("-r", "--resume", default=None, help="checkpoint to resume")
-    p.add_argument("-d", "--device", default="cuda", help="torch device, e.g. cuda or cpu")
-    p.add_argument("-o", "--options", default=[], nargs="+", help="loss options, e.g. stereo")
-    p.add_argument("--lr", default=None, type=float)
-    p.add_argument("--bs", default=None, type=int)
+    p = common.train_overrides(common.standard_parser(description))
     p.add_argument("--precision", choices=sorted(POLICIES), default=None,
                    help="precision policy (default: the config's \"precision\", else exact)")
     args = p.parse_args(argv)
 
-    config = config_mod.load_config(args.config, args.resume, {
-        "optimizer.args.lr": args.lr, "data_loader.args.batch_size": args.bs,
-        "precision": args.precision})
-    verbosity = config.get("trainer", {}).get("verbosity", 2)
-    logging.basicConfig(level={0: logging.WARNING, 1: logging.INFO}.get(verbosity, logging.DEBUG),
-                        format="%(asctime)s %(levelname)s %(message)s")
+    config = common.parse_config(args, with_train_overrides=True)
+    common.console_logging(config.get("trainer", {}).get("verbosity", 2))
     trainer = build_trainer(config, args.device, args.options, trainer_cls=trainer_cls)
     if args.resume:
         trainer.resume(args.resume)

@@ -13,15 +13,14 @@ snapshot of the config. The top-level ``"precision"`` key selects the
 precision policy (``precision.set_precision``) when the config is loaded,
 and the model's dtype knobs it does not set come from that policy. Whatever a config asks
 for that is not ported yet raises, naming it; reference knobs with no
-meaning here (``num_workers``) are ignored.
+meaning here (``num_workers``) are ignored. ``cli/common.py`` builds the
+CLIs' parsers and models on top of it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import logging
-import sys
 from datetime import datetime
 from functools import reduce
 from operator import getitem
@@ -30,8 +29,6 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from monorec_tpu_torch.models.monorec import MonoRecConfig
 from monorec_tpu_torch.precision import apply_to_model_kwargs, set_precision
-
-logger = logging.getLogger(__name__)
 
 _MODEL_KEYS = {f.name for f in dataclasses.fields(MonoRecConfig)} - {"plain_cost_volume"}
 # JAX-config knobs the port does not have yet, with the value that is
@@ -97,41 +94,25 @@ def build_model_config(arch_args: Dict) -> MonoRecConfig:
             kwargs[key] = value
         elif key in _NOT_PORTED_MODEL_KEYS and value != _NOT_PORTED_MODEL_KEYS[key]:
             raise NotImplementedError(f"arch.args.{key}={value!r} is not ported yet")
-    if arch_args.get("imagenet_weights"):
-        raise NotImplementedError(
-            "arch.args.imagenet_weights: loading ImageNet encoder weights is not ported yet "
-            "(ROADMAP item 11b)")
-    cfg = MonoRecConfig(**apply_to_model_kwargs(kwargs))
-    warn_if_frozen_random_encoder(cfg, encoder_loaded=bool(arch_args.get("checkpoint_location")))
-    return cfg
+    return MonoRecConfig(**apply_to_model_kwargs(kwargs))
 
 
-def checkpoint_locations(arch_args: Dict) -> Dict[str, List[str]]:
-    """The stage handoff's checkpoint paths of ``arch.args``, each key's as a
-    list (a config may give one path or a list); empty keys left out."""
+def checkpoint_locations(arch_args: Dict) -> Dict[str, Any]:
+    """The weights ``arch.args`` names: the stage handoff's checkpoint paths
+    (``checkpoint_location``, ``mask_cp_loc``, ``depth_cp_loc``), each as a
+    list (a config may give one path or a list), and ``imagenet_weights``,
+    the torchvision ResNet file (``models/pretrained.py``); empty keys left
+    out."""
     from monorec_tpu_torch.train.checkpoints import STAGE_PREFIXES
 
-    out = {}
+    out: Dict[str, Any] = {}
     for key in STAGE_PREFIXES:
         value = arch_args.get(key)
         if value:
             out[key] = [str(v) for v in (value if isinstance(value, (list, tuple)) else [value])]
+    if arch_args.get("imagenet_weights"):
+        out["imagenet_weights"] = str(arch_args["imagenet_weights"])
     return out
-
-
-def warn_if_frozen_random_encoder(cfg: MonoRecConfig, encoder_loaded: bool = False) -> None:
-    """The reference freezes an ImageNet-PRETRAINED encoder; the port loads
-    no ImageNet weights yet, so a frozen encoder is a random one unless a
-    full checkpoint (``checkpoint_location``) brings one. Shout."""
-    if not cfg.freeze_resnet or encoder_loaded:
-        return
-    msg = ("freeze_resnet=True but the ResNet encoder weights are RANDOM: the port loads no "
-           "ImageNet weights yet, and no checkpoint_location brings an encoder. The reference "
-           "freezes an ImageNet-pretrained encoder (monorec_model.py:98-111,616-619); training "
-           "this way will not reproduce it. Set \"freeze_resnet\": false in the model args to "
-           "train the encoder instead.")
-    logger.warning(msg)
-    print(f"\n{'!' * 70}\nWARNING: {msg}\n{'!' * 70}\n", file=sys.stderr)
 
 
 def build_dataset(kind: str, args: Dict):

@@ -81,11 +81,12 @@ def run_policy(policy: str, steps: int, batch_size: int, log_every: int, stage: 
     curve = []
     with tempfile.TemporaryDirectory() as run_dir:
         if stage == 4:  # mono and stereo predictions and the mask are MonoRecTrainer's defaults
-            trainer_cls, loss, config = (MonoRecTrainer, depth_refinement_loss,
-                                         {"trainer": {"mult_mask_on_cv": True}})
+            trainer_cls, loss, config = (MonoRecTrainer, depth_refinement_loss, {"trainer": {
+                "mult_mask_on_cv": True, "tensorboard": False}})
             options = ("stereo", "stereo_repr")
         else:
-            trainer_cls, loss, config, options = Trainer, depth_loss, {}, ("stereo",)
+            trainer_cls, loss, config, options = (Trainer, depth_loss,
+                                                  {"trainer": {"tensorboard": False}}, ("stereo",))
         trainer = trainer_cls(model, loss, [], optimizer, config, dl, run_dir=run_dir,
                               options=options, generator=torch.Generator().manual_seed(1))
         it = iter(dl)

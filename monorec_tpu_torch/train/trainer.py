@@ -9,16 +9,23 @@ runs the stage 2-4 protocol there. Around it the
 reference's epoch mechanics: iteration-based epochs (``len_epoch``),
 NaN-metric batch invalidation, value faders (``alpha``), a monitored metric
 with best tracking and early stopping, and checkpoints every
-``save_period`` epochs. Logs go to Python ``logging`` and, one JSON object
-per log step, to ``<run_dir>/train_log.jsonl``. TensorBoard and the
-per-module timing of the JAX trainer are not ported yet.
+``save_period`` epochs.
+
+Logs as the JAX trainer's (``train/loggers.py``): ``<run_dir>/info.log``,
+and ``<run_dir>/tb/metrics.jsonl`` with ``loss`` and ``loss_<key>`` of every
+train step, the validation's ``loss`` and metrics, ``steps_per_sec``, and,
+with ``trainer.module_timing``, the cost volume's, encoder's, MaskModule's
+and DepthModule's times on log steps (``cv_module_time`` ...,
+milliseconds). TensorBoard event files (``trainer.tensorboard``, on by
+default) and their images of inputs, outputs and targets on log steps go
+beside it where the ``tensorboard`` package is installed.
 """
 
 from __future__ import annotations
 
-import json
 import logging
 import math
+import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -27,6 +34,7 @@ import torch
 
 from monorec_tpu_torch.models.augmentation import jitter_image_keys
 from monorec_tpu_torch.train import checkpoints
+from monorec_tpu_torch.train.loggers import MetricsWriter, make_grid, setup_logging
 from monorec_tpu_torch.utils import ValueFader, operator_on_dict
 
 logger = logging.getLogger(__name__)
@@ -82,6 +90,7 @@ class Trainer:
         self.save_period = tcfg.get("save_period", 1)
         self.len_epoch = tcfg.get("len_epoch") or len(data_loader)
         self.log_step = tcfg.get("log_step", int(math.sqrt(max(1, data_loader.batch_size))))
+        self.val_log_step = tcfg.get("val_step", 1)
         self.roi = tcfg.get("roi")
         self.roi_train = tcfg.get("roi_train", self.roi)
         self.alpha = tcfg.get("alpha", None)
@@ -96,13 +105,15 @@ class Trainer:
         self.color_aug_on_device = tcfg.get("color_aug_on_device", False)
         self.value_faders = {k: ValueFader(v[0], v[1])
                              for k, v in tcfg.get("value_faders", {}).items()}
-        for key in ("tensorboard", "module_timing"):
-            if tcfg.get(key):
-                logger.warning("trainer.%s is not ported yet; ignored", key)
+        self.invert_output_images = tcfg.get("invert_output_images", True)
+        # Times the submodules on log steps (``_module_times``).
+        self.module_timing = tcfg.get("module_timing", False)
 
         self.run_dir = Path(run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
-        self.log_path = self.run_dir / "train_log.jsonl"
+        setup_logging(self.run_dir, verbosity=tcfg.get("verbosity", 2))
+        self.writer = MetricsWriter(self.run_dir / "tb",
+                                    enable_tensorboard=tcfg.get("tensorboard", True))
 
         if self.monitor == "off":
             self.mnt_mode, self.mnt_best = "off", 0.0
@@ -147,9 +158,15 @@ class Trainer:
         data = {**batch, **out}
         return self.loss_fn(data, alpha, self.roi_train, self.options), data
 
-    def train_step(self, batch: Dict, alpha: float) -> Tuple[Dict[str, float], np.ndarray]:
-        """One optimizer step on ``batch``; returns the loss dict as floats
-        and the metrics."""
+    @staticmethod
+    def _viz(data: Dict) -> Dict:
+        """What the image log shows of a step's outputs."""
+        mask = data.get("mask")
+        return {"result": data["result"].detach(), "mask": None if mask is None else mask.detach()}
+
+    def train_step(self, batch: Dict, alpha: float) -> Tuple[Dict[str, float], np.ndarray, Dict]:
+        """One optimizer step on ``batch``; returns the loss dict as floats,
+        the metrics and the outputs for the image log."""
         self.model.train()
         loss_dict, data = self._feed(batch, True, alpha)
         self.optimizer.zero_grad(set_to_none=True)
@@ -160,13 +177,68 @@ class Trainer:
         floats = self._to_floats(loss_dict)
         if skipped is not None:
             floats["skipped_nonfinite"] = skipped
-        return floats, self._metrics(data)
+        return floats, self._metrics(data), self._viz(data)
 
     @torch.no_grad()
-    def valid_step(self, batch: Dict, alpha: float) -> Tuple[Dict[str, float], np.ndarray]:
+    def valid_step(self, batch: Dict, alpha: float) -> Tuple[Dict[str, float], np.ndarray, Dict]:
         self.model.eval()
         loss_dict, data = self._feed(batch, False, alpha)
-        return self._to_floats(loss_dict), self._metrics(data)
+        return self._to_floats(loss_dict), self._metrics(data), self._viz(data)
+
+    @torch.no_grad()
+    def _module_times(self, batch: Dict) -> Dict[str, float]:
+        """Milliseconds of the cost volume, the ResNet encoder, the MaskModule
+        and the DepthModule (those the model has) on ``batch`` with the
+        current weights, each run once untimed first and then timed alone,
+        fenced by ``torch.cuda.synchronize`` on the card
+        (``monorec_tpu/train/trainer.py::_module_times``)."""
+        model = self.model
+        cfg = model.config
+        cuda = next(model.parameters()).is_cuda
+
+        def timed(fn, *args):
+            fn(*args)
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if cuda:
+                torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1000.0
+
+        times = {}
+        keyframe = batch["keyframe"]
+        (cv, sfcv), times["cv_module_time"] = timed(model.cost_volume, batch)
+        feats, times["resnet_module_time"] = timed(model.features, keyframe)
+        if cfg.has_mask_module:
+            _, times["mask_module_time"] = timed(model.mask, sfcv, feats)
+        if cfg.has_depth_module:
+            _, times["depth_module_time"] = timed(model.depth, cv, keyframe, feats)
+        return times
+
+    def _log_images(self, batch: Dict, viz: Dict) -> None:
+        """Inputs, outputs (inverse depth shown as depth, beside the mask) and
+        targets of up to 8 samples, as TensorBoard images; skipped without
+        TensorBoard, the only place they go."""
+        if not self.writer.tensorboard:
+            return
+
+        def hwc(x):
+            return x.detach().float().permute(0, 2, 3, 1).cpu().numpy()
+
+        n = min(batch["keyframe"].shape[0], 8)
+        result = hwc(viz["result"][:n])
+        if self.invert_output_images:
+            result = np.clip(1.0 / np.where(result == 0, np.inf, result), 0, 100)
+            result = result / max(result.max() * 2 / 3, 1e-8)
+        if viz.get("mask") is not None:
+            result = np.concatenate([result, hwc(viz["mask"][:n])], axis=1)
+        self.writer.add_image("input", make_grid(hwc(batch["keyframe"][:n]) + 0.5, 2, True))
+        self.writer.add_image("output", make_grid(result, 2, True))
+        if "target" in batch:
+            gt = hwc(batch["target"][:n])
+            gt = np.clip(np.where(gt == 0, 0, 1 / np.where(gt == 0, 1, gt)), 0, 100)
+            self.writer.add_image("ground_truth", make_grid(gt, 2, True))
 
     # ----- epochs ------------------------------------------------------------
 
@@ -177,10 +249,6 @@ class Trainer:
 
     def _metric_names(self) -> List[str]:
         return [m.__name__ for m in self.metric_fns]
-
-    def _log_line(self, record: Dict) -> None:
-        with open(self.log_path, "a") as f:
-            f.write(json.dumps(record) + "\n")
 
     def _train_epoch(self, epoch: int) -> Dict:
         alpha = self._alpha(epoch)
@@ -195,7 +263,12 @@ class Trainer:
             except StopIteration:
                 it = iter(self.data_loader)
                 batch = next(it)
-            loss_dict, metrics = self.train_step(batch, alpha)
+            loss_dict, metrics, viz = self.train_step(batch, alpha)
+            step = (epoch - 1) * self.len_epoch + batch_idx
+            self.writer.set_step(step)
+            self.writer.add_scalar("loss", loss_dict["loss"])
+            for k, v in loss_dict.items():
+                self.writer.add_scalar(f"loss_{k}", v)
             if np.any(np.isnan(metrics)):
                 metrics = np.zeros_like(metrics)
             else:
@@ -203,12 +276,17 @@ class Trainer:
             total_metrics += metrics
             total_loss += loss_dict["loss"]
             total_loss_dict = operator_on_dict(total_loss_dict, loss_dict, lambda a, b: a + b)
-            step = (epoch - 1) * self.len_epoch + batch_idx
             if step % self.log_step == 0:
-                logger.debug("Train Epoch %d [%d/%d] Loss: %.6f", epoch, batch_idx,
-                             self.len_epoch, loss_dict["loss"])
-                self._log_line({"epoch": epoch, "step": step, **loss_dict,
-                                **dict(zip(self._metric_names(), metrics.tolist()))})
+                extra = ""
+                if self.module_timing:
+                    times = self._module_times(batch)
+                    for k, v in times.items():
+                        self.writer.add_scalar(k, v)
+                    extra = " " + " ".join(f"{k.removesuffix('_module_time')}={v:.1f}ms"
+                                           for k, v in times.items())
+                logger.debug("Train Epoch %d [%d/%d] Loss: %.6f%s", epoch, batch_idx,
+                             self.len_epoch, loss_dict["loss"], extra)
+                self._log_images(batch, viz)
 
         log = {"loss": total_loss / self.len_epoch,
                "metrics": (total_metrics / max(total_valid, 1)).tolist()}
@@ -222,8 +300,8 @@ class Trainer:
         alpha = self._alpha(epoch)
         total_loss, n, total_valid = 0.0, 0, 0
         total_metrics = np.zeros(len(self.metric_fns))
-        for batch in self.valid_data_loader:
-            loss_dict, metrics = self.valid_step(batch, alpha)
+        for batch_idx, batch in enumerate(self.valid_data_loader):
+            loss_dict, metrics, viz = self.valid_step(batch, alpha)
             if np.any(np.isnan(metrics)):
                 metrics = np.zeros_like(metrics)
             else:
@@ -231,7 +309,14 @@ class Trainer:
             total_metrics += metrics
             total_loss += loss_dict["loss"]
             n += 1
-        return {"val_loss": total_loss / max(n, 1),
+            self.writer.set_step((epoch - 1) * len(self.valid_data_loader) + batch_idx, "valid")
+            if batch_idx % self.val_log_step == 0:
+                self._log_images(batch, viz)
+        n = max(n, 1)
+        self.writer.add_scalar("loss", total_loss / n)
+        for name, value in zip(self._metric_names(), total_metrics):
+            self.writer.add_scalar(name, value / n)
+        return {"val_loss": total_loss / n,
                 "val_metrics": (total_metrics / max(total_valid, 1)).tolist()}
 
     def train(self) -> Dict:
@@ -268,6 +353,7 @@ class Trainer:
                         logger.info("No improvement for %s epochs; stopping.", self.early_stop)
                         break
 
+            self.writer.flush()
             if epoch % self.save_period == 0:
                 name = f"checkpoint-epoch{epoch}.pth" if self.save_multiple else "checkpoint.pth"
                 checkpoints.save_checkpoint(

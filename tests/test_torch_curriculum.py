@@ -23,6 +23,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import chip_smoke
 from monorec_tpu_torch.cli import train as train_cli
 from monorec_tpu_torch.cli import train_monorec
 from monorec_tpu_torch.train.checkpoints import load_checkpoint
@@ -76,8 +77,7 @@ def curriculum(tmp_path_factory):
             run = tmp / "saved" / "models" / name / config["trainer"]["timestamp_replacement"]
             out[name] = {"config": config, "before": before,
                          "after": load_checkpoint(run / "checkpoint.pth")["state_dict"],
-                         "log": [json.loads(s) for s in
-                                 (run / "train_log.jsonl").read_text().splitlines()]}
+                         "log": chip_smoke.train_log(run)}
         return out
     finally:
         os.chdir(cwd)

@@ -15,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from monorec_tpu_torch import config as config_mod
 from monorec_tpu_torch.cli import train as train_cli
 from monorec_tpu_torch.cli import train_monorec
-from monorec_tpu_torch.models import MonoRec
+from monorec_tpu_torch.models import MonoRec, MonoRecConfig
 from monorec_tpu_torch.train import MonoRecTrainer
 from monorec_tpu_torch.train.checkpoints import load_checkpoint
 
@@ -60,7 +61,7 @@ def stages(tmp_path_factory):
 
 def test_stage2_run_trains_the_mask_module_only(stages):
     run = stages["mask"]
-    lines = [json.loads(s) for s in (run / "train_log.jsonl").read_text().splitlines()]
+    lines = chip_smoke.train_log(run)
     assert [r["step"] for r in lines] == [0, 1]
     assert all(np.isfinite(r["loss"]) and r["cv_uncovered"] == 0 for r in lines)
     assert {"acc", "prec", "rec", "iou"} <= set(lines[0])
@@ -129,8 +130,11 @@ def test_checkpoint_location_loads_every_tensor_both_hold(stages):
 
 
 def test_checkpoint_keys_are_read_and_imagenet_weights_still_raise():
+    """``imagenet_weights`` is read beside the stage checkpoints now, and
+    the model config no longer refuses it (``models/pretrained.py``)."""
     assert config_mod.checkpoint_locations(
-        {"checkpoint_location": "a.pth", "mask_cp_loc": [], "depth_cp_loc": ["b", "c"]}
-    ) == {"checkpoint_location": ["a.pth"], "depth_cp_loc": ["b", "c"]}
-    with pytest.raises(NotImplementedError, match="11b"):
-        config_mod.build_model_config({"imagenet_weights": "resnet18.pth"})
+        {"checkpoint_location": "a.pth", "mask_cp_loc": [], "depth_cp_loc": ["b", "c"],
+         "imagenet_weights": "resnet18.pth"}
+    ) == {"checkpoint_location": ["a.pth"], "depth_cp_loc": ["b", "c"],
+          "imagenet_weights": "resnet18.pth"}
+    assert config_mod.build_model_config({"imagenet_weights": "resnet18.pth"}) == MonoRecConfig()

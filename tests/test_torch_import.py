@@ -37,11 +37,11 @@ def test_port_imports_every_module_without_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    # geometry, precision, convert, config, ops (8 + cuda/build), models (6), data (13: png,
-    # resize, color_jitter, kitti, cache, loader, synthetic, pose_interp, bayer, robotcar,
-    # jpeg, tum_mono_vo, tum_rgbd), utils, losses (2), metrics, eval, export (2), train (3),
-    # cli (5), tools (2), with their packages
-    assert int(proc.stdout.split()[-1]) >= 63
+    # geometry, precision, convert, config, ops (8 + cuda/build), models (7: + pretrained),
+    # data (13: png, resize, color_jitter, kitti, cache, loader, synthetic, pose_interp, bayer,
+    # robotcar, jpeg, tum_mono_vo, tum_rgbd), utils, losses (2), metrics, eval, export (2),
+    # train (4: + loggers), cli (6: + common), tools (2), with their packages
+    assert int(proc.stdout.split()[-1]) >= 66
 
 
 _READ_ONE_SAMPLE = """

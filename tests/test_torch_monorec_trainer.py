@@ -210,7 +210,7 @@ def _trainer(tmp_path, mode: int, flags: dict, mvobj: int, **arch):
                  "args": {"pretrain_mode": mode, "cv_depth_steps": D, **arch}},
         "data_loader": {"type": "SyntheticSweepDataloader", "args": data},
         "optimizer": {"type": "Adam", "args": {"lr": 1e-4, "amsgrad": True}},
-        "trainer": {"epochs": 1, "save_dir": str(tmp_path), **flags},
+        "trainer": {"epochs": 1, "save_dir": str(tmp_path), "tensorboard": False, **flags},
     }
     trainer = train_monorec.build_trainer(config, "cpu", run_dir=tmp_path / "run")
     v = _flax_variables(mode)
@@ -375,7 +375,7 @@ def test_color_aug_on_device_jitters_training_batches_only(monkeypatch, tmp_path
                                                   "cv_depth_steps": D, "augmentation": "depth"}},
         "data_loader": {"type": "SyntheticSweepDataloader", "args": data},
         "optimizer": {"type": "Adam", "args": {"lr": 1e-4}},
-        "trainer": {"epochs": 1, "color_aug_on_device": True,
+        "trainer": {"epochs": 1, "color_aug_on_device": True, "tensorboard": False,
                     **({} if stage1 else STAGES["stage3"][0])},
     }
     build = train_cli.build_trainer if stage1 else train_monorec.build_trainer

@@ -24,6 +24,7 @@ import optax
 import pytest
 import torch
 
+import chip_smoke
 import monorec_tpu.models.monorec as j_monorec_mod
 import monorec_tpu_torch.models.monorec as t_monorec_mod
 from monorec_tpu.losses.monorec_losses import depth_loss as j_depth_loss
@@ -40,6 +41,7 @@ from monorec_tpu_torch.losses import depth_loss
 from monorec_tpu_torch.models import MonoRec, MonoRecConfig
 from monorec_tpu_torch.train import apply_gradients_guarded, make_optimizer, make_schedule
 from monorec_tpu_torch.train.checkpoints import load_checkpoint
+from monorec_tpu_torch.train.loggers import read_scalars
 
 B, H, W, D, F = 2, 32, 64, 4, 2
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
@@ -107,8 +109,14 @@ def test_step_lr_matches_make_schedule_at_epoch_boundaries():
     ({"type": "Adam", "args": {"lr": 0.1}}, {"type": "CosineAnnealingLR", "args": {}}),
 ])
 def test_other_optimizers_and_schedules_are_not_ported_yet(opt_cfg, sched_cfg):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_optimizer([torch.zeros(1, requires_grad=True)], opt_cfg, sched_cfg)
+    """Every name the JAX factory maps is ported now (held to optax in
+    ``tests/test_torch_optimizers.py``); what it refuses, the port refuses."""
+    p = torch.zeros(1, requires_grad=True)
+    make_optimizer([p], opt_cfg, sched_cfg)
+    with pytest.raises(ValueError, match="unsupported optimizer 'LBFGS'"):
+        make_optimizer([p], dict(opt_cfg, type="LBFGS"), sched_cfg)
+    with pytest.raises(ValueError, match="unsupported lr scheduler 'CyclicLR'"):
+        make_optimizer([p], opt_cfg, {"type": "CyclicLR", "args": {}})
 
 
 def test_guarded_update_skips_non_finite_gradients():
@@ -262,10 +270,15 @@ def test_trainer_runs_two_steps_and_resumes_from_its_checkpoint(tmp_path):
     before = {k: p.detach().clone() for k, p in trainer.model.named_parameters()}
     log = trainer.train()
     assert log["epoch"] == 1 and np.isfinite(log["loss"]) and "val_loss" in log
-    lines = [json.loads(s) for s in trainer.log_path.read_text().splitlines()]
+    lines = chip_smoke.train_log(trainer.run_dir)
     assert [r["step"] for r in lines] == [0, 1]
     assert all(np.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0.0 for r in lines)
-    assert {"abs_rel_sparse_metric", "a1_sparse_metric", "sdl_0", "md2l_3"} <= set(lines[0])
+    # The metrics are the validation's scalars, as in the JAX trainer.
+    valid = read_scalars(trainer.run_dir / "tb" / "metrics.jsonl", "valid")
+    assert {"abs_rel_sparse_metric", "a1_sparse_metric"} <= set(valid[max(valid)])
+    assert {"sdl_0", "md2l_3"} <= set(lines[0])
+    assert (trainer.run_dir / "info.log").exists()
+    assert not (trainer.run_dir / "train_log.jsonl").exists()
     moved = {k for k, p in trainer.model.named_parameters() if not torch.equal(p, before[k])}
     assert moved and all(k.startswith("depth_module.") for k in moved)
     assert any(k.startswith("_feature_extractor.") for k in before)
@@ -304,8 +317,7 @@ def test_config_reader_names_what_is_not_ported():
         config_mod.build_data_loader({"type": "NuScenesDataloader", "args": {}}, "cpu")
     with pytest.raises(NotImplementedError, match="simple_mask"):
         config_mod.build_model_config({"simple_mask": True})
-    with pytest.raises(NotImplementedError, match="imagenet_weights"):
-        config_mod.build_model_config({"imagenet_weights": "x.pth"})
+    assert config_mod.build_model_config({"imagenet_weights": "x.pth"}) == MonoRecConfig()
     with open(CONFIGS / "train" / "monorec" / "monorec_depth.json") as f:
         arch = json.load(f)["arch"]["args"]
     cfg = config_mod.build_model_config(arch)
