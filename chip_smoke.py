@@ -162,7 +162,20 @@ checkout, then:
    and the ``*_module_time`` scalars of every log step from
    ``tb/metrics.jsonl``, prints the module times, counts K1-K3 (K1 also
    twice per log step for the timing) and holds every optimizer of
-   ``train/state.py`` on the card to the CPU over 5 steps.
+   ``train/state.py`` on the card to the CPU over 5 steps;
+25. the model variants (``VARIANTS``), each built from its ``arch.args``
+   through ``config.build_model_config``: ResNet-34, -50, -101 and -152,
+   ResNet-50 with ``simple_mask``, ``simple_mask`` in pretrain mode 2,
+   ``no_cv`` with ``use_stereo``, and the MaskModule's inputs off; each
+   serves 5 requests of 8 keyframes through the inference entry point
+   (median CUDA-event forward time; K1 once per forward, never under
+   ``no_cv``) and runs one keyframe on the card against the CPU
+   (``cv_mask`` atol 2e-3, ``result`` rtol 1e-3 / atol 2e-4); then
+   ``cli.train.main`` trains a ResNet-50 simple-mask model in pretrain
+   mode 0 for 4 steps at B=4 with ``module_timing`` (finite losses, K1-K3
+   launched, module times logged for cv, resnet and depth only, as the JAX
+   trainer does for a simple mask), and times and splits its step and
+   reads its peak memory.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -2920,24 +2933,18 @@ OPTIMIZER_ARGS = {"Adam": {"amsgrad": True}, "AdamW": {},
                   "Adamax": {}, "RAdam": {}, "NAdam": {}}
 
 
-def torchvision_resnet(seed: int, blocks=(2, 2, 2, 2), counters: bool = True) -> dict:
-    """A torchvision-keyed ResNet state_dict (``conv1.weight``,
+def torchvision_resnet(seed: int, layers: int = 18, counters: bool = True) -> dict:
+    """A torchvision-keyed ResNet-``layers`` state_dict (``conv1.weight``,
     ``layer1.0.bn1.running_mean``, ..., ``fc.*``) with seeded values at
     ImageNet scale: He-initialised convs, BatchNorm near identity, and with
-    ``counters`` BatchNorm's ``num_batches_tracked``. ``blocks`` per layer:
-    (2, 2, 2, 2) is ResNet-18, (3, 4, 6, 3) ResNet-34."""
+    ``counters`` BatchNorm's ``num_batches_tracked``."""
     import numpy as np
     import torch
 
-    from monorec_tpu_torch.models.resnet import ResNetEncoder
+    from monorec_tpu_torch.models.resnet import ResNetEncoder, encoder_channels
 
     rng = np.random.default_rng(seed)
-    keys = dict(ResNetEncoder().encoder.state_dict())
-    for layer, n in enumerate(blocks, 1):  # the extra blocks of a deeper net
-        for b in range(2, n):
-            for k, v in list(keys.items()):
-                if k.startswith(f"layer{layer}.1."):
-                    keys[k.replace(f"layer{layer}.1.", f"layer{layer}.{b}.")] = v
+    keys = ResNetEncoder(layers).encoder.state_dict()
     sd = {}
     for k, v in keys.items():
         if k.endswith("num_batches_tracked"):
@@ -2951,7 +2958,8 @@ def torchvision_resnet(seed: int, blocks=(2, 2, 2, 2), counters: bool = True) ->
         else:  # bias, running_mean
             value = rng.normal(0, 0.1, v.shape)
         sd[k] = torch.from_numpy(value.astype(np.float32))
-    sd["fc.weight"] = torch.from_numpy(rng.normal(0, 0.01, (1000, 512)).astype(np.float32))
+    fc_in = encoder_channels(layers)[-1]
+    sd["fc.weight"] = torch.from_numpy(rng.normal(0, 0.01, (1000, fc_in)).astype(np.float32))
     sd["fc.bias"] = torch.zeros(1000)
     return sd
 
@@ -2996,6 +3004,24 @@ def optimizers_card_vs_cpu(dev) -> dict:
     return ratios
 
 
+def stage1_cli_config(work, batch_size: int, steps: int, log_step: int, **trainer) -> dict:
+    """``monorec_depth.json`` with synthetic loaders at HxW, F frames
+    (``steps`` batches to train on, one to validate), ``steps`` steps of one
+    epoch, logs under ``work``, the exact policy, and ``trainer`` set."""
+    with open("configs/train/monorec/monorec_depth.json") as f:
+        config = json.load(f)
+    data = {"frame_count": F, "target_image_size": [H, W], "batch_size": batch_size}
+    config["data_loader"] = {"type": "SyntheticSweepDataloader",
+                             "args": {**data, "length": steps * batch_size, "shuffle": True}}
+    config["val_data_loader"] = {"type": "SyntheticSweepDataloader",
+                                 "args": {**data, "length": batch_size, "shuffle": False,
+                                          "seed": 1}}
+    config["trainer"].update(epochs=1, len_epoch=steps, log_step=log_step, save_dir=str(work),
+                             **trainer)
+    config["precision"] = "exact"
+    return config
+
+
 def phase_stage1_cli(dev, card: str, run_dir) -> dict:
     """Phase 24: stage 1 through ``cli.train.main`` (the main path) with an
     ImageNet encoder file, AdamW and CosineAnnealingLR, module timing and
@@ -3017,20 +3043,12 @@ def phase_stage1_cli(dev, card: str, run_dir) -> dict:
     encoder = {f"_feature_extractor.encoder.{k}": v.to(dev) for k, v in weights.items()
                if not k.startswith("fc.")}
 
-    with open("configs/train/monorec/monorec_depth.json") as f:
-        config = json.load(f)
-    data = {"frame_count": F, "target_image_size": [H, W], "batch_size": B}
-    config["data_loader"] = {"type": "SyntheticSweepDataloader",
-                             "args": {**data, "length": TRAIN_STEPS * B, "shuffle": True}}
-    config["val_data_loader"] = {"type": "SyntheticSweepDataloader",
-                                 "args": {**data, "length": B, "shuffle": False, "seed": 1}}
+    log_step = 2
+    config = stage1_cli_config(work, B, TRAIN_STEPS, log_step, module_timing=True,
+                               tensorboard=True)
     config["arch"]["args"]["imagenet_weights"] = str(work / "resnet18-seeded.pth")
     config["optimizer"] = {"type": "AdamW", "args": {"lr": 1e-4, "weight_decay": 0.01}}
     config["lr_scheduler"] = {"type": "CosineAnnealingLR", "args": {"T_max": 2, "eta_min": 1e-6}}
-    log_step = 2
-    config["trainer"].update(epochs=1, len_epoch=TRAIN_STEPS, log_step=log_step,
-                             save_dir=str(work), module_timing=True, tensorboard=True)
-    config["precision"] = "exact"
     path = write_config(work / "monorec_depth_cli.json", config)
 
     def encoder_is_the_file(model) -> bool:
@@ -3096,6 +3114,202 @@ def phase_stage1_cli(dev, card: str, run_dir) -> dict:
         raise AssertionError(f"{tag} an optimizer on the card disagrees with the CPU")
     del trainer, built
     return counts
+
+
+# Phase 25: the model variants, each built from ``arch.args`` through
+# ``config.build_model_config`` as the CLIs build it.
+VARIANTS = (
+    ("resnet18", {}),  # the flagship, the split's baseline
+    ("resnet34", {"resnet_layers": 34}),
+    ("resnet50", {"resnet_layers": 50}),
+    ("resnet101", {"resnet_layers": 101}),
+    ("resnet152", {"resnet_layers": 152}),
+    ("resnet50 simple_mask", {"resnet_layers": 50, "simple_mask": True}),
+    ("simple_mask mode 2", {"simple_mask": True, "pretrain_mode": 2}),
+    ("no_cv use_stereo", {"no_cv": True, "use_stereo": True}),
+    ("mask_use_cv/feats off", {"mask_use_cv": False, "mask_use_feats": False}),
+)
+VARIANT_TIMINGS = 5
+SPLIT_REPS = 3
+VARIANT_STEPS, VARIANT_B = 4, 4
+
+
+def variant_split(model, batch) -> tuple:
+    """Mean CUDA-event ms of each module the forward runs on ``batch``,
+    each alone (``cuda_ms``: one untimed call, then ``SPLIT_REPS``):
+    the cost volume (0 under ``no_cv``, whose volumes are zeros), the
+    encoder, the mask module and one DepthModule pass, with the number of
+    DepthModule passes the forward makes."""
+    import torch
+
+    cfg = model.config
+    keyframe = batch["keyframe"]
+    b, _, h, w = keyframe.shape
+    ms = {}
+    with torch.inference_mode():
+        if cfg.no_cv:
+            n_frames = batch["frames"].shape[1] + (1 if cfg.use_stereo else 0)
+            sfcv = keyframe.new_zeros(b, n_frames, cfg.cv_depth_steps, h, w)
+            cv = keyframe.new_zeros(b, cfg.cv_depth_steps, h, w)
+            ms["cv"] = 0.0
+        else:
+            cv, sfcv = model.cost_volume(batch)
+            ms["cv"] = cuda_ms(lambda: model.cost_volume(batch), SPLIT_REPS)
+        feats = model.features(keyframe)
+        ms["resnet"] = cuda_ms(lambda: model.features(keyframe), SPLIT_REPS)
+        pre = model.depth(cv, keyframe, feats)[0] if cfg.has_depth_module else None
+        if cfg.simple_mask:
+            ms["mask"] = cuda_ms(lambda: model.mask(sfcv, feats, False, None, keyframe, pre),
+                                 SPLIT_REPS)
+        else:
+            ms["mask"] = cuda_ms(lambda: model.mask(sfcv, feats), SPLIT_REPS)
+        ms["depth"] = (cuda_ms(lambda: model.depth(cv, keyframe, feats), SPLIT_REPS)
+                       if cfg.has_depth_module else 0.0)
+    passes = int(cfg.simple_mask) + int(cfg.pretrain_mode != 2)
+    return ms, passes
+
+
+def variant_forwards(dev, card: str) -> int:
+    """Phase 25 A: each variant's forward through the inference entry point
+    at B=8 (the main path: K1's launches per forward), timed and split into
+    its modules, and at B=1 on the card against the CPU. Returns K1's
+    launches over all variants."""
+    import torch
+
+    from monorec_tpu_torch.cli.inference_example import build_model, make_requests, serve
+    from monorec_tpu_torch.config import build_model_config
+    from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
+
+    tag = "[25 variants]"
+    requests = make_requests(VARIANT_TIMINGS, B, H, W, F, dev, seed=250)
+    k1_total = 0
+    for label, args in VARIANTS:
+        cfg = build_model_config(dict(args, cv_depth_steps=D))
+        model = build_model(cfg, dev, seed=0)
+        serve(model, requests[:1])
+        reset_counts()
+        _, times = serve(model, requests)  # the main path
+        counts = launch_counts()
+        per_forward = 0 if cfg.no_cv else 1
+        k1_total += counts["plane_sweep_cost_volume"]
+        split, passes = variant_split(model, requests[0])
+        unets = split["mask"] + passes * split["depth"]
+        modules = split["cv"] + split["resnet"] + unets
+        nb = make_batch(1, H, W, F, stereo=cfg.use_stereo, mask=False, seed=7, tz=0.5)
+        with torch.inference_mode():
+            out_g = model(batch_to_torch(nb, dev))
+            out_c = build_model(cfg, "cpu", seed=0)(batch_to_torch(nb, "cpu"))
+        diffs = {}
+        for key, atol, rtol in (("cv_mask", MASK_ATOL, 0.0),
+                                ("result", RESULT_ATOL, RESULT_RTOL)):
+            g, c = out_g[key].cpu(), out_c[key]
+            diffs[key] = (g - c).abs().max().item()
+            if not (g.shape == c.shape == (1, 1, H, W) and torch.isfinite(g).all()
+                    and within(g, c, rtol, atol).all()):
+                raise AssertionError(f"{tag} {label}: card vs CPU {key} off by {diffs[key]:.3e}")
+        log(f"{tag} {label} ({args}): median forward of {VARIANT_TIMINGS} (CUDA events) at "
+            f"B={B}, {H}x{W}, D={D}, F={F}, exact: {statistics.median(times):.3f} ms "
+            f"({', '.join(f'{t:.3f}' for t in times)}) on {card}; K1 launches per forward "
+            f"{counts['plane_sweep_cost_volume'] / VARIANT_TIMINGS:g}; B=1 card vs CPU "
+            f"max|diff| cv_mask {diffs['cv_mask']:.3e}, result {diffs['result']:.3e}")
+        log(f"{tag} {label} split at B={B} (mean of {SPLIT_REPS} CUDA-event calls each, alone): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" ms, depth passes {passes}; modules together {modules:.3f} ms of the "
+            f"{statistics.median(times):.3f} ms forward; U-Nets (mask + {passes} x depth) "
+            f"{unets:.3f} ms = {100 * unets / modules:.1f}% of the modules, encoder "
+            f"{100 * split['resnet'] / modules:.1f}%, cost volume "
+            f"{100 * split['cv'] / modules:.1f}% on {card}")
+        if not all(math.isfinite(v) and v >= 0 for v in split.values()):
+            raise AssertionError(f"{tag} {label}: the module split failed: {split}")
+        if counts != only(plane_sweep_cost_volume=per_forward * VARIANT_TIMINGS):
+            raise AssertionError(f"{tag} {label}: the forwards launched {counts}, expected "
+                                 f"plane_sweep_cost_volume {per_forward} per forward")
+        del model, out_g, out_c
+        torch.cuda.empty_cache()
+    return k1_total
+
+
+def variant_training(dev, card: str, run_dir) -> dict:
+    """Phase 25 B: ``cli.train.main`` on a ResNet-50 simple-mask model in
+    pretrain mode 0 with ``module_timing``; returns the launch counts of
+    the run."""
+    from pathlib import Path
+
+    import torch
+
+    from monorec_tpu_torch.cli import train as train_cli
+    from monorec_tpu_torch.precision import set_precision
+    from monorec_tpu_torch.train import Trainer
+    from monorec_tpu_torch.train.loggers import read_scalars
+
+    tag = "[25 variants]"
+    work = Path(run_dir) / "variants"
+    work.mkdir()
+    log_step = 2
+    config = stage1_cli_config(work, VARIANT_B, VARIANT_STEPS, log_step, module_timing=True,
+                               tensorboard=False)
+    config["arch"]["args"].update(resnet_layers=50, simple_mask=True, pretrain_mode=0)
+    path = write_config(work / "monorec_r50_simple_mask.json", config)
+
+    built = []
+
+    class Recorded(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    set_precision("exact", expect_rebuild=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    train_cli.main(["-c", path, "--device", str(dev)], trainer_cls=Recorded)  # the main path
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    trainer, = built
+    scalars = read_scalars(trainer.run_dir / "tb" / "metrics.jsonl")
+    log_steps = list(range(0, VARIANT_STEPS, log_step))
+    losses = [scalars.get(s, {}).get("loss", math.nan) for s in range(VARIANT_STEPS)]
+    timed = {s: sorted(k for k in scalars.get(s, {}) if k.endswith("_module_time"))
+             for s in log_steps}
+    want_keys = ["cv_module_time", "depth_module_time", "resnet_module_time"]
+
+    batches = [b for _, b in zip(range(2), trainer.data_loader)]
+    alpha = trainer._alpha(1)
+    times = [t for t, _ in step_times(trainer, batches, alpha, VARIANT_STEPS, "exact")]
+    split = step_split(trainer, batches, alpha, VARIANT_STEPS)
+    log(f"{tag} cli.train.main, ResNet-50 simple_mask pretrain mode 0 (monorec_depth.json's "
+        f"loss), B={VARIANT_B}, {H}x{W}, D={D}, F={F}, {VARIANT_STEPS} steps: loss/train "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; module-time keys at steps {log_steps}: "
+        f"{timed}; launches { {k: v for k, v in counts.items() if v} }; peak memory "
+        f"{peak:.2f} GiB")
+    log(f"{tag} step (CUDA events, {VARIANT_STEPS} steps after the run): median "
+        f"{statistics.median(times):.3f} ms ({', '.join(f'{t:.2f}' for t in times)}) = "
+        f"{VARIANT_B * 1e3 / statistics.median(times):.2f} keyframes/s; split, medians of "
+        f"{VARIANT_STEPS}: " + ", ".join(f"{n} {t:.3f}" for n, t in zip(STEP_NAMES, split))
+        + f" ms; module times " + "; ".join(
+            f"{k.removesuffix('_module_time')} "
+            + ", ".join(f"{scalars[s][k]:.3f}" for s in log_steps) + " ms"
+            for k in want_keys) + f" on {card}")
+    if not (all(math.isfinite(x) for x in losses)
+            and all(keys == want_keys for keys in timed.values())
+            and all(counts[k] > 0 for k in ("plane_sweep_cost_volume", "grid_warp_jac",
+                                            "photo_error_fwd", "photo_error_bwd"))):
+        raise AssertionError(f"{tag} the ResNet-50 simple-mask training run failed its checks")
+    del trainer, built, batches
+    return counts
+
+
+def phase_variants(dev, card: str, run_dir) -> dict:
+    """Phase 25: the model variants' forwards and a ResNet-50 simple-mask
+    training run. Returns the launch counts of both main paths."""
+    import torch
+
+    t0 = time.perf_counter()
+    k1 = variant_forwards(dev, card)
+    torch.cuda.empty_cache()
+    counts = variant_training(dev, card, run_dir)
+    torch.cuda.empty_cache()
+    log(f"[25 variants] phase time {time.perf_counter() - t0:.1f} s")
+    return {"forward_k1": k1, "train": counts}
 
 
 def main() -> int:
@@ -3346,6 +3560,15 @@ def main() -> int:
         for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
                   "photo_error_bwd"):
             records[k]["stage1_cli_launches"] = cli_counts[k]
+        torch.cuda.empty_cache()
+
+        # ---- 25. the model variants ----------------------------------------
+        variant_counts = phase_variants(dev, card, run_dir)
+        records["plane_sweep_cost_volume"]["variants_forward_launches"] = (
+            variant_counts["forward_k1"])
+        for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
+                  "photo_error_bwd"):
+            records[k]["variants_train_launches"] = variant_counts["train"][k]
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
     for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
@@ -3391,6 +3614,7 @@ def main() -> int:
         "max_abs_err": records[k]["max_abs_err"],
         **{f: records[k][f] for f in ("sfcv_max_abs_err", "stage2_launches", "stage3_launches",
                                       "stage4_launches", "stage1_cli_launches", "eval_launches",
+                                      "variants_forward_launches", "variants_train_launches",
                                       "pointcloud_launches",
                                       "max_abs_err_vs_float64",
                                       "plain_max_abs_err_vs_float64", "planar_gather_ms",

@@ -31,11 +31,6 @@ from monorec_tpu_torch.models.monorec import MonoRecConfig
 from monorec_tpu_torch.precision import apply_to_model_kwargs, set_precision
 
 _MODEL_KEYS = {f.name for f in dataclasses.fields(MonoRecConfig)} - {"plain_cost_volume"}
-# JAX-config knobs the port does not have yet, with the value that is
-# equivalent to leaving them out.
-_NOT_PORTED_MODEL_KEYS = {
-    "simple_mask": False, "mask_use_cv": True, "mask_use_feats": True, "no_cv": False,
-}
 _LOADER_KEYS = {"batch_size", "shuffle", "validation_split", "num_workers", "drop_last",
                 "start", "end", "every_nth"}
 
@@ -89,11 +84,9 @@ def build_model_config(arch_args: Dict) -> MonoRecConfig:
         if key in _MODEL_KEYS:
             if key in ("inv_depth_min_max", "freeze_module"):
                 value = tuple(value)
-            elif key in ("pretrain_mode", "use_ssim", "pretrain_dropout_mode"):
+            elif key in ("pretrain_mode", "use_ssim", "pretrain_dropout_mode", "resnet_layers"):
                 value = int(value)
             kwargs[key] = value
-        elif key in _NOT_PORTED_MODEL_KEYS and value != _NOT_PORTED_MODEL_KEYS[key]:
-            raise NotImplementedError(f"arch.args.{key}={value!r} is not ported yet")
     return MonoRecConfig(**apply_to_model_kwargs(kwargs))
 
 

@@ -1,10 +1,15 @@
 """Carry the JAX package's weights into the port.
 
-``state_dict_from_flax`` is the exact inverse of
-``monorec_tpu.convert.convert_state_dict``: it takes the flax variables of
+``state_dict_from_flax`` takes the flax variables of
 ``monorec_tpu.models.MonoRec`` (``params`` and ``batch_stats`` as nested
 dicts of numpy arrays) and returns a ``state_dict`` with the reference's
-keys, which ``monorec_tpu_torch.models.MonoRec.load_state_dict`` takes.
+keys, which ``monorec_tpu_torch.models.MonoRec.load_state_dict`` takes. It
+carries every encoder depth (a ``Bottleneck``'s third conv ``Conv_2`` /
+``_BN_2`` becomes ``conv3`` / ``bn3``) and both mask modules (the simple
+one has the same layout). For ResNet-18 and -34 it is the exact inverse of
+``monorec_tpu.convert.convert_state_dict``; for ResNet-50, -101 and -152 it
+is not, because that function refuses bottleneck encoders and converts
+their other subtrees only.
 Layout rules inverted (``monorec_tpu/utils/torch_compat.py``):
 
 * conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw);
@@ -38,6 +43,9 @@ def _resnet_layout(tree: FlaxTree) -> Iterator[_Entry]:
             yield f"{tb}.bn1", fb + ("_BN_0", "BatchNorm_0"), "bn"
             yield f"{tb}.conv2", fb + ("Conv_1",), "conv"
             yield f"{tb}.bn2", fb + ("_BN_1", "BatchNorm_0"), "bn"
+            if "Conv_2" in tree[f"layer{stage}_block{b}"]:  # a Bottleneck
+                yield f"{tb}.conv3", fb + ("Conv_2",), "conv"
+                yield f"{tb}.bn3", fb + ("_BN_2", "BatchNorm_0"), "bn"
             if "downsample_conv" in tree[f"layer{stage}_block{b}"]:
                 yield f"{tb}.downsample.0", fb + ("downsample_conv",), "conv"
                 yield f"{tb}.downsample.1", fb + ("downsample_bn", "BatchNorm_0"), "bn"

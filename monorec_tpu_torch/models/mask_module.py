@@ -11,7 +11,15 @@ feature map after the frame fusion (``monorec_tpu/models/mask_module.py:
 features' device, so a step copies nothing from the host. In eval it is
 the identity. ``dtype`` is the convolution dtype: the per-frame CVs and the
 image features are cast to it at entry, and the mask returns in float32.
-``SimpleMaskModule`` is not ported yet.
+``use_cv`` / ``use_features`` off multiply that input by 0.0 (as the JAX
+package does, so a non-finite value stays NaN in both).
+
+``SimpleMaskModule`` (``mask_module.py::SimpleMaskModule``) runs the same
+encoder once, without the frame max and without dropout, over the
+per-frame CVs averaged over their non-zero entries, the keyframe and the
+detached finest-scale depth prediction, then the same decoder. Both keep
+the reference's submodule names (``enc``, ``dec``, ``classifier``), so one
+key layout serves both.
 """
 
 from __future__ import annotations
@@ -49,13 +57,14 @@ def dropout(x: Tensor, generator: torch.Generator) -> Tensor:
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
-class MaskModule(nn.Module):
-    def __init__(self, depth_steps: int = 32,
-                 feature_channels: Sequence[int] = ENCODER_CHANNELS,
-                 dtype: torch.dtype = torch.float32):
+class _MaskUNet(nn.Module):
+    """The encoder over ``in_channels`` and the decoder with the CV-feature
+    and image-feature skips, shared by both mask modules."""
+
+    def __init__(self, in_channels: int, feature_channels: Sequence[int], dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
-        c = (depth_steps,) + _ENC_CH_TAIL
+        c = (in_channels,) + _ENC_CH_TAIL
         d = _DEC_CH
         feat = feature_channels
         self.enc = nn.ModuleList(
@@ -91,27 +100,11 @@ class MaskModule(nn.Module):
         )
         self.classifier = nn.Sequential(SamePadConv(d[3], 1, 1), nn.Sigmoid())
 
-    def forward(self, single_frame_cvs: Tensor, image_features: Sequence[Tensor],
-                train: bool = False, generator: Optional[torch.Generator] = None) -> Tensor:
-        """single_frame_cvs (B, F, D, H, W), image_features NCHW -> mask
-        (B, 1, H, W). ``train`` applies the dropout, drawn from
-        ``generator`` (on the features' device)."""
-        if train and generator is None:
-            raise ValueError("the MaskModule's training dropout draws from a generator; pass one")
-        b, n_frames = single_frame_cvs.shape[:2]
-        x = single_frame_cvs.flatten(0, 1).to(self.dtype)
+    def decode(self, fused: Sequence[Tensor], image_features: Sequence[Tensor]) -> Tensor:
+        """Decoder H/16 -> H: each stage upsamples, then takes the CV
+        features of its scale and, below full resolution, the ResNet
+        features of that scale (layer2, layer1, stem)."""
         image_features = [f.to(self.dtype) for f in image_features]
-        fused = []
-        for stage in self.enc:
-            x = stage(x)
-            # amax splits the gradient evenly among tied frames, as jnp.max.
-            fused.append(x.unflatten(0, (b, n_frames)).amax(dim=1))
-        if train:
-            fused = [dropout(f, generator) for f in fused]
-
-        # Decoder H/16 -> H: each stage upsamples, then takes the fused CV
-        # features of its scale and, below full resolution, the ResNet
-        # features of that scale (layer2, layer1, stem).
         x = torch.cat([fused[4], image_features[3]], 1)
         for i, (up, conv_a, conv_b) in enumerate(self.dec):
             x = up(x)
@@ -119,3 +112,55 @@ class MaskModule(nn.Module):
             x = conv_b(conv_a(torch.cat(skips + [x], 1)))
         # The mask gates the cost volume and feeds the losses in float32.
         return self.classifier(x).to(torch.float32)
+
+
+class MaskModule(_MaskUNet):
+    def __init__(self, depth_steps: int = 32, use_cv: bool = True, use_features: bool = True,
+                 feature_channels: Sequence[int] = ENCODER_CHANNELS,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(depth_steps, feature_channels, dtype)
+        self.use_cv = use_cv
+        self.use_features = use_features
+
+    def forward(self, single_frame_cvs: Tensor, image_features: Sequence[Tensor],
+                train: bool = False, generator: Optional[torch.Generator] = None) -> Tensor:
+        """single_frame_cvs (B, F, D, H, W), image_features NCHW -> mask
+        (B, 1, H, W). ``train`` applies the dropout, drawn from
+        ``generator`` (on the features' device)."""
+        if train and generator is None:
+            raise ValueError("the MaskModule's training dropout draws from a generator; pass one")
+        if not self.use_cv:
+            single_frame_cvs = single_frame_cvs * 0.0
+        if not self.use_features:
+            image_features = [f * 0.0 for f in image_features]
+        b, n_frames = single_frame_cvs.shape[:2]
+        x = single_frame_cvs.flatten(0, 1).to(self.dtype)
+        fused = []
+        for stage in self.enc:
+            x = stage(x)
+            # amax splits the gradient evenly among tied frames, as jnp.max.
+            fused.append(x.unflatten(0, (b, n_frames)).amax(dim=1))
+        if train:
+            fused = [dropout(f, generator) for f in fused]
+        return self.decode(fused, image_features)
+
+
+class SimpleMaskModule(_MaskUNet):
+    def __init__(self, depth_steps: int = 32,
+                 feature_channels: Sequence[int] = ENCODER_CHANNELS,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(depth_steps + 3 + 1, feature_channels, dtype)
+
+    def forward(self, single_frame_cvs: Tensor, keyframe: Tensor,
+                predicted_inverse_depth: Tensor, image_features: Sequence[Tensor]) -> Tensor:
+        """single_frame_cvs (B, F, D, H, W), keyframe (B, 3, H, W), the
+        finest prediction (B, 1, H, W), image_features NCHW -> mask
+        (B, 1, H, W)."""
+        counts = (single_frame_cvs != 0).to(keyframe.dtype).sum(1).clamp_min(1)
+        cv_avg = single_frame_cvs.sum(1) / counts
+        x = torch.cat([cv_avg, keyframe, predicted_inverse_depth.detach()], 1).to(self.dtype)
+        feats = []
+        for stage in self.enc:
+            x = stage(x)
+            feats.append(x)
+        return self.decode(feats, image_features)

@@ -12,9 +12,23 @@ generator; the MaskModule's dropout (modes 0 and 2) from
 (``train/monorec_trainer.py``); ``freeze_module`` ("att", "depth") stops
 the gradient at the output of ``mask`` / ``depth``. The mask augmentation
 (``augmentation: "mask"``) belongs to that trainer: the forward applies no
-augmentation for it, as in the JAX package. Not ported yet: the JAX
-config's ``no_cv``, ``mask_use_cv``, ``mask_use_feats`` and
-``simple_mask``.
+augmentation for it, as in the JAX package.
+
+The variants of the JAX config:
+- ``resnet_layers`` 18, 34, 50, 101 or 152; both U-Nets take the
+  encoder's channels (``resnet.encoder_channels``).
+- ``mask_use_cv`` / ``mask_use_feats`` off: the MaskModule sees its
+  per-frame CVs / image features multiplied by 0.
+- ``simple_mask``: ``SimpleMaskModule`` in place of the MaskModule. In
+  modes 0 and 2 the forward runs the depth module on the raw CV, the mask
+  on that finest prediction, then (mode 0) the depth module again on the
+  masked CV. The JAX package builds no depth module in mode 2 and so
+  cannot run a simple mask there; the port builds one (its first pass
+  needs it), and mode 2's result is the mask of mode 0 with the same
+  weights.
+- ``no_cv``: zero cost volumes in place of the sweep (no K1 launch and no
+  ``cv_uncovered``); the per-frame CVs have the source frames plus the
+  stereo frame with ``use_stereo``.
 
 With ``freeze_resnet`` (the default, as in the JAX config) the encoder's
 parameters do not require gradients and it runs under ``torch.no_grad()``,
@@ -44,8 +58,8 @@ from torch import nn
 
 from monorec_tpu_torch.models.augmentation import conditional_hflip, sample_flip_conditions
 from monorec_tpu_torch.models.depth_module import DepthModule
-from monorec_tpu_torch.models.mask_module import MaskModule
-from monorec_tpu_torch.models.resnet import ResNetEncoder
+from monorec_tpu_torch.models.mask_module import MaskModule, SimpleMaskModule
+from monorec_tpu_torch.models.resnet import ResNetEncoder, encoder_channels
 from monorec_tpu_torch.ops.cost_volume import CostVolumeConfig, compute_cost_volume
 from monorec_tpu_torch.precision import torch_dtype, use_exact_precision
 
@@ -55,7 +69,8 @@ Batch = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class MonoRecConfig:
-    """Static model configuration (the ported subset of the JAX config)."""
+    """Static model configuration: the JAX config's knobs and the port's
+    ``plain_cost_volume``."""
 
     inv_depth_min_max: Tuple[float, float] = (0.33, 0.0025)
     cv_depth_steps: int = 32
@@ -79,6 +94,13 @@ class MonoRecConfig:
     cv_patch_size: int = 3
     depth_large_model: bool = False
     resnet_layers: int = 18
+    # SimpleMaskModule in place of the MaskModule (needs a depth pass first).
+    simple_mask: bool = False
+    # The MaskModule's inputs: off multiplies them by 0.
+    mask_use_cv: bool = True
+    mask_use_feats: bool = True
+    # Zero cost volumes in place of the plane sweep.
+    no_cv: bool = False
     # "float32" (exact) or "bfloat16": the dtype of the source frames that
     # the cost-volume kernels read (K1, K4; the keyframe stays float32).
     # The plain path (``cv_depths``, ``plain_cost_volume``) ignores it.
@@ -109,7 +131,7 @@ class MonoRecConfig:
 
     @property
     def has_depth_module(self) -> bool:
-        return self.pretrain_mode != 2
+        return self.pretrain_mode != 2 or self.simple_mask
 
 
 def gather_cv_frames(batch: Batch, use_mono: bool, use_stereo: bool):
@@ -151,11 +173,16 @@ class MonoRec(nn.Module):
         self.config = cfg = config
         dtype = torch_dtype(cfg.compute_dtype)
         self._feature_extractor = ResNetEncoder(cfg.resnet_layers)
+        feat = encoder_channels(cfg.resnet_layers)
         if cfg.has_mask_module:
-            self.att_module = MaskModule(cfg.cv_depth_steps, dtype=dtype)
+            if cfg.simple_mask:
+                self.att_module = SimpleMaskModule(cfg.cv_depth_steps, feat, dtype)
+            else:
+                self.att_module = MaskModule(cfg.cv_depth_steps, cfg.mask_use_cv,
+                                             cfg.mask_use_feats, feat, dtype)
         if cfg.has_depth_module:
-            self.depth_module = DepthModule(cfg.cv_depth_steps, cfg.depth_large_model,
-                                            dtype=dtype)
+            self.depth_module = DepthModule(cfg.cv_depth_steps, cfg.depth_large_model, feat,
+                                            dtype)
         if generator is not None:
             init_weights(self, generator)
         if cfg.freeze_resnet:
@@ -191,10 +218,17 @@ class MonoRec(nn.Module):
         return self._feature_extractor(keyframe + 0.5)
 
     def mask(self, single_frame_cvs: Tensor, image_features, train: bool = False,
-             generator: Optional[torch.Generator] = None) -> Tensor:
-        """The MaskModule's moving-object probability (B, 1, H, W); in
-        training with dropout drawn from ``generator``."""
-        out = self.att_module(single_frame_cvs, image_features, train, generator)
+             generator: Optional[torch.Generator] = None, keyframe: Optional[Tensor] = None,
+             predicted_inverse_depth: Optional[Tensor] = None) -> Tensor:
+        """The moving-object probability (B, 1, H, W): the MaskModule's, in
+        training with dropout drawn from ``generator``, or under
+        ``simple_mask`` the SimpleMaskModule's of the keyframe and the
+        finest ``predicted_inverse_depth``."""
+        if self.config.simple_mask:
+            out = self.att_module(single_frame_cvs, keyframe, predicted_inverse_depth,
+                                  image_features)
+        else:
+            out = self.att_module(single_frame_cvs, image_features, train, generator)
         return out.detach() if "att" in self.config.freeze_module else out
 
     def depth(self, cost_volume: Tensor, keyframe: Tensor, image_features):
@@ -228,7 +262,12 @@ class MonoRec(nn.Module):
         if train and generator is None:
             raise ValueError("the train forward draws from a generator; pass one")
 
-        cv, sfcv, out["cv_uncovered"] = self.cost_volume(batch, return_coverage=True)
+        if cfg.no_cv:
+            n_frames = batch["frames"].shape[1] + (1 if cfg.use_stereo else 0)
+            sfcv = keyframe.new_zeros(b, n_frames, cfg.cv_depth_steps, h, w)
+            cv = keyframe.new_zeros(b, cfg.cv_depth_steps, h, w)
+        else:
+            cv, sfcv, out["cv_uncovered"] = self.cost_volume(batch, return_coverage=True)
 
         flip = None
         if cfg.augmentation == "depth" and train:
@@ -240,7 +279,13 @@ class MonoRec(nn.Module):
         feats = self.features(keyframe)
         out["image_features"] = feats
 
-        if cfg.pretrain_mode in (0, 2):
+        if cfg.pretrain_mode in (0, 2) and cfg.simple_mask:
+            # The mask takes this pass's finest prediction detached, so the
+            # pass records no graph.
+            with torch.no_grad():
+                pre_preds = self.depth(cv, keyframe, feats)
+            cv_mask = self.mask(sfcv, feats, train, dropout_generator, keyframe, pre_preds[0])
+        elif cfg.pretrain_mode in (0, 2):
             cv_mask = self.mask(sfcv, feats, train, dropout_generator)
         elif cfg.pretrain_mode == 1:
             cv_mask = (self._cv_mask_dropout(keyframe, generator) if train

@@ -11,7 +11,9 @@ torchvision ``resnet18-*.pth`` loads by a key map, without torchvision:
   file name in ``~/.cache/torch/hub/checkpoints`` or ``saved/weights``;
 * ``convert_torchvision_resnet``: a torchvision ``state_dict`` under the
   port's keys (the classifier ``fc.*`` dropped; keys already prefixed pass
-  through);
+  through); a bottleneck file (ResNet-50/101/152) converts to nothing, as
+  in the JAX package, whose converter refuses those, so only ResNet-18 and
+  -34 files are injected;
 * ``inject_imagenet_encoder``: loads such a file into a model's encoder, or
   refuses, without raising, a file whose keys are not the encoder's;
 * ``warn_if_frozen_random_encoder``: the loud warning when a frozen encoder
@@ -65,7 +67,8 @@ def convert_torchvision_resnet(state_dict: Dict) -> Dict[str, torch.Tensor]:
     ``layer1.0.bn1.running_mean``, ...; torch tensors or numpy arrays) ->
     the port's encoder keys (``_feature_extractor.encoder.conv1.weight``).
     The classifier (``fc.*``) is dropped; keys that already start with
-    ``_feature_extractor.`` are kept as they are."""
+    ``_feature_extractor.`` are kept as they are. A bottleneck ResNet
+    (``layer1.0.conv3`` present) gives {}, which is logged."""
     out = {}
     for key, value in state_dict.items():
         if key.startswith("fc."):
@@ -73,6 +76,10 @@ def convert_torchvision_resnet(state_dict: Dict) -> Dict[str, torch.Tensor]:
         if not key.startswith(ENCODER_PREFIX):
             key = f"{ENCODER_PREFIX}encoder.{key}"
         out[key] = torch.as_tensor(value)
+    if f"{ENCODER_PREFIX}encoder.layer1.0.conv3.weight" in out:
+        logger.warning("a bottleneck ResNet (conv3 present) is not converted, as in the JAX "
+                       "package (monorec_tpu.convert.Converter.convert_resnet)")
+        return {}
     return out
 
 

@@ -27,6 +27,13 @@ One ``_feed``, in the JAX package's order:
 Not ported, and refused: ``joint_cv`` and ``joint_depth_decode`` (one fused
 launch for the mono and stereo CVs or decodes; off in every shipped config,
 and slower on the TPU where they were measured).
+
+Two JAX quirks the port keeps. A ``simple_mask`` model is refused: the JAX
+trainer calls ``MonoRec.mask`` with no keyframe and no depth prediction
+(``monorec_tpu/train/monorec_trainer.py:151``), so it cannot run one.
+``no_cv`` is ignored: the cost volumes are computed all the same, as the
+JAX ``_feed`` does. ``mask_use_cv`` / ``mask_use_feats`` act through the
+MaskModule.
 """
 
 from __future__ import annotations
@@ -54,8 +61,13 @@ _NOT_PORTED = {
 class MonoRecTrainer(Trainer):
     """The stage 2-4 trainer; flags from the config's ``trainer`` block."""
 
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
+    def __init__(self, model, *args, **kwargs):
+        if model.config.simple_mask:
+            raise NotImplementedError(
+                "the stage 2-4 trainer cannot run a simple_mask model: the JAX trainer calls "
+                "MonoRec.mask with no keyframe and no depth prediction "
+                "(monorec_tpu/train/monorec_trainer.py:151)")
+        super().__init__(model, *args, **kwargs)
         tcfg = self.config.get("trainer", {})
         self.compute_mono_pred = tcfg.get("compute_mono_pred", True)
         self.compute_stereo_pred = tcfg.get("compute_stereo_pred", True)

@@ -191,7 +191,9 @@ class Trainer:
         and the DepthModule (those the model has) on ``batch`` with the
         current weights, each run once untimed first and then timed alone,
         fenced by ``torch.cuda.synchronize`` on the card
-        (``monorec_tpu/train/trainer.py::_module_times``)."""
+        (``monorec_tpu/train/trainer.py::_module_times``). As there, ``no_cv``
+        times none of the cost volume, mask and depth, and ``simple_mask``
+        no mask (it would need a depth prediction)."""
         model = self.model
         cfg = model.config
         cuda = next(model.parameters()).is_cuda
@@ -208,11 +210,12 @@ class Trainer:
 
         times = {}
         keyframe = batch["keyframe"]
-        (cv, sfcv), times["cv_module_time"] = timed(model.cost_volume, batch)
+        if not cfg.no_cv:
+            (cv, sfcv), times["cv_module_time"] = timed(model.cost_volume, batch)
         feats, times["resnet_module_time"] = timed(model.features, keyframe)
-        if cfg.has_mask_module:
+        if cfg.has_mask_module and not cfg.simple_mask and not cfg.no_cv:
             _, times["mask_module_time"] = timed(model.mask, sfcv, feats)
-        if cfg.has_depth_module:
+        if cfg.has_depth_module and not cfg.no_cv:
             _, times["depth_module_time"] = timed(model.depth, cv, keyframe, feats)
         return times
 

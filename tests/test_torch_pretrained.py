@@ -98,7 +98,7 @@ def test_injected_encoder_matches_jax(flax_init, tmp_path, counters):
 
 def test_resnet34_file_is_refused_by_both(flax_init, tmp_path):
     path = tmp_path / "resnet34.pth"
-    torch.save(torchvision_resnet(4, blocks=(3, 4, 6, 3)), path)
+    torch.save(torchvision_resnet(4, layers=34), path)
     _, init = flax_init
     _, _, j_ok = j_pretrained.inject_imagenet_encoder(
         dict(init["params"]), dict(init["batch_stats"]), str(path))

@@ -315,8 +315,10 @@ def test_cli_trains_from_a_config_file(tmp_path, capsys):
 def test_config_reader_names_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="NuScenesDataloader"):
         config_mod.build_data_loader({"type": "NuScenesDataloader", "args": {}}, "cpu")
-    with pytest.raises(NotImplementedError, match="simple_mask"):
-        config_mod.build_model_config({"simple_mask": True})
+    variants = config_mod.build_model_config(
+        {"simple_mask": True, "no_cv": True, "mask_use_cv": False, "mask_use_feats": False})
+    assert (variants.simple_mask, variants.no_cv, variants.mask_use_cv,
+            variants.mask_use_feats) == (True, True, False, False)
     assert config_mod.build_model_config({"imagenet_weights": "x.pth"}) == MonoRecConfig()
     with open(CONFIGS / "train" / "monorec" / "monorec_depth.json") as f:
         arch = json.load(f)["arch"]["args"]
