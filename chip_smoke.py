@@ -117,9 +117,10 @@ checkout, then:
    per image; runs ``cli.evaluate`` on a copy of
    ``configs/evaluate/eval_monorec.json`` with phase 19's checkpoint on the
    card (the main path: one K1 cost-volume launch per batch, 7 finite
-   metrics, every batch valid) and over its first two batches on the card
-   and on the CPU (agreeing within rtol 1e-3); times the eval forward per
-   batch (CUDA events) and the evaluate loop from the tree and from a cache
+   metrics, every batch valid; the config's 8 loader workers) and over its
+   first two batches on the card and on the CPU (agreeing within rtol
+   1e-3); times the eval forward per batch (CUDA events) and the evaluate
+   loop from the tree with 8 workers and with 1 and from a cache
    ``build_cache`` makes of it (keyframes/s, and the device's busy share
    from a torch.profiler pass);
 21. the point cloud: ``cli.create_pointcloud`` on a copy of
@@ -175,7 +176,21 @@ checkout, then:
    mode 0 for 4 steps at B=4 with ``module_timing`` (finite losses, K1-K3
    launched, module times logged for cv, resnet and depth only, as the JAX
    trainer does for a simple mask), and times and splits its step and
-   reads its peak memory.
+   reads its peak memory;
+26. the KITTI user's path: writes a stereo KITTI tree (20 frames at
+   370x1226), zips its annotated depth in KITTI's raw layout and prepares
+   it through ``tools.preprocess_kitti`` (``extract-depth`` byte-equal,
+   ``mvobj-index`` on moving-object masks written for 15 of the 20 frames,
+   ``dist-index`` timed on the host, each JSON held to what the phase
+   computes); trains stage 2 through the trainer of ``cli/train_monorec.py``
+   on a copy of ``monorec_mask.json`` pointed at the tree (its index mask,
+   colour augmentation and B=4 kept: the loader's length matches the index,
+   3 steps, finite losses, K1 once and K2 six times a step; the step time
+   and the loader's wait per step) with the config's 8 workers (the main
+   path) and with 1; then serves the golden sample through
+   ``cli.inference_example --data --checkpoint`` with phase 19's
+   checkpoint (K1 once per forward; the three PNGs read back at 256x512;
+   ``depth.png`` within 1 level of a CPU forward on 99.9% of its pixels).
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -2246,9 +2261,12 @@ def phase_evaluate(dev, card: str, work, checkpoint) -> dict:
     model = MonoRec(model_cfg, dev)
     load_stage_checkpoints(model, locations)
     model.eval()
-    raw = config_mod.build_data_loader({"type": "KittiOdometryDataloader",
-                                        "args": dict(config["data_loader"]["args"], start=0,
-                                                     end=n_samples)}, dev)
+    raw_args = dict(config["data_loader"]["args"], start=0, end=n_samples)
+    raw = config_mod.build_data_loader({"type": "KittiOdometryDataloader", "args": raw_args}, dev)
+    raw_1 = config_mod.build_data_loader({"type": "KittiOdometryDataloader",
+                                          "args": dict(raw_args, num_workers=1)}, dev)
+    if (raw.num_workers, raw_1.num_workers) != (8, 1):
+        raise AssertionError(f"the loaders run {raw.num_workers} and {raw_1.num_workers} workers")
     batch = next(iter(raw))
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: model(batch), 10)
@@ -2260,7 +2278,8 @@ def phase_evaluate(dev, card: str, work, checkpoint) -> dict:
     cached = DataLoader(CachedDataset(str(Path(work) / "cache")), 2, shuffle=False, device=dev)
     metric_fns = config_mod.build_metrics(config)
     logs = {}
-    for tag, loader in (("raw tree", raw), ("cache", cached)):
+    for tag, loader in (("raw tree, 8 workers", raw), ("raw tree, 1 worker", raw_1),
+                        ("cache", cached)):
         evaluator = Evaluator(model, metric_fns, config, loader, Path(work) / "timing")
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2271,11 +2290,15 @@ def phase_evaluate(dev, card: str, work, checkpoint) -> dict:
         log(f"[20 evaluate] evaluate loop from the {tag}: {n_samples} keyframes in {wall:.3f} s = "
             f"{n_samples / wall:.3f} keyframes/s (host clock); profiled pass: device busy "
             f"{busy_ms:.1f} of {window_ms:.1f} ms = {100 * busy_ms / window_ms:.1f}% on {card}")
-    cached_m, raw_m = np.asarray(logs["cache"]["metrics"]), np.asarray(logs["raw tree"]["metrics"])
+    cached_m = np.asarray(logs["cache"]["metrics"])
+    raw_m = np.asarray(logs["raw tree, 8 workers"]["metrics"])
+    raw_1_m = np.asarray(logs["raw tree, 1 worker"]["metrics"])
     log(f"[20 evaluate] cache of {n_samples} samples built in {cache_s:.3f} s; its metrics vs "
-        f"the raw tree's: max |diff| {np.abs(cached_m - raw_m).max():.3e}")
-    if not np.allclose(cached_m, raw_m, rtol=1e-6, atol=0):
-        raise AssertionError("the cache's evaluation differs from the raw tree's")
+        f"the raw tree's: max |diff| {np.abs(cached_m - raw_m).max():.3e}; the raw tree's with 1 "
+        f"worker vs 8: max |diff| {np.abs(raw_1_m - raw_m).max():.3e}")
+    if not (np.allclose(cached_m, raw_m, rtol=1e-6, atol=0)
+            and np.allclose(raw_1_m, raw_m, rtol=1e-6, atol=0)):
+        raise AssertionError("the cache's or one worker's evaluation differs from the raw tree's")
     del model, batch
     torch.cuda.empty_cache()
     return {"eval_launches": counts["plane_sweep_cost_volume"]}
@@ -3312,6 +3335,254 @@ def phase_variants(dev, card: str, run_dir) -> dict:
     return {"forward_k1": k1, "train": counts}
 
 
+# ---- phase 26: the KITTI user's path -----------------------------------------
+
+KITTI_PATH_FRAMES = 20  # stage 2's window keeps frames 1-18; the index drops 4 of them
+KITTI_PATH_B = 4  # monorec_mask.json's batch_size
+GOLDEN_INDEX = 4  # keyframe 9 (the annotated depth's offset of 5), sources 8 and 10
+GOLDEN_LEVELS, GOLDEN_SHARE = 1, 0.999  # depth.png card vs CPU: 1 level on 99.9% of pixels
+RAW_DRIVE = "2011_09_30_drive_0027"  # KITTI raw drive of odometry sequence 07
+
+
+def moving(i: int) -> bool:
+    """Whether frame ``i`` of phase 26's tree has a moving object."""
+    return i % 4 != 3
+
+
+class WaitTimed:
+    """A loader whose iterator records each wait for a batch (host clock)."""
+
+    def __init__(self, loader):
+        self.loader, self.waits = loader, []
+
+    def __iter__(self):
+        it = iter(self.loader)
+        try:
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.waits.append(time.perf_counter() - t)
+                yield batch
+        finally:
+            it.close()
+
+
+def prepare_kitti(tree, work) -> None:
+    """Phase 26's preparation through ``tools.preprocess_kitti``: the
+    annotated depth through ``extract-depth`` from a zip in KITTI's raw
+    layout (byte-equal), ``mvobj-index`` and ``dist-index``, each JSON held
+    to what this function computes from the tree."""
+    import shutil
+    import zipfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from monorec_tpu_torch.tools import preprocess_kitti
+
+    seq = Path(tree) / "sequences" / "07"
+    zpath = Path(work) / "depth_annotated.zip"
+    depth = sorted((seq / "image_depth_annotated").glob("*.png"))
+    raw = f"train/{RAW_DRIVE}_sync/proj_depth/groundtruth"
+    with zipfile.ZipFile(zpath, "w") as z:
+        for p in depth:
+            z.write(p, f"{raw}/image_02/{int(p.stem):010d}.png")
+        z.write(depth[0], f"{raw}/image_03/0000000000.png")
+        z.write(depth[1], "val/2011_09_26_drive_0001_sync/proj_depth/groundtruth/image_02/"
+                          "0000000001.png")
+    out = Path(work) / "extracted"
+    t = time.perf_counter()
+    preprocess_kitti.main(["extract-depth", "-i", str(zpath), "-o", str(out)])
+    extract_s = time.perf_counter() - t
+    got = sorted(p.relative_to(out).as_posix() for p in out.rglob("*.png"))
+    same = all((out / "sequences/07/image_depth_annotated" / p.name).read_bytes() == p.read_bytes()
+               for p in depth)
+    if got != [f"sequences/07/image_depth_annotated/{p.name}" for p in depth] or not same:
+        raise AssertionError(f"extract-depth wrote {got}")
+
+    # The moving-object masks at the target size, a blob on the frames
+    # ``moving`` names; the DSO depth the stage-2 config reads.
+    (seq / "mvobj_mask").mkdir(exist_ok=True)
+    (seq / "image_depth_sparse").mkdir(exist_ok=True)
+    for p in depth:
+        i = int(p.stem)
+        mask = np.zeros((H, W), np.uint8)
+        if moving(i):
+            mask[H // 4 : H // 2, W // 3 : W // 2] = 1
+        np.save(seq / "mvobj_mask" / f"{i:06d}.npy", mask)
+        shutil.copy(p, seq / "image_depth_sparse" / p.name)
+    preprocess_kitti.main(["mvobj-index", "-d", str(tree), "-s", "07"])
+    index = json.loads((seq / "mvobj_index_mask.json").read_text())
+    if index != {str(int(p.stem)): moving(int(p.stem)) for p in depth}:
+        raise AssertionError(f"mvobj-index wrote {index}")
+
+    # dist-index: windows of frames c-1..c+1 for c in 5..N-6 (the annotated
+    # depth's offset), spread 2 x FRAME_STEP = 1.6 m and no rotation.
+    poses = np.loadtxt(Path(tree) / "poses_dvso" / "07.txt").reshape(-1, 3, 4)
+    dist = {}
+    for threshold in (0.8, 2.0):
+        t = time.perf_counter()
+        preprocess_kitti.main(["dist-index", "-d", str(tree), "-s", "07", "-t", str(threshold)])
+        dist[threshold] = time.perf_counter() - t
+        want = {}
+        for c in range(5, len(poses) - 5):
+            spread = np.ptp(poses[c - 1 : c + 2, :, 3], axis=0)
+            fwd = np.ptp(poses[c - 1 : c + 2, :, 2], axis=0)
+            want[str(c)] = bool(np.linalg.norm(spread) > threshold
+                                or np.linalg.norm(fwd) > 0.05)
+        got = json.loads((seq / "index_mask_dist.json").read_text())
+        if got != want or not (all(got.values()) if threshold < 1.6 else not any(got.values())):
+            raise AssertionError(f"dist-index -t {threshold} wrote {got}, expected {want}")
+    log(f"[26 KITTI path] extract-depth: {len(depth)} annotated depth maps from a zip in KITTI's "
+        f"raw layout (drive {RAW_DRIVE}, plus a cam-3 and an unmapped drive's entry), byte-equal, "
+        f"in {extract_s:.3f} s; mvobj-index: {sum(index.values())} of {len(index)} frames moving, "
+        f"as written; dist-index over {len(want)} samples (reads poses, decodes no image): "
+        f"{dist[0.8] * 1e3:.3f} ms at -t 0.8 (all kept), {dist[2.0] * 1e3:.3f} ms at -t 2.0 (none "
+        f"kept) (host clock)")
+
+
+def kitti_stage2(dev, card: str, work, tree, stage1_checkpoint, num_workers: int) -> dict:
+    """Stage 2 through the trainer of ``cli/train_monorec.py`` on a copy of
+    ``monorec_mask.json`` pointed at phase 26's tree (its index mask, colour
+    augmentation and batch size kept; ``num_workers`` as given), one epoch.
+    Its ``depth_cp_loc`` names phase 10's checkpoint, as a user's stage 2
+    names stage 1's. Returns the launch counts of the run."""
+    from pathlib import Path
+
+    import torch
+
+    from monorec_tpu_torch.cli.train_monorec import build_trainer
+    from monorec_tpu_torch.precision import set_precision
+
+    tag = f"[26 KITTI path, {num_workers} worker{'s' if num_workers > 1 else ''}]"
+    with open("configs/train/monorec/monorec_mask.json") as f:
+        config = json.load(f)
+    config["arch"]["args"]["depth_cp_loc"] = [str(stage1_checkpoint)]
+    config["data_loader"]["args"].update(dataset_dir=str(tree), sequences=["07"],
+                                         target_image_size=[H, W], num_workers=num_workers)
+    kept = sum(moving(i) for i in range(1, KITTI_PATH_FRAMES - 1))
+    n_steps = kept // KITTI_PATH_B
+    config["trainer"].update(epochs=1, len_epoch=n_steps, log_step=1, tensorboard=False,
+                             save_dir=str(Path(work) / f"stage2_kitti_{num_workers}"))
+    set_precision("exact", expect_rebuild=True)
+    trainer = build_trainer(config, dev)
+    loader = trainer.data_loader
+    if not (len(loader.dataset) == kept and len(loader) == n_steps and n_steps >= 2
+            and loader.num_workers == num_workers and trainer.valid_data_loader is None):
+        raise AssertionError(f"{tag} the loader holds {len(loader.dataset)} samples in "
+                             f"{len(loader)} batches ({loader.num_workers} workers); the index "
+                             f"keeps {kept}")
+    trainer.data_loader = timed = WaitTimed(loader)
+    step_s = []
+    train_step = trainer.train_step
+
+    def timed_step(batch, alpha):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(batch, alpha)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    trainer.train_step = timed_step
+    reset_counts()
+    t = time.perf_counter()
+    trainer.train()
+    wall = time.perf_counter() - t
+    counts = launch_counts()
+    losses = [r["loss"] for r in train_log(trainer.run_dir)]
+    expected = only(plane_sweep_cost_volume=n_steps, grid_warp=STAGE2_CROPS * n_steps)
+    log(f"{tag} stage 2 (monorec_mask.json on the tree: use_index_mask mvobj_index_mask, "
+        f"colour augmentation, B={KITTI_PATH_B}, {H}x{W} from {KITTI_SIZE[0]}x{KITTI_SIZE[1]} "
+        f"PNGs, stereo and DSO depth read; depth_cp_loc phase 10's checkpoint, of which a "
+        f"mode-2 model takes nothing: it has no depth module): {len(loader)} batches of "
+        f"{kept} indexed samples, {n_steps} steps in {wall:.3f} s = {wall / n_steps * 1e3:.1f} ms "
+        f"a step; train step (host clock, synchronized) "
+        + ", ".join(f"{x * 1e3:.1f}" for x in step_s) + " ms; loader wait "
+        + ", ".join(f"{x * 1e3:.1f}" for x in timed.waits)
+        + f" ms (mean {statistics.mean(timed.waits) * 1e3:.1f} ms a step); losses "
+        + ", ".join(f"{x:.5f}" for x in losses)
+        + f"; launches { {k: v for k, v in counts.items() if v} } on {card}")
+    if not (len(losses) == n_steps and all(math.isfinite(x) for x in losses)
+            and counts == expected):
+        raise AssertionError(f"{tag} stage 2 on the KITTI tree failed its checks "
+                             f"(launches expected {expected})")
+    del trainer, loader, timed
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_golden_sample(dev, card: str, work, tree, checkpoint) -> int:
+    """``cli.inference_example --data`` on phase 26's tree from phase 19's
+    checkpoint on the card; its three PNGs read back, ``depth.png`` held to
+    a CPU forward of the same sample normalised the same way. Returns K1's
+    launches (one per forward: the warm-up and the timed one)."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from monorec_tpu_torch.cli import inference_example as ie
+    from monorec_tpu_torch.data.png import read_png
+    from monorec_tpu_torch.data.synthetic import batch_to_torch
+
+    out_dir = Path(work) / "example"
+    printed = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(printed):
+        ie.main(["--device", str(dev), "--data", str(tree), "--index", str(GOLDEN_INDEX),
+                 "--checkpoint", str(checkpoint), "--out", str(out_dir), "--height", str(H),
+                 "--width", str(W), "--depth-steps", str(D)])
+    counts = launch_counts()
+    if counts != only(plane_sweep_cost_volume=2):
+        raise AssertionError(f"the golden sample launched {counts}, expected K1 once for each "
+                             f"of its 2 forwards")
+    pngs = {n: read_png(out_dir / f"{n}.png") for n in ("depth", "mask", "kf")}
+    shapes = {n: a.shape for n, a in pngs.items()}
+    if shapes != {"depth": (H, W), "mask": (H, W), "kf": (H, W, 3)}:
+        raise AssertionError(f"the golden sample's PNGs are {shapes}")
+    model = ie.build_model(ie.model_config(D), "cpu", checkpoint=checkpoint)
+    batch = batch_to_torch(ie.kitti_sample(tree, GOLDEN_INDEX, (H, W)), "cpu")
+    with torch.inference_mode():
+        cpu = ie.to_grey(model(batch)["result"][0, 0])
+    diff = np.abs(pngs["depth"].astype(int) - cpu)
+    share = float((diff <= GOLDEN_LEVELS).mean())
+    latency = next(line for line in printed.getvalue().splitlines() if "Inference took" in line)
+    log(f"[26 KITTI path] golden sample: cli.inference_example --data --index {GOLDEN_INDEX} "
+        f"(keyframe {int(batch['image_id'][0, 0])}) --checkpoint <phase 19's>: {latency}; K1 "
+        f"launches {counts['plane_sweep_cost_volume']} for 2 forwards; depth.png vs the CPU "
+        f"forward: max {diff.max()} levels, {100 * share:.4f}% within {GOLDEN_LEVELS}; mask.png "
+        f"levels {pngs['mask'].min()}-{pngs['mask'].max()} on {card}")
+    if share < GOLDEN_SHARE:
+        raise AssertionError("the card's depth.png disagrees with the CPU forward")
+    return counts["plane_sweep_cost_volume"]
+
+
+def phase_kitti_path(dev, card: str, work, stage1_checkpoint, stage4_checkpoint) -> dict:
+    """Phase 26: the KITTI user's path on a tree at KITTI's native size:
+    prepare it, train stage 2 from it (8 workers, the main path, then 1),
+    serve the golden sample. Returns K1's and K2's launches on the path."""
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    tree = Path(work) / "kitti_path"
+    write_kitti_tree(tree, n_frames=KITTI_PATH_FRAMES, stereo=True)
+    log(f"[26 KITTI path] wrote a stereo KITTI tree (sequence 07, {KITTI_PATH_FRAMES} frames at "
+        f"{KITTI_SIZE[0]}x{KITTI_SIZE[1]}) in {time.perf_counter() - t0:.2f} s")
+    prepare_kitti(tree, work)
+    stage2 = kitti_stage2(dev, card, work, tree, stage1_checkpoint, 8)
+    kitti_stage2(dev, card, work, tree, stage1_checkpoint, 1)
+    k1_golden = phase_golden_sample(dev, card, work, tree, stage4_checkpoint)
+    log(f"[26 KITTI path] phase time {time.perf_counter() - t0:.1f} s")
+    return {"plane_sweep_cost_volume": stage2["plane_sweep_cost_volume"] + k1_golden,
+            "grid_warp": stage2["grid_warp"]}
+
+
 def main() -> int:
     import torch
 
@@ -3569,6 +3840,14 @@ def main() -> int:
         for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
                   "photo_error_bwd"):
             records[k]["variants_train_launches"] = variant_counts["train"][k]
+        torch.cuda.empty_cache()
+
+        # ---- 26. the KITTI user's path: prepare, stage 2, golden sample ----
+        kitti_counts = phase_kitti_path(dev, card, run_dir, stage1_checkpoint,
+                                        stage4_checkpoint)
+        records["plane_sweep_cost_volume"]["kitti_path_launches"] = (
+            kitti_counts["plane_sweep_cost_volume"])
+        records["grid_warp_crop_c32"]["kitti_path_launches"] = kitti_counts["grid_warp"]
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
     for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
@@ -3615,7 +3894,7 @@ def main() -> int:
         **{f: records[k][f] for f in ("sfcv_max_abs_err", "stage2_launches", "stage3_launches",
                                       "stage4_launches", "stage1_cli_launches", "eval_launches",
                                       "variants_forward_launches", "variants_train_launches",
-                                      "pointcloud_launches",
+                                      "kitti_path_launches", "pointcloud_launches",
                                       "max_abs_err_vs_float64",
                                       "plain_max_abs_err_vs_float64", "planar_gather_ms",
                                       "second_launch_m",

@@ -12,8 +12,7 @@ configs, applies the CLI's key-path overrides (``--lr`` ->
 snapshot of the config. The top-level ``"precision"`` key selects the
 precision policy (``precision.set_precision``) when the config is loaded,
 and the model's dtype knobs it does not set come from that policy. Whatever a config asks
-for that is not ported yet raises, naming it; reference knobs with no
-meaning here (``num_workers``) are ignored. ``cli/common.py`` builds the
+for that is not ported yet raises, naming it. ``cli/common.py`` builds the
 CLIs' parsers and models on top of it.
 """
 
@@ -130,7 +129,8 @@ def build_dataset(kind: str, args: Dict):
 
 
 def build_data_loader(block: Dict, device):
-    """A ``data_loader`` block -> the port's ``DataLoader`` on ``device``; its
+    """A ``data_loader`` block -> the port's ``DataLoader`` on ``device``,
+    with the block's ``num_workers`` (default 4, as the JAX parser's); its
     ``start`` / ``end`` / ``every_nth`` select a ``DatasetWrapper`` view."""
     from monorec_tpu_torch.data.loader import DataLoader, DatasetWrapper
 
@@ -142,6 +142,7 @@ def build_data_loader(block: Dict, device):
     return DataLoader(dataset, batch_size=args.get("batch_size", 1),
                       shuffle=args.get("shuffle", True),
                       validation_split=args.get("validation_split", 0.0),
+                      num_workers=args.get("num_workers", 4),
                       drop_last=args.get("drop_last", True), device=device)
 
 

@@ -26,6 +26,7 @@ Samples are NHWC numpy dicts with the JAX reader's keys and dtypes;
 from __future__ import annotations
 
 import json
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -158,6 +159,13 @@ class KittiOdometryDataset:
         self.return_stereo = return_stereo
         self.return_mvobj_mask = int(return_mvobj_mask)
         self._rng = np.random.default_rng(seed)
+        # np.random.Generator is not thread-safe: a loader's workers take
+        # their draws one at a time (in the order the threads arrive, as in
+        # the JAX package).
+        self._rng_lock = threading.Lock()
+        self._rel = [i for i in range(-(frame_count // 2) * dilation,
+                                      ((frame_count + 1) // 2) * dilation + 1, dilation)
+                     if i != 0]
         self.sequences = (list(sequences) if sequences is not None
                           else [f"{i:02d}" for i in range(11)])
 
@@ -275,28 +283,42 @@ class KittiOdometryDataset:
             result = np.where(dso != 0, dso, result)
         return result[..., None].astype(np.float32)
 
-    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+    def _center(self, index: int) -> Tuple[str, int]:
+        """(sequence, keyframe number) of sample ``index``."""
         s, local = self._locate(index)
-        seq = self.sequences[s]
         center = self._indices[s][local] if self._indices is not None else local + self._offset
-        jitter = sample_color_jitter(self._rng) if self.use_color_augmentation else None
+        return self.sequences[s], center
+
+    def sample_poses(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Sample ``index``'s ``keyframe_pose`` (4, 4) and source ``poses``
+        (F, 4, 4), float32, exactly as ``__getitem__`` gives them; reads no
+        image."""
+        seq, center = self._center(index)
+        poses = self._poses[seq]
+        return (poses[center].astype(np.float32),
+                np.stack([poses[center + i + self.offset_d] for i in self._rel]).astype(np.float32))
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        seq, center = self._center(index)
+        jitter = None
+        if self.use_color_augmentation:
+            with self._rng_lock:
+                jitter = sample_color_jitter(self._rng)
 
         keyframe = self._load_image(self._image_path(seq, center), seq, jitter)
         poses = self._poses[seq]
         k = self._intrinsics[seq]
-        rel = [i for i in range(-(self.frame_count // 2) * self.dilation,
-                                ((self.frame_count + 1) // 2) * self.dilation + 1, self.dilation)
-               if i != 0]
         frames = np.stack([
             self._load_image(self._image_path(seq, center + i + self.offset_d), seq, jitter)
-            for i in rel])
+            for i in self._rel])
+        keyframe_pose, frame_poses = self.sample_poses(index)
         sample: Dict[str, np.ndarray] = {
             "keyframe": keyframe.astype(np.float32),
-            "keyframe_pose": poses[center].astype(np.float32),
+            "keyframe_pose": keyframe_pose,
             "keyframe_intrinsics": k,
             "frames": frames.astype(np.float32),
-            "poses": np.stack([poses[center + i + self.offset_d] for i in rel]).astype(np.float32),
-            "intrinsics": np.tile(k[None], (len(rel), 1, 1)),
+            "poses": frame_poses,
+            "intrinsics": np.tile(k[None], (len(self._rel), 1, 1)),
             "sequence": np.asarray([int(seq)], dtype=np.int32),
             "image_id": np.asarray([center], dtype=np.int32),
             "target": self._load_depth(seq, center),

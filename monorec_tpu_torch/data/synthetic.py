@@ -58,20 +58,26 @@ def make_batch(b: int, h: int, w: int, f: int, stereo: bool = True, mask: bool =
     return batch
 
 
-def batch_to_torch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """NHWC numpy batch -> NCHW tensors on ``device``; on CUDA through pinned
-    memory with a non-blocking copy."""
-    device = torch.device(device)
+def batch_to_host(batch: Dict[str, np.ndarray], pin: bool) -> Dict[str, torch.Tensor]:
+    """NHWC numpy batch -> contiguous NCHW host tensors, in pinned memory
+    when ``pin``. Issues no copy to a device, so a loader's worker thread
+    may call it."""
     out = {}
     for key, value in batch.items():
         t = torch.as_tensor(np.asarray(value))
         if key in _IMAGE_KEYS:
             t = t.movedim(-1, -3)
         t = t.contiguous()
-        if device.type == "cuda":
-            t = t.pin_memory()
-        out[key] = t.to(device, non_blocking=True)
+        out[key] = t.pin_memory() if pin else t
     return out
+
+
+def batch_to_torch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """NHWC numpy batch -> NCHW tensors on ``device``; on CUDA through pinned
+    memory with a non-blocking copy on the current stream."""
+    device = torch.device(device)
+    host = batch_to_host(batch, pin=device.type == "cuda")
+    return {k: t.to(device, non_blocking=True) for k, t in host.items()}
 
 
 class SyntheticSweepDataset:

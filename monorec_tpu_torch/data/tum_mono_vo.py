@@ -20,6 +20,7 @@ raises ``NotImplementedError`` naming the gap.
 
 from __future__ import annotations
 
+import threading
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -58,6 +59,7 @@ class TUMMonoVODataset:
         self.color_augmentation = color_augmentation
         self.scale_factor = scale_factor
         self._rng = np.random.default_rng(seed)
+        self._rng_lock = threading.Lock()  # a loader's workers draw one at a time
 
         self._result = np.loadtxt(self.root / "result.txt")
         self._times = np.loadtxt(self.root / "times.txt")
@@ -157,7 +159,10 @@ class TUMMonoVODataset:
         off = self._offset
         if self.only_keyframes:
             index = int(self._keyframe_index[index]) - off
-        jitter = sample_color_jitter(self._rng) if self.color_augmentation else None
+        jitter = None
+        if self.color_augmentation:
+            with self._rng_lock:
+                jitter = sample_color_jitter(self._rng)
 
         rel = [
             i
