@@ -190,7 +190,24 @@ checkout, then:
    path) and with 1; then serves the golden sample through
    ``cli.inference_example --data --checkpoint`` with phase 19's
    checkpoint (K1 once per forward; the three PNGs read back at 256x512;
-   ``depth.png`` within 1 level of a CPU forward on 99.9% of its pixels).
+   ``depth.png`` within 1 level of a CPU forward on 99.9% of its pixels);
+27. TUM mono VO with colour and depth: writes a sequence of 12 colour
+   JPEGs at 1280x1024 with its own encoder (quality 90; frame 0 at 4:4:4,
+   frame 1 at 4:2:2, the rest at 4:2:0; every third with restart markers)
+   and, on every other frame, ``images_depth/<frame>_d.exr`` with the
+   plane's depth (``encode_exr``: float32 ``Y`` under ZIP, one file each
+   under NONE, RLE and ZIPS, one of HALF samples, one in decreasing line
+   order); times ``read_jpeg`` per colour image (held to the source within
+   phase 23's gate) and ``read_exr`` per file (equal to the written
+   array); runs ``cli.evaluate`` with ``eval_monorec.json``'s seven sparse
+   metrics and batch size over the shipped
+   ``configs/test/pointcloud_monorec_tmvo.json``'s data arguments (480x640,
+   F=4, scale factor 3) with ``only_keyframes``, from phase 19's
+   checkpoint, on the card (the main path, two batches of 2: one K1
+   cost-volume launch per batch, 7 finite metrics, every batch valid) and
+   over its first batch on the card and on the CPU (within rtol 1e-3);
+   times the eval forward and the evaluate loop (keyframes/s, busy share);
+   holds K1 at 480x640, B=2, F=4 to its plain version and times it.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -2399,6 +2416,8 @@ TUM_FRAMES = 9  # 5 samples at F=4
 TUM_K = (0.7, 0.875, 0.5, 0.5)  # relative fx fy cx cy: a pinhole of 71 x 60 degrees
 TUM_STEP = 0.3  # metres forward per frame
 TUM_SCALE = 3.0  # the shipped config's scale_factor; result.txt holds step / scale
+JPEG_LEVELS = 2.0  # mean |decoded - encoded source| of a quality-90 frame, in levels
+TUM_DEPTH_MAX = 60.0  # metres: the depth files hold 0 (no measurement) beyond it
 # The JPEG standard's luminance quantization table (Annex K.1), natural
 # order, and its luminance DC and AC Huffman tables (K.3, K.5): the count of
 # codes of each length 1-16, then the symbols.
@@ -2422,12 +2441,26 @@ JPEG_ZIGZAG = (
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
 
+# The chrominance quantization table (Annex K.2) and Huffman tables (K.4, K.6).
+JPEG_CHROMA_QUANT = (17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+                     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99) + (99,) * 32
+JPEG_CHROMA_DC_BITS = (0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0)
+JPEG_CHROMA_DC_SYMBOLS = tuple(range(12))
+JPEG_CHROMA_AC_BITS = (0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77)
+JPEG_CHROMA_AC_SYMBOLS = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")
 
-def jpeg_quant_table(quality: int):
-    """The luminance table scaled to ``quality`` as libjpeg scales it, each
-    entry kept in 1..255 (8-bit tables)."""
+
+def jpeg_quant_table(quality: int, base=JPEG_LUMA_QUANT):
+    """The table ``base`` (the luminance one by default) scaled to
+    ``quality`` as libjpeg scales it, each entry kept in 1..255 (8-bit
+    tables)."""
     scale = 5000 // quality if quality < 50 else 200 - 2 * quality
-    return [min(max((q * scale + 50) // 100, 1), 255) for q in JPEG_LUMA_QUANT]
+    return [min(max((q * scale + 50) // 100, 1), 255) for q in base]
 
 
 def _huffman_codes(bits, symbols) -> dict:
@@ -2442,55 +2475,118 @@ def _huffman_codes(bits, symbols) -> dict:
     return codes
 
 
-def encode_jpeg(img, quality: int = 90, restart_interval: int = 0) -> bytes:
-    """A baseline greyscale JFIF of an (H, W) uint8 array: the luminance
-    table at ``quality`` and the standard Huffman tables
-    (``jpeg_from_coefficients``), with ``restart_interval`` > 0 an RSTn
-    marker every that many blocks."""
+def _forward_dct(plane, quant):
+    """The quantized DCT coefficients (rows, cols, 64), natural order, of a
+    float plane whose sides are multiples of 8 (level shift included)."""
     import numpy as np
 
-    img = np.asarray(img, np.uint8)
-    h, w = img.shape
-    bh, bw = -(-h // 8), -(-w // 8)
-    padded = np.pad(img, ((0, bh * 8 - h), (0, bw * 8 - w)), mode="edge").astype(np.float64)
-    blocks = (padded - 128.0).reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
+    rows, cols = plane.shape[0] // 8, plane.shape[1] // 8
+    blocks = (plane - 128.0).reshape(rows, 8, cols, 8).transpose(0, 2, 1, 3)
     u = np.arange(8)
     dct = np.sqrt(2 / 8) * np.cos((2 * u[None, :] + 1) * u[:, None] * np.pi / 16)
     dct[0] /= np.sqrt(2)
-    quant = np.asarray(jpeg_quant_table(quality), np.int64).reshape(8, 8)
-    coef = np.round(dct @ blocks @ dct.T / quant).astype(np.int64).reshape(-1, 64)
-    return jpeg_from_coefficients(coef, quant, h, w, restart_interval)
+    q = np.asarray(quant, np.int64).reshape(8, 8)
+    return np.round(dct @ blocks @ dct.T / q).astype(np.int64).reshape(rows, cols, 64)
+
+
+def encode_jpeg(img, quality: int = 90, restart_interval: int = 0,
+                sampling=((2, 2), (1, 1), (1, 1)), separate_scans: bool = False,
+                adobe_rgb: bool = False) -> bytes:
+    """A baseline JPEG of an (H, W) greyscale or (H, W, 3) RGB uint8 array:
+    the standard tables (Annex K: luminance for the first component,
+    chrominance for the others) at ``quality``, with ``restart_interval`` >
+    0 an RSTn marker every that many MCUs (``jpeg_from_components``).
+    Colour is YCbCr (JFIF) with each component's (h, v) ``sampling``
+    factors (1 or 2; the default is 4:2:0), the chroma averaged over the
+    pixels each sample covers, all components in one interleaved scan or,
+    with ``separate_scans``, each in a scan of its own; ``adobe_rgb``
+    writes the RGB samples untransformed under an Adobe APP14 segment with
+    transform 0 instead of JFIF."""
+    import numpy as np
+
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    if img.ndim == 2:
+        bh, bw = -(-h // 8), -(-w // 8)
+        padded = np.pad(img, ((0, bh * 8 - h), (0, bw * 8 - w)), mode="edge").astype(np.float64)
+        quant = jpeg_quant_table(quality)
+        return jpeg_from_components([_forward_dct(padded, quant)], [(1, 1)], [quant], h, w,
+                                    restart_interval)
+    hmax, vmax = max(f[0] for f in sampling), max(f[1] for f in sampling)
+    my, mx = -(-h // (8 * vmax)), -(-w // (8 * hmax))
+    rgb = np.pad(img, ((0, my * 8 * vmax - h), (0, mx * 8 * hmax - w), (0, 0)),
+                 mode="edge").astype(np.float64)
+    if adobe_rgb:
+        planes = [rgb[..., c] for c in range(3)]
+    else:
+        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128.0]
+    grids, quants = [], []
+    for c, (fh, fv) in enumerate(sampling):
+        sy, sx = vmax // fv, hmax // fh
+        p = planes[c]
+        p = p.reshape(p.shape[0] // sy, sy, p.shape[1] // sx, sx).mean(axis=(1, 3))
+        quant = jpeg_quant_table(quality, JPEG_LUMA_QUANT if c == 0 else JPEG_CHROMA_QUANT)
+        grids.append(_forward_dct(p, quant))
+        quants.append(quant)
+    return jpeg_from_components(grids, list(sampling), quants, h, w, restart_interval,
+                                separate_scans, adobe_rgb)
 
 
 def jpeg_from_coefficients(coef, quant, h: int, w: int, restart_interval: int = 0) -> bytes:
-    """A baseline greyscale JFIF (SOF0) of quantized coefficients ``coef``
-    (one row of 64 per 8x8 block, natural order, blocks row by row) of an
-    h x w image, with the (8, 8) quantization table ``quant`` (8-bit
-    entries), the standard Huffman tables, a COM segment, and with
-    ``restart_interval`` > 0 a DRI segment and an RSTn marker every that
-    many blocks."""
+    """A baseline greyscale JFIF of quantized coefficients ``coef`` (one row
+    of 64 per 8x8 block, natural order, blocks row by row) of an h x w
+    image, with the (8, 8) quantization table ``quant`` (8-bit entries)
+    (``jpeg_from_components``)."""
+    import numpy as np
+
+    grid = np.asarray(coef).reshape(-(-h // 8), -(-w // 8), 64)
+    return jpeg_from_components([grid], [(1, 1)], [np.asarray(quant).reshape(-1)], h, w,
+                               restart_interval)
+
+
+def jpeg_from_components(grids, sampling, quants, h: int, w: int, restart_interval: int = 0,
+                         separate_scans: bool = False, adobe_rgb: bool = False) -> bytes:
+    """A baseline JPEG (SOF0) of an h x w image from each component's
+    quantized coefficients ``grids[c]`` (block rows, block columns, 64;
+    natural order), its (h, v) ``sampling`` factors and its quantization
+    table ``quants[c]`` (64 entries, natural order, 8 bits; the first
+    component's is table 0, the others share table 1, as do the Huffman
+    tables: the standard luminance ones for the first, chrominance for the
+    others), with a COM segment and JFIF (or, with ``adobe_rgb``, an Adobe
+    APP14 segment of transform 0). One component, or ``separate_scans``,
+    gives a scan per component over its downsampled blocks; otherwise one
+    interleaved scan of MCUs. ``restart_interval`` > 0 writes a DRI segment
+    and an RSTn marker every that many MCUs, numbered from 0 in each
+    scan."""
     import struct
 
     import numpy as np
 
-    n_blocks = coef.shape[0]
-    zz = np.asarray(coef)[:, list(JPEG_ZIGZAG)]
-    dc_codes = _huffman_codes(JPEG_DC_BITS, JPEG_DC_SYMBOLS)
-    ac_codes = _huffman_codes(JPEG_AC_BITS, JPEG_AC_SYMBOLS)
+    tables = [(_huffman_codes(JPEG_DC_BITS, JPEG_DC_SYMBOLS),
+               _huffman_codes(JPEG_AC_BITS, JPEG_AC_SYMBOLS)),
+              (_huffman_codes(JPEG_CHROMA_DC_BITS, JPEG_CHROMA_DC_SYMBOLS),
+               _huffman_codes(JPEG_CHROMA_AC_BITS, JPEG_CHROMA_AC_SYMBOLS))]
+    ncomp = len(grids)
+    hmax, vmax = max(f[0] for f in sampling), max(f[1] for f in sampling)
 
     def magnitude(v):
         s = abs(v).bit_length()
         return s, (v if v >= 0 else v + (1 << s) - 1)
 
-    def interval(rows) -> bytes:
-        """The entropy-coded data of a run of blocks, the DC predictor from
-        0, padded with 1-bits to a byte and byte-stuffed."""
-        codes, lengths, pred = [], [], 0
-        nz_blocks, nz_pos = np.nonzero(zz[rows, 1:])
-        nz_by_block = np.split(nz_pos + 1, np.searchsorted(nz_blocks, np.arange(1, len(rows))))
-        for b, nz in zip(rows.tolist(), nz_by_block):
-            s, m = magnitude(int(zz[b, 0]) - pred)
-            pred = int(zz[b, 0])
+    def interval(zz, slots) -> bytes:
+        """The entropy-coded data of a run of blocks (zig-zag rows ``zz``,
+        each of component ``slots[i]``), the DC predictors from 0, padded
+        with 1-bits to a byte and byte-stuffed."""
+        codes, lengths, pred = [], [], [0] * ncomp
+        nz_blocks, nz_pos = np.nonzero(zz[:, 1:])
+        nz_by_block = np.split(nz_pos + 1, np.searchsorted(nz_blocks, np.arange(1, len(zz))))
+        for b, (c, nz) in enumerate(zip(slots, nz_by_block)):
+            dc_codes, ac_codes = tables[min(c, 1)]
+            s, m = magnitude(int(zz[b, 0]) - pred[c])
+            pred[c] = int(zz[b, 0])
             code, length = dc_codes[s]
             codes.append((code << s) | m)
             lengths.append(length + s)
@@ -2518,30 +2614,160 @@ def jpeg_from_coefficients(coef, quant, h: int, w: int, restart_interval: int = 
         bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.int64)])
         return np.packbits(bits.astype(np.uint8)).tobytes().replace(b"\xff", b"\xff\x00")
 
-    per = restart_interval or n_blocks
-    data = b""
-    for i, start in enumerate(range(0, n_blocks, per)):
-        if i:
-            data += bytes((0xFF, 0xD0 + (i - 1) % 8))
-        data += interval(np.arange(start, min(start + per, n_blocks)))
-
     def segment(marker: int, body: bytes) -> bytes:
         return bytes((0xFF, marker)) + struct.pack(">H", len(body) + 2) + body
 
-    q_zz = bytes(int(np.asarray(quant).reshape(-1)[k]) for k in JPEG_ZIGZAG)
-    return (b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-            + segment(0xFE, b"chip_smoke.py baseline greyscale encoder")
-            + segment(0xDB, b"\x00" + q_zz)
-            + segment(0xC0, struct.pack(">BHHBBBB", 8, h, w, 1, 1, 0x11, 0))
-            + segment(0xC4, b"\x00" + bytes(JPEG_DC_BITS) + bytes(JPEG_DC_SYMBOLS)
-                      + b"\x10" + bytes(JPEG_AC_BITS) + JPEG_AC_SYMBOLS)
+    # Each scan: its components, and its blocks in coding order as (component,
+    # row of the zig-zag coefficients) with the blocks per MCU.
+    zig = [np.asarray(g).reshape(g.shape[0], g.shape[1], 64)[..., list(JPEG_ZIGZAG)]
+           for g in grids]
+    scans = []
+    if ncomp == 1 or separate_scans:
+        for c, (fh, fv) in enumerate(sampling):
+            rows, cols = -(-h * fv // (8 * vmax)), -(-w * fh // (8 * hmax))
+            scans.append(([c], zig[c][:rows, :cols].reshape(-1, 64), [c] * (rows * cols), 1))
+    else:
+        my, mx = -(-h // (8 * vmax)), -(-w // (8 * hmax))
+        parts, slots = [], []
+        for c, (fh, fv) in enumerate(sampling):
+            g = zig[c][: my * fv, : mx * fh].reshape(my, fv, mx, fh, 64).transpose(0, 2, 1, 3, 4)
+            parts.append(g.reshape(my * mx, fv * fh, 64))
+            slots += [c] * (fv * fh)
+        scans.append((list(range(ncomp)), np.concatenate(parts, axis=1).reshape(-1, 64),
+                      slots * (my * mx), len(slots)))
+
+    body = b""
+    for comps, zz, slots, per_mcu in scans:
+        per = (restart_interval or len(slots)) * per_mcu
+        data = b""
+        for i, start in enumerate(range(0, len(slots), per)):
+            if i:
+                data += bytes((0xFF, 0xD0 + (i - 1) % 8))
+            data += interval(zz[start : start + per], slots[start : start + per])
+        sos = bytes([len(comps)]) + b"".join(bytes((c + 1, 0x11 * min(c, 1))) for c in comps)
+        body += segment(0xDA, sos + bytes((0, 63, 0))) + data
+
+    marker = (segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, 0)) if adobe_rgb
+              else segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    q_zz = [bytes(int(np.asarray(q).reshape(-1)[k]) for k in JPEG_ZIGZAG) for q in quants]
+    dqt = b"\x00" + q_zz[0] + (b"\x01" + q_zz[1] if ncomp > 1 else b"")
+    sof = struct.pack(">BHHB", 8, h, w, ncomp) + b"".join(
+        bytes((c + 1, (fh << 4) | fv, min(c, 1))) for c, (fh, fv) in enumerate(sampling))
+    dht = (b"\x00" + bytes(JPEG_DC_BITS) + bytes(JPEG_DC_SYMBOLS)
+           + b"\x10" + bytes(JPEG_AC_BITS) + JPEG_AC_SYMBOLS)
+    if ncomp > 1:
+        dht += (b"\x01" + bytes(JPEG_CHROMA_DC_BITS) + bytes(JPEG_CHROMA_DC_SYMBOLS)
+                + b"\x11" + bytes(JPEG_CHROMA_AC_BITS) + JPEG_CHROMA_AC_SYMBOLS)
+    return (b"\xff\xd8" + marker + segment(0xFE, b"chip_smoke.py baseline encoder")
+            + segment(0xDB, dqt) + segment(0xC0, sof) + segment(0xC4, dht)
             + (segment(0xDD, struct.pack(">H", restart_interval)) if restart_interval else b"")
-            + segment(0xDA, bytes((1, 1, 0x00, 0, 63, 0))) + data + b"\xff\xd9")
+            + body + b"\xff\xd9")
 
 
 def write_jpeg(path, img, **kwargs) -> None:
     with open(path, "wb") as f:
         f.write(encode_jpeg(img, **kwargs))
+
+
+EXR_COMPRESSIONS = {"NONE": 0, "RLE": 1, "ZIPS": 2, "ZIP": 3}
+EXR_PIXEL_TYPES = {"UINT": (0, "<u4"), "HALF": (1, "<f2"), "FLOAT": (2, "<f4")}
+
+
+def _exr_rle(buf: bytes) -> bytes:
+    """OpenEXR's run-length code of ``buf``: a run of 3-128 equal bytes as
+    (its length - 1, the byte), other bytes in literal runs of up to 127
+    after their negated count."""
+    import numpy as np
+
+    a = np.frombuffer(buf, np.uint8)
+    starts = np.flatnonzero(np.r_[True, a[1:] != a[:-1]])
+    ends = np.r_[starts[1:], len(a)]
+    out, literal = bytearray(), bytearray()
+
+    def flush():
+        for i in range(0, len(literal), 127):
+            piece = literal[i : i + 127]
+            out.append(256 - len(piece))
+            out.extend(piece)
+        literal.clear()
+
+    for start, end in zip(starts.tolist(), ends.tolist()):
+        n = end - start
+        if n < 3:
+            literal.extend(buf[start:end])
+            continue
+        flush()
+        while n >= 3:
+            k = min(n, 128)
+            out += bytes((k - 1, a[start]))
+            n -= k
+        literal.extend(buf[end - n : end])
+    flush()
+    return bytes(out)
+
+
+def encode_exr(channels, compression: str = "ZIP", pixel_type: str = "FLOAT",
+               line_order: str = "INCREASING_Y", origin=(0, 0)) -> bytes:
+    """A single-part scanline OpenEXR file of ``channels``: a 2-D array (the
+    channel ``Y``) or a dict of equal-shaped 2-D arrays by channel name,
+    each stored as ``pixel_type`` (HALF, FLOAT or UINT) under
+    ``compression`` (NONE, RLE, ZIPS or ZIP: the bytes of a chunk split into
+    their even and odd positions, each byte stored as its difference from
+    the previous plus 128, then zlib or OpenEXR's runs; a chunk that does
+    not shrink stored raw), with the data window's top-left corner at
+    ``origin`` (x, y) and the chunks in ``line_order`` (INCREASING_Y or
+    DECREASING_Y; the offset table by increasing y either way)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if not isinstance(channels, dict):
+        channels = {"Y": channels}
+    names = sorted(channels)
+    height, width = np.asarray(channels[names[0]]).shape
+    code, dtype = EXR_PIXEL_TYPES[pixel_type]
+    x0, y0 = origin
+
+    def attr(name: str, kind: str, value: bytes) -> bytes:
+        return b"%s\x00%s\x00" % (name.encode(), kind.encode()) + struct.pack("<i", len(value)) + value
+
+    chlist = b"".join(n.encode() + b"\x00" + struct.pack("<iB3xii", code, 0, 1, 1)
+                      for n in names) + b"\x00"
+    window = struct.pack("<iiii", x0, y0, x0 + width - 1, y0 + height - 1)
+    header = (b"\x76\x2f\x31\x01" + struct.pack("<I", 2)
+              + attr("channels", "chlist", chlist)
+              + attr("compression", "compression", bytes((EXR_COMPRESSIONS[compression],)))
+              + attr("dataWindow", "box2i", window) + attr("displayWindow", "box2i", window)
+              + attr("lineOrder", "lineOrder", bytes((0 if line_order == "INCREASING_Y" else 1,)))
+              + attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+              + attr("screenWindowCenter", "v2f", struct.pack("<ff", 0.0, 0.0))
+              + attr("screenWindowWidth", "float", struct.pack("<f", 1.0)) + b"\x00")
+    planes = [np.asarray(channels[n]).astype(dtype) for n in names]
+    per = 16 if compression == "ZIP" else 1
+    chunks = []
+    for y in range(0, height, per):
+        raw = b"".join(p[r].tobytes() for r in range(y, min(y + per, height)) for p in planes)
+        packed = raw
+        if compression != "NONE":
+            b = np.frombuffer(raw, np.uint8)
+            split = np.concatenate([b[0::2], b[1::2]]).astype(np.int64)
+            diff = split.copy()
+            diff[1:] = (split[1:] - split[:-1] + 128) & 0xFF
+            diff = diff.astype(np.uint8).tobytes()
+            packed = _exr_rle(diff) if compression == "RLE" else zlib.compress(diff, 6)
+            if len(packed) >= len(raw):
+                packed = raw
+        chunks.append(struct.pack("<ii", y0 + y, len(packed)) + packed)
+    order = list(range(len(chunks)))
+    if line_order != "INCREASING_Y":
+        order.reverse()
+    offsets, at = [0] * len(chunks), len(header) + 8 * len(chunks)
+    for i in order:
+        offsets[i] = at
+        at += len(chunks[i])
+    return (header + struct.pack(f"<{len(chunks)}Q", *offsets)
+            + b"".join(chunks[i] for i in order))
 
 
 def mosaic_gb(rgb):
@@ -2619,15 +2845,39 @@ def write_robotcar_tree(root, size=ROBOTCAR_SIZE, n_frames: int = ROBOTCAR_FRAME
             "extrinsics_folder": str(root / "extrinsics")}
 
 
-def write_tum_tree(root, size=TUM_SIZE, n_frames: int = TUM_FRAMES, write=write_jpeg):
+def tum_depth(size, i: int):
+    """Frame ``i``'s depth on write_tum_tree's sequence at ``size``: the
+    plane's depth in metres, float32, 0 (no measurement) beyond
+    TUM_DEPTH_MAX."""
+    import numpy as np
+
+    h, w = size
+    k = np.array([[TUM_K[0] * w, 0, TUM_K[2] * w], [0, TUM_K[1] * h, TUM_K[3] * h], [0, 0, 1]])
+    _, depth = render_plane(k, (0.0, 0.0, TUM_STEP * i), size)
+    return np.where(depth < TUM_DEPTH_MAX, depth, 0.0).astype(np.float32)
+
+
+def tum_sampling(i: int):
+    """The chroma sampling of write_tum_tree's colour frame ``i``: 4:4:4 for
+    frame 0, 4:2:2 for frame 1, 4:2:0 for the rest."""
+    return (((1, 1), (1, 1), (1, 1)), ((2, 1), (1, 1), (1, 1)))[i] if i < 2 else (
+        (2, 2), (1, 1), (1, 1))
+
+
+def write_tum_tree(root, size=TUM_SIZE, n_frames: int = TUM_FRAMES, write=write_jpeg,
+                   colour: bool = False, depth=None):
     """A TUM mono VO sequence under ``root``: ``images/`` with ``n_frames``
-    greyscale JPEGs (the plane scene's mean over its channels, seen by a
-    camera moving TUM_STEP m forward per frame; every third file with a
-    restart interval of 61 blocks), ``times.txt``,
-    ``result.txt`` (the motion divided by TUM_SCALE), an identity
-    ``pcalib.txt`` and ``camera.txt`` with relative intrinsics after a
-    model name. ``write(path, array, **kwargs)`` writes each JPEG. Returns
-    the grey images."""
+    JPEGs of the plane scene seen by a camera moving TUM_STEP m forward per
+    frame (every third file with a restart interval of 61 MCUs), greyscale
+    (the scene's mean over its channels) or, with ``colour``, RGB at
+    ``tum_sampling``'s chroma sampling; ``times.txt``, ``result.txt`` (the
+    motion divided by TUM_SCALE), an identity ``pcalib.txt`` and
+    ``camera.txt`` with relative intrinsics after a model name.
+    ``write(path, array, **kwargs)`` writes each JPEG (``sampling`` among
+    the kwargs of a colour frame). ``depth`` maps frame indices to
+    ``encode_exr`` keyword arguments: each such frame gets
+    ``images_depth/<frame>_d.exr`` holding ``tum_depth``. Returns the
+    images."""
     from pathlib import Path
 
     import numpy as np
@@ -2639,13 +2889,19 @@ def write_tum_tree(root, size=TUM_SIZE, n_frames: int = TUM_FRAMES, write=write_
     times, result, images = [], [], []
     for i in range(n_frames):
         rgb, _ = render_plane(k, (0.0, 0.0, TUM_STEP * i), size)
-        grey = np.round(rgb.mean(axis=2)).astype(np.uint8)
-        restart = {"restart_interval": 61} if i % 3 == 0 else {}
-        write(root / "images" / f"{i:05d}.jpg", grey, **restart)
-        images.append(grey)
+        img = rgb if colour else np.round(rgb.mean(axis=2)).astype(np.uint8)
+        kwargs = {"restart_interval": 61} if i % 3 == 0 else {}
+        if colour:
+            kwargs["sampling"] = tum_sampling(i)
+        write(root / "images" / f"{i:05d}.jpg", img, **kwargs)
+        images.append(img)
         t = 1000.0 + 0.05 * i
         times.append(f"{i:05d} {t:.6f} 0.0200")
         result.append(f"{t:.6f} 0 0 {TUM_STEP * i / TUM_SCALE:.9f} 0 0 0 1")
+    for i, options in (depth or {}).items():
+        (root / "images_depth").mkdir(exist_ok=True)
+        (root / "images_depth" / f"{i:05d}_d.exr").write_bytes(
+            encode_exr(tum_depth(size, i), **options))
     (root / "times.txt").write_text("\n".join(times) + "\n")
     (root / "result.txt").write_text("\n".join(result) + "\n")
     (root / "pcalib.txt").write_text(" ".join(str(v) for v in range(256)) + "\n")
@@ -2928,7 +3184,7 @@ def phase_tum(dev, card: str, work, checkpoint) -> dict:
         f"{', '.join(f'{v:.1f}' for v in decode)} ms, median {statistics.median(decode):.3f} ms "
         f"(host clock, the host of {card}); mean |decoded - encoded source| "
         f"{', '.join(f'{v:.3f}' for v in diffs)} levels")
-    if max(diffs) > 2.0:
+    if max(diffs) > JPEG_LEVELS:
         raise AssertionError(f"{tag} the decoded images are off the encoded ones: {diffs}")
 
     # The main path: the shipped export config at F=4, 480x640.
@@ -3583,6 +3839,164 @@ def phase_kitti_path(dev, card: str, work, stage1_checkpoint, stage4_checkpoint)
             "grid_warp": stage2["grid_warp"]}
 
 
+TUM_DEPTH_SEQ_FRAMES = 12  # keyframes 2, 4, 6, 8 at F=4: two batches of 2
+# Phase 27's depth files, on every other frame: float32 Y under ZIP, and one
+# file each under NONE, RLE and ZIPS and one of HALF samples.
+TUM_DEPTH_FILES = {0: {"compression": "NONE"}, 2: {"compression": "ZIP"},
+                   4: {"compression": "RLE"}, 6: {"compression": "ZIP", "pixel_type": "HALF"},
+                   8: {"compression": "ZIPS"},
+                   10: {"compression": "ZIP", "line_order": "DECREASING_Y"}}
+
+
+def phase_tum_depth(dev, card: str, work, checkpoint) -> dict:
+    """Phase 27: evaluation on the card through ``cli.evaluate`` over a TUM
+    mono VO sequence of colour JPEGs with depth EXRs, ``only_keyframes``,
+    from phase 19's checkpoint. Returns K1's record at B=2, F=4, 480x640,
+    with its launches."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from monorec_tpu_torch import config as config_mod
+    from monorec_tpu_torch.cli import evaluate
+    from monorec_tpu_torch.data.exr import read_exr
+    from monorec_tpu_torch.data.jpeg import read_jpeg
+    from monorec_tpu_torch.eval import Evaluator
+    from monorec_tpu_torch.models import MonoRec
+    from monorec_tpu_torch.train.checkpoints import load_stage_checkpoints
+
+    tag = "[27 tum colour + depth]"
+    tree = Path(work) / "tum_depth"
+    n = TUM_DEPTH_SEQ_FRAMES
+    t = time.perf_counter()
+    images = write_tum_tree(tree, TUM_SIZE, n, colour=True, depth=TUM_DEPTH_FILES)
+    log(f"{tag} wrote a TUM mono VO sequence ({n} colour JPEGs at {TUM_SIZE[0]}x{TUM_SIZE[1]}, "
+        f"quality 90: frame 0 at 4:4:4, frame 1 at 4:2:2, the rest at 4:2:0, every third with "
+        f"restart markers; {len(TUM_DEPTH_FILES)} depth EXRs) in {time.perf_counter() - t:.2f} s")
+
+    # The host's decoders, each image held to what was written.
+    names = {(1, 1): "4:4:4", (2, 1): "4:2:2", (2, 2): "4:2:0"}
+    decode, diffs = [], []
+    for i in range(4):
+        path = tree / "images" / f"{i:05d}.jpg"
+        t = time.perf_counter()
+        img = read_jpeg(path)
+        decode.append((time.perf_counter() - t) * 1e3)
+        diffs.append(float(np.abs(img.astype(np.int64) - images[i]).mean()))
+        if img.shape != images[i].shape:
+            raise AssertionError(f"{tag} {path.name} decodes to {img.shape}")
+    log(f"{tag} read_jpeg per {TUM_SIZE[0]}x{TUM_SIZE[1]} colour image (frames 0-3: "
+        + ", ".join(f"{names[tum_sampling(i)[0]]}{' + restarts' if i % 3 == 0 else ''} "
+                    f"{v:.1f} ms" for i, v in enumerate(decode))
+        + f") (host clock, the host of {card}); mean |decoded - encoded source| "
+        f"{', '.join(f'{v:.3f}' for v in diffs)} levels")
+    if max(diffs) > JPEG_LEVELS:
+        raise AssertionError(f"{tag} the decoded images are off the encoded ones: {diffs}")
+    exr_ms = []
+    for i, options in TUM_DEPTH_FILES.items():
+        path = tree / "images_depth" / f"{i:05d}_d.exr"
+        want = tum_depth(TUM_SIZE, i)
+        if options.get("pixel_type") == "HALF":
+            want = want.astype(np.float16).astype(np.float32)
+        t = time.perf_counter()
+        got = read_exr(path)
+        exr_ms.append((time.perf_counter() - t) * 1e3)
+        if got.dtype != np.float32 or not np.array_equal(got, want):
+            raise AssertionError(f"{tag} {path.name} ({options}) does not read back as written")
+    log(f"{tag} read_exr per {TUM_SIZE[0]}x{TUM_SIZE[1]} depth file: " + ", ".join(
+        f"{o['compression']}{' ' + o['pixel_type'] if 'pixel_type' in o else ''}"
+        f"{' decreasing y' if 'line_order' in o else ''} {v:.1f} ms "
+        f"({(tree / 'images_depth' / f'{i:05d}_d.exr').stat().st_size / 2**20:.2f} MiB)"
+        for (i, o), v in zip(TUM_DEPTH_FILES.items(), exr_ms))
+        + f" (host clock, the host of {card}); each equal to the written array")
+
+    # The main path: cli.evaluate with eval_monorec.json's metrics and batch
+    # size over the shipped tmvo data arguments, only the keyframes.
+    with open("configs/test/pointcloud_monorec_tmvo.json") as f:
+        data_args = json.load(f)["data_set"]["args"]
+    th, tw = data_args["target_image_size"]
+    n_samples = 4
+    n_batches = n_samples // 2
+
+    def eval_copy(name, **extra):
+        with open("configs/evaluate/eval_monorec.json") as f:
+            config = json.load(f)
+        config["models"][0]["args"]["checkpoint_location"] = [str(checkpoint)]
+        loader = config["data_loader"]["args"]
+        config["data_loader"] = {"type": "TUMMonoVODataset", "args": dict(
+            data_args, dataset_dir=str(tree), only_keyframes=True,
+            batch_size=loader["batch_size"], shuffle=False, validation_split=0,
+            num_workers=loader["num_workers"], **extra)}
+        config["evaluater"].update(save_dir=str(Path(work) / name), verbosity=0)
+        path = write_config(Path(work) / f"{name}.json", config)
+        return path, Path(work) / name / "log" / config["name"] / config["timestamp_replacement"]
+
+    def run(name, device, batches, **extra):
+        path, run_dir = eval_copy(name, **extra)
+        t = time.perf_counter()
+        evaluate.main(["-c", path, "--device", device])
+        wall = time.perf_counter() - t
+        result = json.loads((run_dir / "results_0.json").read_text())["metrics"]
+        log(f"{tag} cli.evaluate on {device}: {batches} batch(es) of 2 keyframes at {th}x{tw}, "
+            f"F=4, D={D} in {wall:.3f} s (host clock, the CLI whole); valid_batches "
+            f"{result['valid_batches']}, num_samples {result['num_samples']}; " + ", ".join(
+                f"{k} {result[k]:.6f}" for k in result if k.endswith("_metric")))
+        if not (len(result["metrics"]) == 7 and all(math.isfinite(v) for v in result["metrics"])
+                and result["valid_batches"] == batches and result["num_samples"] == 2 * batches):
+            raise AssertionError(f"{tag} the evaluation's results are off: {result}")
+        return path, result
+
+    # The main path, on the card.
+    reset_counts()
+    path, _ = run("tum_depth_card", str(dev), n_batches)
+    counts = launch_counts()
+    if counts != only(plane_sweep_cost_volume=n_batches):
+        raise AssertionError(f"{tag} the evaluation launched {counts}, expected "
+                             f"plane_sweep_cost_volume once per batch ({n_batches})")
+    # The first batch on the card and on the CPU (the plain versions).
+    first = {where: run(f"tum_depth_first_{where}", device, 1, start=0, end=2)[1]
+             for where, device in (("card", str(dev)), ("cpu", "cpu"))}
+    g, c = np.asarray(first["card"]["metrics"]), np.asarray(first["cpu"]["metrics"])
+    rel = np.abs(g - c) / np.where(c == 0, 1.0, np.abs(c))
+    log(f"{tag} first batch, card vs CPU: max relative diff {rel.max():.3e} (metrics "
+        f"{', '.join(f'{v:.6f}' for v in g)} vs {', '.join(f'{v:.6f}' for v in c)})")
+    if not np.isclose(g, c, rtol=EVAL_RTOL, atol=0).all():
+        raise AssertionError(f"{tag} the card's evaluation disagrees with the CPU's")
+
+    # The eval forward per batch, and the evaluate loop's pace and busy share.
+    with open(path) as f:
+        config = json.load(f)
+    model_cfg, locations = config_mod.build_models(config)[0]
+    net = MonoRec(model_cfg, dev)
+    load_stage_checkpoints(net, locations)
+    net.eval()
+    loader = config_mod.build_data_loader(config["data_loader"], dev)
+    batch = next(iter(loader))
+    if not (batch["target"] > 0).any():
+        raise AssertionError(f"{tag} the first batch's depth targets are all zero")
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: net(batch), 10)
+    log(f"{tag} eval forward, batch 2 at {th}x{tw}, D={D}, F=4: {fwd_ms:.3f} ms per batch (CUDA "
+        f"events, 10 calls) on {card}")
+    evaluator = Evaluator(net, config_mod.build_metrics(config), config, loader,
+                          Path(work) / "tum_depth_timing")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    evaluator.eval()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    window_ms, busy_ms = busy_window(evaluator.eval)
+    log(f"{tag} evaluate loop from the tree ({loader.num_workers} workers): {n_samples} "
+        f"keyframes in {wall:.3f} s = {n_samples / wall:.3f} keyframes/s (host clock); profiled "
+        f"pass: device busy {busy_ms:.1f} of {window_ms:.1f} ms = "
+        f"{100 * busy_ms / window_ms:.1f}% on {card}")
+    record = k1_hold(dev, card, tag, batch, 4)
+    del net, batch, evaluator
+    torch.cuda.empty_cache()
+    return dict(record, launches=counts["plane_sweep_cost_volume"])
+
+
 def main() -> int:
     import torch
 
@@ -3848,6 +4262,11 @@ def main() -> int:
         records["plane_sweep_cost_volume"]["kitti_path_launches"] = (
             kitti_counts["plane_sweep_cost_volume"])
         records["grid_warp_crop_c32"]["kitti_path_launches"] = kitti_counts["grid_warp"]
+        torch.cuda.empty_cache()
+
+        # ---- 27. TUM mono VO with colour and depth through cli.evaluate ----
+        records["plane_sweep_cost_volume_tum_depth"] = phase_tum_depth(dev, card, run_dir,
+                                                                       stage4_checkpoint)
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
     for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
@@ -3868,6 +4287,8 @@ def main() -> int:
                                             "monorec_tpu/ops/pallas/cv_kernel.py:600"),
         "plane_sweep_cost_volume_f4_480x640": ("plane_sweep_sad.cu",
                                                "monorec_tpu/ops/pallas/cv_kernel.py:600"),
+        "plane_sweep_cost_volume_tum_depth": ("plane_sweep_sad.cu",
+                                              "monorec_tpu/ops/pallas/cv_kernel.py:600"),
         "grid_warp": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:421"),
         "grid_warp_jac": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:431"),
         "grid_warp_grad": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:444"),

@@ -4,18 +4,23 @@ within float rounding). It reads DSO ``result.txt`` trajectories (timestamp,
 translation, xyzw quaternion) matched to the frames of ``times.txt``, the
 relative intrinsics of ``camera.txt`` (a model name may come before the
 numbers), and inverts the photometric calibration of ``pcalib.txt``. Each
-greyscale JPEG goes through ``data.jpeg.read_jpeg`` (PIL's bytes), the
-centre crop to the target's aspect and Pillow's bilinear resize
-(``data.resize.crop_resize_bilinear``), replicated to three channels (PIL's
-``convert("RGB")``), then the per-sample colour jitter and the calibration
-lookup on 0..255 levels. The original size comes from the frame header
-(``data.jpeg.jpeg_size``). Also the multi-directory wrapper.
+JPEG, greyscale or colour, goes through ``data.jpeg.read_jpeg`` (PIL's
+bytes), the centre crop to the target's aspect and Pillow's bilinear
+resize (``data.resize.crop_resize_bilinear``; a greyscale image resized
+once and replicated to three channels, PIL's ``convert("RGB")``), then the
+per-sample colour jitter and the calibration lookup on 0..255 levels. The
+original size comes from the frame header (``data.jpeg.jpeg_size``). Also
+the multi-directory wrapper.
 
-Depth comes from ``images_depth/<frame>_d.exr``, which the JAX reader reads
-with cv2 where it exists; the port has no EXR reader. Where a frame's EXR is
-absent the target is zeros, as in the JAX reader; where it is present, and
-for ``only_keyframes`` (which takes its keyframes from the EXRs), the reader
-raises ``NotImplementedError`` naming the gap.
+Depth comes from ``images_depth/<frame>_d.exr`` where that file exists
+(zeros where it does not), read by ``data.exr.read_exr`` (what cv2 returns
+where it is built with OpenEXR), its first channel of three, cropped by the
+image's crop box, then max-pooled 2x2 where the cropped height is twice
+the target's, else resized with Pillow's float bilinear
+(``data.resize.resize_bilinear_float``), and clamped at 0.
+``only_keyframes`` takes the frames with a depth file as keyframes, by the
+files' names. Where the JAX reader's cv2 cannot decode a file it gives
+zeros; the port raises naming why.
 """
 
 from __future__ import annotations
@@ -27,13 +32,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from monorec_tpu_torch.data.color_jitter import apply_color_jitter, sample_color_jitter
+from monorec_tpu_torch.data.exr import read_exr
 from monorec_tpu_torch.data.jpeg import jpeg_size, read_jpeg
 from monorec_tpu_torch.data.kitti import compute_crop_and_intrinsics
 from monorec_tpu_torch.data.pose_interp import matrix_from_quat
-from monorec_tpu_torch.data.resize import crop_resize_bilinear
-
-_NO_EXR = ("the port has no EXR reader: images_depth/*.exr (TUM mono VO depth, and "
-           "only_keyframes, which selects keyframes by them) is not ported yet")
+from monorec_tpu_torch.data.resize import crop_resize_bilinear, resize_bilinear_float
 
 
 class TUMMonoVODataset:
@@ -68,11 +71,8 @@ class TUMMonoVODataset:
 
         self._offset = (frame_count // 2) * dilation
         if only_keyframes:
-            # The keyframes are the frames with a depth EXR: none, or raise.
-            if any((self.root / "images_depth").glob("*.exr")):
-                raise NotImplementedError(_NO_EXR)
-            self._keyframe_index = np.zeros(0, np.int64)
-            self.length = 0
+            self._keyframe_index = self._build_keyframe_index()
+            self.length = len(self._keyframe_index)
         else:
             self.length = self._result.shape[0] - frame_count * dilation
             if max_length is not None:
@@ -122,6 +122,19 @@ class TUMMonoVODataset:
             idx[i] = cur
         return idx
 
+    def _build_keyframe_index(self) -> np.ndarray:
+        out = []
+        pos = 0
+        for p in sorted((self.root / "images_depth").glob("*.exr")):
+            img_i = int(p.stem[:5])
+            while pos < len(self._image_index) and self._image_index[pos] < img_i:
+                pos += 1
+            lo = (self.frame_count // 2) * self.dilation
+            hi = len(self._image_index) - (self.frame_count // 2 + 1) * self.dilation
+            if lo <= pos < hi:
+                out.append(pos)
+        return np.asarray(out)
+
     def _build_poses(self) -> np.ndarray:
         n = self._result.shape[0]
         poses = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
@@ -133,9 +146,11 @@ class TUMMonoVODataset:
 
     def _image(self, i: int, jitter) -> np.ndarray:
         path = self.root / "images" / f"{self._image_index[i]:05d}.jpg"
-        # The channels of convert("RGB") are equal: resize once, then copy.
-        grey = crop_resize_bilinear(read_jpeg(path), self._crop_box, self.target_image_size)
-        arr = np.repeat(grey[..., None], 3, axis=-1).astype(np.float32) / 255.0
+        img = crop_resize_bilinear(read_jpeg(path), self._crop_box, self.target_image_size)
+        if img.ndim == 2:
+            # The channels of convert("RGB") are equal: resize once, then copy.
+            img = np.repeat(img[..., None], 3, axis=-1)
+        arr = img.astype(np.float32) / 255.0
         if jitter is not None:
             arr = apply_color_jitter(arr, jitter)
         # Photometric calibration inversion on 0..255 levels.
@@ -146,9 +161,19 @@ class TUMMonoVODataset:
     def _depth(self, i: int) -> np.ndarray:
         th, tw = self.target_image_size
         p = self.root / "images_depth" / f"{self._image_index[i]:05d}_d.exr"
-        if p.is_file():
-            raise NotImplementedError(f"{p}: {_NO_EXR}")
-        return np.zeros((th, tw, 1), np.float32)
+        if not p.is_file():
+            return np.zeros((th, tw, 1), np.float32)
+        d = read_exr(p)
+        if d.ndim == 3:
+            d = d[..., 0]
+        l, t, r, b = self._crop_box
+        d = d[t:b, l:r]
+        if d.shape[0] == 2 * th:
+            d = d.reshape(th, 2, tw, 2).max(axis=(1, 3))
+        else:
+            d = resize_bilinear_float(d, (th, tw))
+        d = np.maximum(d, 0.0)
+        return d[..., None].astype(np.float32)
 
     # ------------------------------------------------------------------
 

@@ -66,8 +66,10 @@ def test_readers_read_without_pil_cv2_or_jax(reader, tmp_path):
     if reader == "OxfordRobotCarDataset":
         args = dict(torch_trees.write_robotcar(tmp_path), cutout=[0, 0, 0, 0])
     elif reader == "TUMMonoVODataset":
-        args = {"dataset_dir": str(torch_trees.write_tum_mono(tmp_path)),
-                "target_image_size": list(torch_trees.TARGET)}
+        # Colour JPEGs, and sample 0's keyframe (frame 1) with a depth EXR.
+        tree = torch_trees.write_tum_mono(tmp_path, colour=True,
+                                          depth={1: {"compression": "ZIP"}})
+        args = {"dataset_dir": str(tree), "target_image_size": list(torch_trees.TARGET)}
     else:
         args = {"dataset_dir": str(torch_trees.write_tum_rgbd(tmp_path))}
     proc = subprocess.run(

@@ -1,5 +1,5 @@
-"""The port's baseline greyscale JPEG decoder (``data/jpeg.py``) against PIL
-(libjpeg-turbo), byte for byte.
+"""The port's baseline JPEG decoder (``data/jpeg.py``) against PIL
+(libjpeg-turbo), byte for byte, greyscale and colour.
 
 Files written by PIL at qualities 10-100, at sizes that are and are not
 multiples of 8, plain, with restart markers every few blocks or every block
@@ -9,7 +9,13 @@ written by ``chip_smoke.encode_jpeg`` (the card's machine has no JPEG
 writer); coefficients written directly (``jpeg_from_coefficients``), up to
 where the IDCT's values leave [-512, 511] (PIL's SIMD IDCT and the C code
 part there, see the module).
-Colour, progressive, arithmetic-coded and non-JPEG files raise.
+Colour: files written by PIL at 4:4:4, 4:2:2 and 4:2:0, qualities 50-100,
+at odd sizes and at widths whose chroma is 1-2 samples wide (where
+libjpeg-turbo upsamples by replication), with restart intervals; files
+written by ``chip_smoke.encode_jpeg``, which PIL cannot write: 4:4:0
+(h1v2), mixed sampling factors, each component in a scan of its own, and
+Adobe transform-0 RGB; and the same encoder's 4:2:0 files decoded by PIL.
+CMYK, progressive, arithmetic-coded and non-JPEG files raise.
 """
 
 import numpy as np
@@ -88,6 +94,79 @@ def test_read_jpeg_on_written_coefficients(tmp_path, amp):
         _assert_decodes_like_pil(path)
 
 
+COLOUR_SIZES = ((16, 16), (37, 53), (9, 17), (5, 1), (3, 2), (7, 3), (2, 4), (1, 130))
+
+
+def _colour_images(h, w, seed):
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    smooth = np.stack([128 + 60 * np.sin(x / 7.0 + c) * np.cos(y / 5.0) for c in range(3)], -1)
+    smooth = np.clip(smooth + rng.normal(0, 6, (h, w, 3)), 0, 255).astype(np.uint8)
+    return {"smooth": smooth, "noise": rng.integers(0, 256, (h, w, 3), dtype=np.uint8)}
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2], ids=["444", "422", "420"])
+@pytest.mark.parametrize("quality", [50, 90, 100])
+def test_read_jpeg_colour_matches_pil(tmp_path, quality, subsampling):
+    """Widths 1-4 leave chroma 1-2 samples wide at 4:2:x: libjpeg-turbo then
+    replicates instead of its triangle filter."""
+    for s, (h, w) in enumerate(COLOUR_SIZES):
+        for kind, img in _colour_images(h, w, s).items():
+            for option in ("plain", "restart_blocks", "optimize"):
+                path = tmp_path / f"{h}x{w}_{kind}_{option}.jpg"
+                Image.fromarray(img).save(path, quality=quality, subsampling=subsampling,
+                                          **OPTIONS[option])
+                _assert_decodes_like_pil(path)
+
+
+SAMPLINGS = {
+    "h1v2": ((1, 2), (1, 1), (1, 1)),
+    "mixed": ((2, 2), (2, 1), (1, 2)),
+    "chroma_finer": ((1, 1), (2, 2), (1, 1)),
+    "h2v2": ((2, 2), (1, 1), (1, 1)),
+}
+
+
+@pytest.mark.parametrize("separate", [False, True], ids=["interleaved", "separate_scans"])
+@pytest.mark.parametrize("sampling", sorted(SAMPLINGS))
+def test_chip_smoke_colour_encoder_decodes_alike(tmp_path, sampling, separate):
+    """What PIL cannot write: 4:4:0, sampling factors that differ between
+    the chroma components, each component in a scan of its own; with and
+    without restart intervals (counted in MCUs when interleaved)."""
+    for s, (h, w) in enumerate(COLOUR_SIZES + ((64, 96),)):
+        img = _colour_images(h, w, s)["smooth"]
+        for restart in (0, 1, 5):
+            path = tmp_path / f"{h}x{w}_{restart}.jpg"
+            path.write_bytes(chip_smoke.encode_jpeg(img, 90, restart, SAMPLINGS[sampling],
+                                                    separate))
+            _assert_decodes_like_pil(path)
+
+
+def test_read_jpeg_adobe_rgb(tmp_path):
+    """An Adobe APP14 segment with transform 0 and no JFIF: the components
+    are R, G and B, not converted."""
+    for s, (h, w) in enumerate(COLOUR_SIZES):
+        img = _colour_images(h, w, s)["smooth"]
+        for sampling in (SAMPLINGS["h2v2"], ((1, 1),) * 3):
+            path = tmp_path / f"{h}x{w}.jpg"
+            path.write_bytes(chip_smoke.encode_jpeg(img, 95, 0, sampling, adobe_rgb=True))
+            assert b"Adobe" in path.read_bytes() and b"JFIF" not in path.read_bytes()
+            _assert_decodes_like_pil(path)
+
+
+def test_chip_smoke_colour_encoder_quality(tmp_path):
+    """PIL decodes the encoder's default files (4:2:0, as phase 27 writes
+    most frames) as the port does, near the source."""
+    y, x = np.mgrid[0:64, 0:96]
+    img = np.stack([128 + 60 * np.sin(x / 9.0 + c) * np.cos(y / 7.0) for c in range(3)], -1)
+    img = np.round(img).astype(np.uint8)
+    for restart in (0, 61):
+        path = tmp_path / f"{restart}.jpg"
+        chip_smoke.write_jpeg(path, img, quality=90, restart_interval=restart)
+        _assert_decodes_like_pil(path)
+        assert np.abs(read_jpeg(path).astype(int) - img).mean() < 2
+
+
 def test_range_limit_table():
     """jdmaster.c's post-IDCT table: x + 128 clamped for x in [-512, 511]."""
     x = np.arange(-512, 512)
@@ -95,8 +174,8 @@ def test_range_limit_table():
                                   np.clip(x + 128, 0, 255))
 
 
-def _colour(path):
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(path)
+def _cmyk(path):
+    Image.fromarray(np.zeros((16, 16, 4), np.uint8), "CMYK").save(path)
 
 
 def _progressive(path):
@@ -126,7 +205,7 @@ def _truncated_header(path):
 
 
 @pytest.mark.parametrize("write,message", [
-    (_colour, "colour JPEG is not supported"), (_progressive, "progressive"),
+    (_cmyk, "CMYK/YCCK JPEG is not supported"), (_progressive, "progressive"),
     (_arithmetic, "arithmetic-coded"), (_png, "not a JPEG"), (_truncated_scan, "ends inside block"),
     (_truncated_header, "ends before its scan"),
 ])

@@ -10,14 +10,19 @@ as ``tests/test_torch_kitti.py`` holds it).
   restart markers), read at 32x64, ``camera.txt`` with a model name before
   the intrinsics; with and without the jitter, several windows, the
   shipped export config's arguments, and the multi-directory wrapper.
-* The depth EXRs, which the JAX reader reads with cv2 and the port cannot:
-  the port raises where a frame's EXR exists, and for ``only_keyframes``
-  over EXRs.
+* The depth EXRs (``chip_smoke.encode_exr``: every compression, pixel type
+  and line order the port reads, a three-channel file, a data window off
+  the origin), which the JAX reader reads with cv2: a cv2 built without
+  OpenEXR returns None for them, so the tests stub ``cv2.imread`` to return
+  the written arrays, and hold the port's decode, crop, 2x2 max or float
+  resize, clamp and ``only_keyframes`` index to the JAX reader's.
+* A colour tree (PIL's JPEGs at 4:4:4, 4:2:2 and 4:2:0) with depth files.
 """
 
 import numpy as np
 import pytest
 
+import chip_smoke
 from monorec_tpu.data.tum_mono_vo import TUMMonoVODataset as JMonoVO
 from monorec_tpu.data.tum_mono_vo import TUMMonoVOMultiDataset as JMonoVOMulti
 from monorec_tpu.data.tum_rgbd import TUMRGBDDataset as JRGBD
@@ -83,23 +88,104 @@ def test_mono_vo_multi_matches_jax(mono):
     np.testing.assert_array_equal(port[len(port) // 2 + 1]["keyframe"], port[1]["keyframe"])
 
 
-def test_exr_depth_raises_where_jax_reads_one(mono, tmp_path):
-    import shutil
+# The depth files of the EXR trees: every other frame, in each compression,
+# pixel type and line order the reader takes; frame 2's holds R, G and B
+# (the reader takes cv2's channel 0, B) in a data window off the origin.
+DEPTH = {0: {"compression": "ZIP"}, 2: {"compression": "ZIP", "origin": (5, -3)},
+         4: {"compression": "RLE", "pixel_type": "HALF"},
+         6: {"compression": "ZIPS", "line_order": "DECREASING_Y"}, 8: {"compression": "NONE"}}
 
-    root = tmp_path / "seq"
-    shutil.copytree(mono, root)
-    args = dict(target_image_size=torch_trees.TARGET, color_augmentation=False)
-    (root / "images_depth").mkdir()
-    (root / "images_depth" / "00003_d.exr").write_bytes(b"v/1\x01 not read here")
+
+def _write_depth_tree(root, colour: bool):
+    """A TUM tree with DEPTH's files, and what cv2 returns for each file."""
+    torch_trees.write_tum_mono(root, colour=colour, depth=DEPTH)
+    written = {}
+    for i, options in DEPTH.items():
+        path = root / "images_depth" / f"{i:05d}_d.exr"
+        d = chip_smoke.tum_depth(torch_trees.TUM_RAW, i)
+        if i == 2:
+            path.write_bytes(chip_smoke.encode_exr({"R": 2 * d, "G": 3 * d, "B": d}, **options))
+            d = np.stack([d, 3 * d, 2 * d], axis=-1)
+        if options.get("pixel_type") == "HALF":
+            d = d.astype(np.float16).astype(np.float32)
+        written[str(path)] = d
+    return root, written
+
+
+@pytest.fixture(scope="module")
+def depth_tree(tmp_path_factory):
+    return _write_depth_tree(tmp_path_factory.mktemp("depth"), colour=False)
+
+
+@pytest.fixture(scope="module")
+def colour_tree(tmp_path_factory):
+    return _write_depth_tree(tmp_path_factory.mktemp("colour"), colour=True)
+
+
+def _stub_cv2(monkeypatch, written):
+    """cv2.imread returns the written arrays, as a cv2 built with OpenEXR
+    does (one built without it returns None, and the JAX reader zeros)."""
+    import cv2
+
+    def imread(path, flags):
+        assert flags == cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH
+        return written[str(path)].copy()
+
+    monkeypatch.setattr(cv2, "imread", imread)
+
+
+# The 60x80 frames crop to 40x80: a target of 20x40 takes the 2x2 max, one
+# of 32x64 Pillow's float resize.
+DEPTH_CASES = {
+    "resize": dict(target_image_size=torch_trees.TARGET),
+    "max_pool": dict(target_image_size=(20, 40)),
+    "keyframes_resize": dict(target_image_size=torch_trees.TARGET, only_keyframes=True),
+    "keyframes_max_pool_f4": dict(target_image_size=(20, 40), only_keyframes=True,
+                                  frame_count=4),
+    "keyframes_dilation2": dict(target_image_size=torch_trees.TARGET, only_keyframes=True,
+                                dilation=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEPTH_CASES))
+def test_exr_depth_matches_jax(depth_tree, case, monkeypatch):
+    root, written = depth_tree
+    _stub_cv2(monkeypatch, written)
+    args = dict(DEPTH_CASES[case], color_augmentation=False)
     port, ref = TUMMonoVODataset(str(root), **args), JMonoVO(str(root), **args)
-    # Sample 0's keyframe is frame 1: no EXR, zeros in both.
+    if args.get("only_keyframes"):
+        np.testing.assert_array_equal(port._keyframe_index, ref._keyframe_index)
+    _assert_samples_equal(port, ref)
+    targets = np.stack([port[i]["target"] for i in range(len(port))])
+    assert (targets > 0).any() and (targets == 0).any()  # depth, and its holes
+
+
+COLOUR_CASES = {
+    "shipped_tmvo": MONO_CASES["shipped_tmvo"],
+    "jitter_keyframes": dict(target_image_size=torch_trees.TARGET, color_augmentation=True,
+                             seed=5, only_keyframes=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COLOUR_CASES))
+def test_mono_vo_colour_matches_jax(colour_tree, case, monkeypatch):
+    """Colour JPEGs written by PIL (4:4:4, 4:2:2, 4:2:0, some with restart
+    markers), which the JAX reader decodes with PIL, with the depth files."""
+    root, written = colour_tree
+    _stub_cv2(monkeypatch, written)
+    args = COLOUR_CASES[case]
+    port, ref = TUMMonoVODataset(str(root), **args), JMonoVO(str(root), **args)
+    _assert_samples_equal(port, ref, jitter=args.get("color_augmentation", True))
+    frames = port[0]["frames"]
+    assert not np.array_equal(frames[..., 0], frames[..., 1])  # colour, not grey
+
+
+def test_exr_depth_absent_and_no_keyframes(mono):
+    """Without depth files the targets are zeros and only_keyframes selects
+    nothing, in both readers."""
+    args = dict(target_image_size=torch_trees.TARGET, color_augmentation=False)
+    port, ref = TUMMonoVODataset(str(mono), **args), JMonoVO(str(mono), **args)
     np.testing.assert_array_equal(port[0]["target"], ref[0]["target"])
     assert not port[0]["target"].any()
-    ref[2]  # the JAX reader reads frame 3's EXR with cv2
-    with pytest.raises(NotImplementedError, match="EXR"):
-        port[2]
-    with pytest.raises(NotImplementedError, match="EXR"):
-        TUMMonoVODataset(str(root), only_keyframes=True, **args)
-    # No EXRs at all: only_keyframes selects nothing, in both.
     assert len(TUMMonoVODataset(str(mono), only_keyframes=True, **args)) == len(
         JMonoVO(str(mono), only_keyframes=True, **args)) == 0

@@ -27,8 +27,14 @@ def pil_png(path, array):
     Image.fromarray(np.ascontiguousarray(array)).save(path)
 
 
-def pil_jpeg(path, array, restart_interval: int = 0):
+# chip_smoke's (h, v) sampling factors of the luma -> PIL's ``subsampling``.
+PIL_SUBSAMPLING = {(1, 1): 0, (2, 1): 1, (2, 2): 2}
+
+
+def pil_jpeg(path, array, restart_interval: int = 0, sampling=None):
     extra = {"restart_marker_blocks": restart_interval} if restart_interval else {}
+    if sampling is not None:
+        extra["subsampling"] = PIL_SUBSAMPLING[sampling[0]]
     Image.fromarray(np.ascontiguousarray(array)).save(path, quality=90, **extra)
 
 
@@ -41,8 +47,12 @@ def write_robotcar(root) -> dict:
     return args
 
 
-def write_tum_mono(root) -> Path:
-    chip_smoke.write_tum_tree(root, TUM_RAW, TUM_FRAMES, write=pil_jpeg)
+def write_tum_mono(root, colour: bool = False, depth=None) -> Path:
+    """chip_smoke's TUM mono VO tree at TUM_RAW with PIL's JPEGs (colour at
+    4:4:4, 4:2:2 and 4:2:0 with ``colour``) and the depth files ``depth``
+    names (``chip_smoke.write_tum_tree``)."""
+    chip_smoke.write_tum_tree(root, TUM_RAW, TUM_FRAMES, write=pil_jpeg, colour=colour,
+                              depth=depth)
     return Path(root)
 
 
