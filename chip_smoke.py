@@ -189,8 +189,13 @@ checkout, then:
    and the loader's wait per step) with the config's 8 workers (the main
    path) and with 1; then serves the golden sample through
    ``cli.inference_example --data --checkpoint`` with phase 19's
-   checkpoint (K1 once per forward; the three PNGs read back at 256x512;
-   ``depth.png`` within 1 level of a CPU forward on 99.9% of its pixels);
+   checkpoint and with its copy in the reference's save form (``module.``
+   keys, ``arch`` ``DataParallel``, a pickled ``parse_config.ConfigParser``
+   holding ``PosixPath`` folders; ``reference_copies``), each loaded model
+   equal tensor for tensor to the port-format load, as is one from a bare
+   state dict in the legacy format (K1 once per forward; the three PNGs
+   read back at 256x512; ``depth.png`` within 1 level of a CPU forward on
+   99.9% of its pixels);
 27. TUM mono VO with colour and depth: writes a sequence of 12 colour
    JPEGs at 1280x1024 with its own encoder (quality 90; frame 0 at 4:4:4,
    frame 1 at 4:2:2, the rest at 4:2:0; every third with restart markers)
@@ -207,7 +212,18 @@ checkout, then:
    cost-volume launch per batch, 7 finite metrics, every batch valid) and
    over its first batch on the card and on the CPU (within rtol 1e-3);
    times the eval forward and the evaluate loop (keyframes/s, busy share);
-   holds K1 at 480x640, B=2, F=4 to its plain version and times it.
+   holds K1 at 480x640, B=2, F=4 to its plain version and times it;
+28. progressive and CMYK JPEG: writes a TUM mono VO sequence of 8 JPEGs at
+   1280x1024 with its own encoder (``PROGRESSIVE_TUM_FILES``: progressive
+   colour at 4:2:0 with libjpeg's scan script, progressive greyscale,
+   progressive with restart markers, CMYK at 4:4:4 and with C at 2x2, YCCK,
+   progressive CMYK, and a sequential frame) with depth EXRs on its two
+   keyframes; times ``read_jpeg`` per kind, holds each image to its source
+   within phase 23's gate and each progressive file bit for bit to its
+   baseline twin (the same quantized coefficients, written sequential);
+   runs ``cli.evaluate`` as phase 27 does over the tree on the card (the
+   main path, one batch of 2 keyframes: one K1 launch; keyframes/s and
+   the busy share over the CLI whole) and on the CPU (within rtol 1e-3).
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -2489,50 +2505,70 @@ def _forward_dct(plane, quant):
     return np.round(dct @ blocks @ dct.T / q).astype(np.int64).reshape(rows, cols, 64)
 
 
-def encode_jpeg(img, quality: int = 90, restart_interval: int = 0,
-                sampling=((2, 2), (1, 1), (1, 1)), separate_scans: bool = False,
-                adobe_rgb: bool = False) -> bytes:
-    """A baseline JPEG of an (H, W) greyscale or (H, W, 3) RGB uint8 array:
-    the standard tables (Annex K: luminance for the first component,
+def encode_jpeg(img, quality: int = 90, restart_interval: int = 0, sampling=None,
+                separate_scans: bool = False, adobe_rgb: bool = False, progressive=False,
+                ycck: bool = False) -> bytes:
+    """A JPEG of an (H, W) greyscale, (H, W, 3) RGB or (H, W, 4) CMYK uint8
+    array: the standard tables (Annex K: luminance for the first component,
     chrominance for the others) at ``quality``, with ``restart_interval`` >
     0 an RSTn marker every that many MCUs (``jpeg_from_components``).
     Colour is YCbCr (JFIF) with each component's (h, v) ``sampling``
-    factors (1 or 2; the default is 4:2:0), the chroma averaged over the
-    pixels each sample covers, all components in one interleaved scan or,
-    with ``separate_scans``, each in a scan of its own; ``adobe_rgb``
-    writes the RGB samples untransformed under an Adobe APP14 segment with
-    transform 0 instead of JFIF."""
+    factors (1 or 2; the default is 4:2:0, the first component at 2x2 and
+    the others at 1x1; for YCCK Y and K at 2x2), a downsampled component
+    averaged over the pixels
+    each sample covers, all components in one interleaved scan or, with
+    ``separate_scans``, each in a scan of its own; ``adobe_rgb`` writes the
+    RGB samples untransformed under an Adobe APP14 segment with transform 0
+    instead of JFIF. CMYK is written as PIL writes and reads it, inverted
+    (255 - v), under Adobe transform 0, every component with the luminance
+    tables, or with ``ycck`` under transform 2: Y, Cb and Cr of the array's
+    C, M and Y taken as R, G and B, then the inverted K, Y and K with the
+    luminance tables (libjpeg's choices). ``progressive`` (a scan script, or True for
+    ``progressive_script``'s) writes a progressive file of the same
+    quantized coefficients as the sequential one."""
     import numpy as np
 
     img = np.asarray(img, np.uint8)
     h, w = img.shape[:2]
-    if img.ndim == 2:
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    if channels == 1:
         bh, bw = -(-h // 8), -(-w // 8)
         padded = np.pad(img, ((0, bh * 8 - h), (0, bw * 8 - w)), mode="edge").astype(np.float64)
         quant = jpeg_quant_table(quality)
         return jpeg_from_components([_forward_dct(padded, quant)], [(1, 1)], [quant], h, w,
-                                    restart_interval)
+                                    restart_interval, progressive=progressive)
+    # libjpeg's jpeg_set_colorspace: CMYK reads the luminance tables for
+    # every component, YCCK for Y and K.
+    table_of = {3: [0, 1, 1], 4: [0, 1, 1, 0] if ycck else [0, 0, 0, 0]}[channels]
+    sampling = list(sampling or [(2, 2)] + [(1, 1)] * (channels - 1 - ycck) + [(2, 2)] * ycck)
     hmax, vmax = max(f[0] for f in sampling), max(f[1] for f in sampling)
     my, mx = -(-h // (8 * vmax)), -(-w // (8 * hmax))
-    rgb = np.pad(img, ((0, my * 8 * vmax - h), (0, mx * 8 * hmax - w), (0, 0)),
-                 mode="edge").astype(np.float64)
-    if adobe_rgb:
-        planes = [rgb[..., c] for c in range(3)]
+    px = np.pad(img, ((0, my * 8 * vmax - h), (0, mx * 8 * hmax - w), (0, 0)),
+                mode="edge").astype(np.float64)
+    adobe = None
+    if channels == 4:
+        adobe = 2 if ycck else 0
+        rgb = px[..., :3] if ycck else None
+        planes = [255.0 - px[..., c] for c in range(4)]
     else:
+        rgb = None if adobe_rgb else px
+        planes = [px[..., c] for c in range(3)]
+        adobe = 0 if adobe_rgb else None
+    if rgb is not None:
         r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-        planes = [0.299 * r + 0.587 * g + 0.114 * b,
-                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
-                  0.5 * r - 0.418688 * g - 0.081312 * b + 128.0]
+        planes[:3] = [0.299 * r + 0.587 * g + 0.114 * b,
+                      -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
+                      0.5 * r - 0.418688 * g - 0.081312 * b + 128.0]
     grids, quants = [], []
     for c, (fh, fv) in enumerate(sampling):
         sy, sx = vmax // fv, hmax // fh
         p = planes[c]
         p = p.reshape(p.shape[0] // sy, sy, p.shape[1] // sx, sx).mean(axis=(1, 3))
-        quant = jpeg_quant_table(quality, JPEG_LUMA_QUANT if c == 0 else JPEG_CHROMA_QUANT)
+        quant = jpeg_quant_table(quality, (JPEG_LUMA_QUANT, JPEG_CHROMA_QUANT)[table_of[c]])
         grids.append(_forward_dct(p, quant))
         quants.append(quant)
-    return jpeg_from_components(grids, list(sampling), quants, h, w, restart_interval,
-                                separate_scans, adobe_rgb)
+    return jpeg_from_components(grids, sampling, quants, h, w, restart_interval,
+                                separate_scans, adobe, progressive, table_of)
 
 
 def jpeg_from_coefficients(coef, quant, h: int, w: int, restart_interval: int = 0) -> bytes:
@@ -2547,121 +2583,342 @@ def jpeg_from_coefficients(coef, quant, h: int, w: int, restart_interval: int = 
                                restart_interval)
 
 
+def progressive_script(ncomp: int, ycc: bool = True) -> list:
+    """libjpeg's ``jpeg_simple_progression`` as (components, Ss, Se, Ah, Al)
+    scans: for YCbCr colour the DC of all components at Al=1; luma 1-5 at
+    Al=2; chroma 1-63 at Al=1; luma 6-63 at Al=2; luma 1-63 from Al=2 to 1;
+    the DC's last bit; chroma and then luma 1-63 to Al=0. For one component,
+    four or an RGB file: the DC at Al=1, each component's 1-5 and then 6-63
+    at Al=2, 1-63 to Al=1, the DC's last bit, 1-63 to Al=0."""
+    comps = tuple(range(ncomp))
+    if ncomp == 3 and ycc:
+        return [(comps, 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                (comps, 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                ((0,), 1, 63, 1, 0)]
+    return ([(comps, 0, 0, 0, 1)] + [((c,), 1, 5, 0, 2) for c in comps]
+            + [((c,), 6, 63, 0, 2) for c in comps] + [((c,), 1, 63, 2, 1) for c in comps]
+            + [(comps, 0, 0, 1, 0)] + [((c,), 1, 63, 1, 0) for c in comps])
+
+
+def optimal_huffman(freq: dict) -> tuple:
+    """``jchuff.c::jpeg_gen_optimal_table`` (Annex K.2): the counts of codes
+    of each length 1-16 and the symbols of a Huffman table for the symbol
+    frequencies ``freq``, no code longer than 16 bits and none all ones."""
+    f = [0] * 257
+    for sym, n in freq.items():
+        f[sym] = n
+    f[256] = 1  # reserves the all-ones code
+    size, others = [0] * 257, [-1] * 257
+    while True:
+        live = [i for i in range(257) if f[i]]
+        if len(live) < 2:
+            break
+        c1 = min(live, key=lambda i: (f[i], -i))  # the smallest; the largest index on ties
+        c2 = min((i for i in live if i != c1), key=lambda i: (f[i], -i))
+        f[c1] += f[c2]
+        f[c2] = 0
+        for c in (c1, c2):
+            size[c] += 1
+            while others[c] >= 0:
+                c = others[c]
+                size[c] += 1
+        c = c1
+        while others[c] >= 0:
+            c = others[c]
+        others[c] = c2
+    bits = [0] * 33
+    for s in size:
+        if s:
+            bits[s] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1  # the reserved code
+    symbols = [s for n in range(1, 33) for s in range(256) if size[s] == n]
+    return tuple(bits[1:17]), bytes(symbols)
+
+
+def _pack_bits(codes, lengths) -> bytes:
+    """The bit strings (code, length), in order, padded with 1-bits to a
+    byte and byte-stuffed."""
+    import numpy as np
+
+    codes, lengths = np.asarray(codes, np.int64), np.asarray(lengths, np.int64)
+    starts = np.cumsum(lengths) - lengths
+    idx = np.arange(int(lengths.sum())) - np.repeat(starts, lengths)
+    bits = (np.repeat(codes, lengths) >> (np.repeat(lengths, lengths) - 1 - idx)) & 1
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.int64)])
+    return np.packbits(bits.astype(np.uint8)).tobytes().replace(b"\xff", b"\xff\x00")
+
+
+def _magnitude(v: int) -> tuple:
+    """(category, magnitude bits) of a coefficient or DC difference."""
+    s = abs(v).bit_length()
+    return s, (v if v >= 0 else v + (1 << s) - 1)
+
+
+def _progressive_tokens(zz, slots, ss: int, se: int, ah: int, al: int) -> list:
+    """The coded data of a run of blocks (zig-zag rows ``zz``, block ``i``
+    of component ``slots[i]``) in one progressive scan, as ``jcphuff.c``
+    codes it: (symbol or -1, value, its bits) tokens, a symbol followed by
+    ``bits`` raw bits of ``value``. The DC predictors, EOBRUN and the
+    buffered correction bits start from nothing and are flushed at the
+    end."""
+    import numpy as np
+
+    out = []
+    if ss == 0 and ah:  # DC refinement: the next bit of each DC
+        return [(-1, (int(v) >> al) & 1, 1) for v in zz[:, 0]]
+    if ss == 0:  # DC first: the differences of the DC shifted right by Al
+        pred = {}
+        for c, v in zip(slots, zz[:, 0].tolist()):
+            s, m = _magnitude((v >> al) - pred.get(c, 0))
+            pred[c] = v >> al
+            out.append((s, m, s))
+        return out
+    eob = [0, []]  # EOBRUN and the buffered correction bits BE
+
+    def flush():
+        if eob[0]:
+            nb = eob[0].bit_length() - 1
+            out.append((nb << 4, eob[0] & ((1 << nb) - 1), nb))
+            out.extend((-1, b, 1) for b in eob[1])
+            eob[0], eob[1] = 0, []
+
+    mag = np.abs(zz[:, ss : se + 1]) >> al  # the point transform
+    rows, cols = np.nonzero(mag)
+    per_block = np.split(cols, np.searchsorted(rows, np.arange(1, len(zz))))
+    for b, nz in enumerate(per_block):
+        m, sign = mag[b].tolist(), (zz[b, ss : se + 1] >= 0).tolist()
+        last = -1
+        if not ah:  # AC first
+            for k in nz.tolist():
+                run = k - last - 1
+                flush()
+                while run > 15:
+                    out.append((0xF0, 0, 0))
+                    run -= 16
+                v = m[k] if sign[k] else -m[k]
+                s, bits = _magnitude(v)
+                out.append(((run << 4) | s, bits, s))
+                last = k
+            if last < se - ss:
+                eob[0] += 1
+                if eob[0] == 0x7FFF:
+                    flush()
+            continue
+        # AC refinement: a new coefficient is 1 at this precision, an old one
+        # gives its next bit, buffered until the next symbol.
+        end = max([k for k in nz.tolist() if m[k] == 1], default=-1)
+        run, buffered = 0, []
+        for k in nz.tolist():
+            run += k - last - 1
+            last = k
+            while run > 15 and k <= end:
+                flush()
+                out.append((0xF0, 0, 0))
+                run -= 16
+                out.extend((-1, x, 1) for x in buffered)
+                buffered = []
+            if m[k] > 1:
+                buffered.append(m[k] & 1)
+                continue
+            flush()
+            out.append(((run << 4) | 1, int(sign[k]), 1))
+            out.extend((-1, x, 1) for x in buffered)
+            buffered, run = [], 0
+        run += se - ss - last
+        if run > 0 or buffered:
+            eob[0] += 1
+            eob[1] += buffered
+            if eob[0] == 0x7FFF or len(eob[1]) > 1000 - 64 + 1:
+                flush()
+    flush()
+    return out
+
+
 def jpeg_from_components(grids, sampling, quants, h: int, w: int, restart_interval: int = 0,
-                         separate_scans: bool = False, adobe_rgb: bool = False) -> bytes:
-    """A baseline JPEG (SOF0) of an h x w image from each component's
-    quantized coefficients ``grids[c]`` (block rows, block columns, 64;
-    natural order), its (h, v) ``sampling`` factors and its quantization
-    table ``quants[c]`` (64 entries, natural order, 8 bits; the first
-    component's is table 0, the others share table 1, as do the Huffman
-    tables: the standard luminance ones for the first, chrominance for the
-    others), with a COM segment and JFIF (or, with ``adobe_rgb``, an Adobe
-    APP14 segment of transform 0). One component, or ``separate_scans``,
-    gives a scan per component over its downsampled blocks; otherwise one
-    interleaved scan of MCUs. ``restart_interval`` > 0 writes a DRI segment
-    and an RSTn marker every that many MCUs, numbered from 0 in each
-    scan."""
+                         separate_scans: bool = False, adobe=None, progressive=False,
+                         table_of=None) -> bytes:
+    """A JPEG of an h x w image from each component's quantized
+    coefficients ``grids[c]`` (block rows, block columns, 64; natural
+    order), its (h, v) ``sampling`` factors and its quantization table
+    ``quants[c]`` (64 entries, natural order, 8 bits), with a COM segment
+    and JFIF (or, with ``adobe`` not None, an Adobe APP14 segment of that
+    transform). ``table_of[c]`` is component c's table number, 0 or 1, for
+    its quantization and Huffman tables (the components of one number share
+    the first one's quantization table); by default 0 for the first
+    component and 1 for the others. Sequential (SOF0): the standard
+    luminance Huffman tables for table 0, chrominance for table 1; one
+    component, or ``separate_scans``, gives a scan per
+    component over its downsampled blocks, otherwise one interleaved scan of
+    MCUs. Progressive (SOF2): ``progressive`` is the scan script,
+    (components, Ss, Se, Ah, Al) per scan, or True for
+    ``progressive_script``'s, each scan with Huffman tables made for it
+    (``optimal_huffman``) in a DHT segment before it, as libjpeg writes
+    them. ``restart_interval`` > 0 writes a DRI segment and an RSTn marker
+    every that many MCUs, numbered from 0 in each scan."""
     import struct
 
     import numpy as np
 
-    tables = [(_huffman_codes(JPEG_DC_BITS, JPEG_DC_SYMBOLS),
-               _huffman_codes(JPEG_AC_BITS, JPEG_AC_SYMBOLS)),
-              (_huffman_codes(JPEG_CHROMA_DC_BITS, JPEG_CHROMA_DC_SYMBOLS),
-               _huffman_codes(JPEG_CHROMA_AC_BITS, JPEG_CHROMA_AC_SYMBOLS))]
     ncomp = len(grids)
+    table_of = list(table_of or [0] + [1] * (ncomp - 1))
     hmax, vmax = max(f[0] for f in sampling), max(f[1] for f in sampling)
-
-    def magnitude(v):
-        s = abs(v).bit_length()
-        return s, (v if v >= 0 else v + (1 << s) - 1)
-
-    def interval(zz, slots) -> bytes:
-        """The entropy-coded data of a run of blocks (zig-zag rows ``zz``,
-        each of component ``slots[i]``), the DC predictors from 0, padded
-        with 1-bits to a byte and byte-stuffed."""
-        codes, lengths, pred = [], [], [0] * ncomp
-        nz_blocks, nz_pos = np.nonzero(zz[:, 1:])
-        nz_by_block = np.split(nz_pos + 1, np.searchsorted(nz_blocks, np.arange(1, len(zz))))
-        for b, (c, nz) in enumerate(zip(slots, nz_by_block)):
-            dc_codes, ac_codes = tables[min(c, 1)]
-            s, m = magnitude(int(zz[b, 0]) - pred[c])
-            pred[c] = int(zz[b, 0])
-            code, length = dc_codes[s]
-            codes.append((code << s) | m)
-            lengths.append(length + s)
-            last = 0
-            for k in nz.tolist():
-                run = k - last - 1
-                while run > 15:
-                    code, length = ac_codes[0xF0]
-                    codes.append(code)
-                    lengths.append(length)
-                    run -= 16
-                s, m = magnitude(int(zz[b, k]))
-                code, length = ac_codes[(run << 4) | s]
-                codes.append((code << s) | m)
-                lengths.append(length + s)
-                last = k
-            if last < 63:
-                code, length = ac_codes[0x00]
-                codes.append(code)
-                lengths.append(length)
-        codes, lengths = np.asarray(codes, np.int64), np.asarray(lengths, np.int64)
-        starts = np.cumsum(lengths) - lengths
-        idx = np.arange(int(lengths.sum())) - np.repeat(starts, lengths)
-        bits = (np.repeat(codes, lengths) >> (np.repeat(lengths, lengths) - 1 - idx)) & 1
-        bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.int64)])
-        return np.packbits(bits.astype(np.uint8)).tobytes().replace(b"\xff", b"\xff\x00")
+    if progressive is True:
+        progressive = progressive_script(ncomp, ycc=adobe is None)
 
     def segment(marker: int, body: bytes) -> bytes:
         return bytes((0xFF, marker)) + struct.pack(">H", len(body) + 2) + body
 
-    # Each scan: its components, and its blocks in coding order as (component,
-    # row of the zig-zag coefficients) with the blocks per MCU.
-    zig = [np.asarray(g).reshape(g.shape[0], g.shape[1], 64)[..., list(JPEG_ZIGZAG)]
-           for g in grids]
-    scans = []
-    if ncomp == 1 or separate_scans:
-        for c, (fh, fv) in enumerate(sampling):
+    def scan_blocks(comps):
+        """The blocks of a scan of ``comps`` in coding order as (zig-zag
+        rows, their components, blocks per MCU)."""
+        if len(comps) == 1:
+            c = comps[0]
+            fh, fv = sampling[c]
             rows, cols = -(-h * fv // (8 * vmax)), -(-w * fh // (8 * hmax))
-            scans.append(([c], zig[c][:rows, :cols].reshape(-1, 64), [c] * (rows * cols), 1))
-    else:
+            return zig[c][:rows, :cols].reshape(-1, 64), [c] * (rows * cols), 1
         my, mx = -(-h // (8 * vmax)), -(-w // (8 * hmax))
         parts, slots = [], []
-        for c, (fh, fv) in enumerate(sampling):
+        for c in comps:
+            fh, fv = sampling[c]
             g = zig[c][: my * fv, : mx * fh].reshape(my, fv, mx, fh, 64).transpose(0, 2, 1, 3, 4)
             parts.append(g.reshape(my * mx, fv * fh, 64))
             slots += [c] * (fv * fh)
-        scans.append((list(range(ncomp)), np.concatenate(parts, axis=1).reshape(-1, 64),
-                      slots * (my * mx), len(slots)))
+        return (np.concatenate(parts, axis=1).reshape(-1, 64), slots * (my * mx), len(slots))
 
-    body = b""
-    for comps, zz, slots, per_mcu in scans:
+    def intervals(slots, per_mcu):
         per = (restart_interval or len(slots)) * per_mcu
-        data = b""
-        for i, start in enumerate(range(0, len(slots), per)):
-            if i:
-                data += bytes((0xFF, 0xD0 + (i - 1) % 8))
-            data += interval(zz[start : start + per], slots[start : start + per])
-        sos = bytes([len(comps)]) + b"".join(bytes((c + 1, 0x11 * min(c, 1))) for c in comps)
-        body += segment(0xDA, sos + bytes((0, 63, 0))) + data
+        return [slice(start, start + per) for start in range(0, len(slots), per)]
 
-    marker = (segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, 0)) if adobe_rgb
-              else segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    def with_restarts(pieces) -> bytes:
+        return b"".join((bytes((0xFF, 0xD0 + (i - 1) % 8)) if i else b"") + p
+                        for i, p in enumerate(pieces))
+
+    zig = [np.asarray(g).reshape(g.shape[0], g.shape[1], 64)[..., list(JPEG_ZIGZAG)]
+           for g in grids]
+    body = b""
+    if not progressive:
+        tables = [(_huffman_codes(JPEG_DC_BITS, JPEG_DC_SYMBOLS),
+                   _huffman_codes(JPEG_AC_BITS, JPEG_AC_SYMBOLS)),
+                  (_huffman_codes(JPEG_CHROMA_DC_BITS, JPEG_CHROMA_DC_SYMBOLS),
+                   _huffman_codes(JPEG_CHROMA_AC_BITS, JPEG_CHROMA_AC_SYMBOLS))]
+
+        def interval(zz, slots) -> bytes:
+            """The entropy-coded data of a run of blocks (zig-zag rows
+            ``zz``, each of component ``slots[i]``), the DC predictors from
+            0."""
+            codes, lengths, pred = [], [], [0] * ncomp
+            nz_blocks, nz_pos = np.nonzero(zz[:, 1:])
+            nz_by_block = np.split(nz_pos + 1, np.searchsorted(nz_blocks, np.arange(1, len(zz))))
+            for b, (c, nz) in enumerate(zip(slots, nz_by_block)):
+                dc_codes, ac_codes = tables[table_of[c]]
+                s, m = _magnitude(int(zz[b, 0]) - pred[c])
+                pred[c] = int(zz[b, 0])
+                code, length = dc_codes[s]
+                codes.append((code << s) | m)
+                lengths.append(length + s)
+                last = 0
+                for k in nz.tolist():
+                    run = k - last - 1
+                    while run > 15:
+                        code, length = ac_codes[0xF0]
+                        codes.append(code)
+                        lengths.append(length)
+                        run -= 16
+                    s, m = _magnitude(int(zz[b, k]))
+                    code, length = ac_codes[(run << 4) | s]
+                    codes.append((code << s) | m)
+                    lengths.append(length + s)
+                    last = k
+                if last < 63:
+                    code, length = ac_codes[0x00]
+                    codes.append(code)
+                    lengths.append(length)
+            return _pack_bits(codes, lengths)
+
+        for comps in ([[c] for c in range(ncomp)] if ncomp == 1 or separate_scans
+                      else [list(range(ncomp))]):
+            zz, slots, per_mcu = scan_blocks(comps)
+            data = with_restarts(interval(zz[i], slots[i]) for i in intervals(slots, per_mcu))
+            sos = bytes([len(comps)]) + b"".join(bytes((c + 1, 0x11 * table_of[c])) for c in comps)
+            body += segment(0xDA, sos + bytes((0, 63, 0))) + data
+        dht = (b"\x00" + bytes(JPEG_DC_BITS) + bytes(JPEG_DC_SYMBOLS)
+               + b"\x10" + bytes(JPEG_AC_BITS) + JPEG_AC_SYMBOLS)
+        if 1 in table_of:
+            dht += (b"\x01" + bytes(JPEG_CHROMA_DC_BITS) + bytes(JPEG_CHROMA_DC_SYMBOLS)
+                    + b"\x11" + bytes(JPEG_CHROMA_AC_BITS) + JPEG_CHROMA_AC_SYMBOLS)
+        body = segment(0xC4, dht) + body
+    else:
+        for comps, ss, se, ah, al in progressive:
+            zz, slots, per_mcu = scan_blocks(list(comps))
+            pieces = [(_progressive_tokens(zz[i], slots[i], ss, se, ah, al), slots[i])
+                      for i in intervals(slots, per_mcu)]
+            # One table per table number the scan reads: DC for a first DC
+            # scan, AC for an AC scan, none for a DC refinement.
+            kind = 0 if ss == 0 else 1
+            freq = {}
+            for tokens, slots_i in pieces:
+                it = iter(slots_i)
+                for sym, _, _ in tokens:
+                    if sym >= 0:
+                        t = table_of[next(it) if kind == 0 else comps[0]]
+                        freq.setdefault(t, {})
+                        freq[t][sym] = freq[t].get(sym, 0) + 1
+            codes_of, dht = {}, b""
+            for t in sorted(freq):
+                bits, symbols = optimal_huffman(freq[t])
+                codes_of[t] = _huffman_codes(bits, symbols)
+                dht += bytes([(kind << 4) | t]) + bytes(bits) + symbols
+            data = []
+            for tokens, slots_i in pieces:
+                codes, lengths, it = [], [], iter(slots_i)
+                for sym, value, nbits in tokens:
+                    if sym < 0:
+                        codes.append(value)
+                        lengths.append(nbits)
+                        continue
+                    t = table_of[next(it) if kind == 0 else comps[0]]
+                    code, length = codes_of[t][sym]
+                    codes.append((code << nbits) | value)
+                    lengths.append(length + nbits)
+                data.append(_pack_bits(codes, lengths))
+            sos = bytes([len(comps)]) + b"".join(bytes((c + 1, 0x11 * table_of[c])) for c in comps)
+            body += ((segment(0xC4, dht) if dht else b"")
+                     + segment(0xDA, sos + bytes((ss, se, (ah << 4) | al))) + with_restarts(data))
+
+    marker = (segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe))
+              if adobe is not None else
+              segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
     q_zz = [bytes(int(np.asarray(q).reshape(-1)[k]) for k in JPEG_ZIGZAG) for q in quants]
-    dqt = b"\x00" + q_zz[0] + (b"\x01" + q_zz[1] if ncomp > 1 else b"")
+    dqt = b"".join(bytes([t]) + q_zz[table_of.index(t)] for t in sorted(set(table_of)))
     sof = struct.pack(">BHHB", 8, h, w, ncomp) + b"".join(
-        bytes((c + 1, (fh << 4) | fv, min(c, 1))) for c, (fh, fv) in enumerate(sampling))
-    dht = (b"\x00" + bytes(JPEG_DC_BITS) + bytes(JPEG_DC_SYMBOLS)
-           + b"\x10" + bytes(JPEG_AC_BITS) + JPEG_AC_SYMBOLS)
-    if ncomp > 1:
-        dht += (b"\x01" + bytes(JPEG_CHROMA_DC_BITS) + bytes(JPEG_CHROMA_DC_SYMBOLS)
-                + b"\x11" + bytes(JPEG_CHROMA_AC_BITS) + JPEG_CHROMA_AC_SYMBOLS)
-    return (b"\xff\xd8" + marker + segment(0xFE, b"chip_smoke.py baseline encoder")
-            + segment(0xDB, dqt) + segment(0xC0, sof) + segment(0xC4, dht)
+        bytes((c + 1, (fh << 4) | fv, table_of[c])) for c, (fh, fv) in enumerate(sampling))
+    return (b"\xff\xd8" + marker + segment(0xFE, b"chip_smoke.py JPEG encoder")
+            + segment(0xDB, dqt) + segment(0xC2 if progressive else 0xC0, sof)
             + (segment(0xDD, struct.pack(">H", restart_interval)) if restart_interval else b"")
             + body + b"\xff\xd9")
+
+
+def rgb_to_cmyk(rgb):
+    """PIL's ``convert("CMYK")`` of an (H, W, 3) uint8 RGB array
+    (``Convert.c::rgb2cmyk``): C, M and Y the complements of R, G and B, K
+    0; its ``convert("RGB")`` gives ``rgb`` back."""
+    import numpy as np
+
+    rgb = np.asarray(rgb, np.uint8)
+    return np.concatenate([255 - rgb, np.zeros_like(rgb[..., :1])], -1)
 
 
 def write_jpeg(path, img, **kwargs) -> None:
@@ -3771,11 +4028,56 @@ def kitti_stage2(dev, card: str, work, tree, stage1_checkpoint, num_workers: int
     return counts
 
 
+def reference_copies(checkpoint, work) -> dict:
+    """Phase 19's checkpoint as the reference's trainer saves one (its
+    ``base/base_trainer.py``): the keys under ``module.``, ``arch``
+    ``DataParallel`` and ``config`` a ``parse_config.ConfigParser`` with
+    ``PosixPath`` folders, a class the phase makes in a module of that name
+    that exists only for the ``torch.save``; and a bare state dict in the
+    legacy (before torch 1.6) format. Returns their paths by name."""
+    import collections
+    import pathlib
+    import types
+    from pathlib import Path
+
+    import torch
+
+    from monorec_tpu_torch.train.checkpoints import load_checkpoint
+
+    payload = load_checkpoint(checkpoint, "cpu")
+    module = types.ModuleType("parse_config")
+
+    class ConfigParser:
+        def __init__(self, config, save_dir):
+            self._config = collections.OrderedDict(config)
+            self.resume = None
+            self._save_dir = pathlib.PosixPath(save_dir) / "models"
+            self._log_dir = pathlib.PosixPath(save_dir) / "log"
+
+    ConfigParser.__module__, ConfigParser.__qualname__ = "parse_config", "ConfigParser"
+    module.ConfigParser = ConfigParser
+    paths = {"reference": Path(work) / "reference_format.pth",
+             "bare": Path(work) / "bare_state_dict.pth"}
+    sys.modules["parse_config"] = module
+    try:
+        torch.save({"arch": "DataParallel", "epoch": payload["epoch"],
+                    "state_dict": {f"module.{k}": v for k, v in payload["state_dict"].items()},
+                    "optimizer": payload["optimizer"], "monitor_best": payload["monitor_best"],
+                    "config": ConfigParser(payload["config"], work)}, paths["reference"])
+    finally:
+        del sys.modules["parse_config"]
+    torch.save(payload["state_dict"], paths["bare"], _use_new_zipfile_serialization=False)
+    return paths
+
+
 def phase_golden_sample(dev, card: str, work, tree, checkpoint) -> int:
     """``cli.inference_example --data`` on phase 26's tree from phase 19's
-    checkpoint on the card; its three PNGs read back, ``depth.png`` held to
-    a CPU forward of the same sample normalised the same way. Returns K1's
-    launches (one per forward: the warm-up and the timed one)."""
+    checkpoint on the card, and from its copy in the reference's save form
+    (``reference_copies``); their three PNGs read back, ``depth.png`` held
+    to a CPU forward of the same sample normalised the same way. The model
+    loaded from each copy (and from the bare state dict) holds the same
+    tensors as from the port's file. Returns K1's launches (one per
+    forward: the warm-up and the timed one, per file)."""
     import contextlib
     import io
     from pathlib import Path
@@ -3787,36 +4089,53 @@ def phase_golden_sample(dev, card: str, work, tree, checkpoint) -> int:
     from monorec_tpu_torch.data.png import read_png
     from monorec_tpu_torch.data.synthetic import batch_to_torch
 
-    out_dir = Path(work) / "example"
-    printed = io.StringIO()
-    reset_counts()
-    with contextlib.redirect_stdout(printed):
-        ie.main(["--device", str(dev), "--data", str(tree), "--index", str(GOLDEN_INDEX),
-                 "--checkpoint", str(checkpoint), "--out", str(out_dir), "--height", str(H),
-                 "--width", str(W), "--depth-steps", str(D)])
-    counts = launch_counts()
-    if counts != only(plane_sweep_cost_volume=2):
-        raise AssertionError(f"the golden sample launched {counts}, expected K1 once for each "
-                             f"of its 2 forwards")
-    pngs = {n: read_png(out_dir / f"{n}.png") for n in ("depth", "mask", "kf")}
-    shapes = {n: a.shape for n, a in pngs.items()}
-    if shapes != {"depth": (H, W), "mask": (H, W), "kf": (H, W, 3)}:
-        raise AssertionError(f"the golden sample's PNGs are {shapes}")
+    copies = reference_copies(checkpoint, work)
+    own = ie.build_model(ie.model_config(D), "cpu", checkpoint=checkpoint).state_dict()
+    for name, path in copies.items():
+        # Seed 1: a tensor the file did not fill would differ.
+        got = ie.build_model(ie.model_config(D), "cpu", seed=1, checkpoint=path).state_dict()
+        same = [k for k, v in own.items() if torch.equal(got[k], v)]
+        log(f"[26 KITTI path] {name} copy of phase 19's checkpoint "
+            f"({path.stat().st_size / 2**20:.1f} MiB): {len(same)} of {len(own)} tensors equal "
+            f"to the port-format load")
+        if len(same) != len(own):
+            raise AssertionError(f"the {name} copy loads other tensors than the port's file")
     model = ie.build_model(ie.model_config(D), "cpu", checkpoint=checkpoint)
     batch = batch_to_torch(ie.kitti_sample(tree, GOLDEN_INDEX, (H, W)), "cpu")
     with torch.inference_mode():
         cpu = ie.to_grey(model(batch)["result"][0, 0])
-    diff = np.abs(pngs["depth"].astype(int) - cpu)
-    share = float((diff <= GOLDEN_LEVELS).mean())
-    latency = next(line for line in printed.getvalue().splitlines() if "Inference took" in line)
-    log(f"[26 KITTI path] golden sample: cli.inference_example --data --index {GOLDEN_INDEX} "
-        f"(keyframe {int(batch['image_id'][0, 0])}) --checkpoint <phase 19's>: {latency}; K1 "
-        f"launches {counts['plane_sweep_cost_volume']} for 2 forwards; depth.png vs the CPU "
-        f"forward: max {diff.max()} levels, {100 * share:.4f}% within {GOLDEN_LEVELS}; mask.png "
-        f"levels {pngs['mask'].min()}-{pngs['mask'].max()} on {card}")
-    if share < GOLDEN_SHARE:
-        raise AssertionError("the card's depth.png disagrees with the CPU forward")
-    return counts["plane_sweep_cost_volume"]
+    launches = 0
+    for name, path in (("port", checkpoint), ("reference", copies["reference"])):
+        out_dir = Path(work) / f"example_{name}"
+        printed = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(printed):
+            ie.main(["--device", str(dev), "--data", str(tree), "--index", str(GOLDEN_INDEX),
+                     "--checkpoint", str(path), "--out", str(out_dir), "--height", str(H),
+                     "--width", str(W), "--depth-steps", str(D)])
+        counts = launch_counts()
+        if counts != only(plane_sweep_cost_volume=2):
+            raise AssertionError(f"the golden sample launched {counts}, expected K1 once for "
+                                 f"each of its 2 forwards")
+        launches += counts["plane_sweep_cost_volume"]
+        pngs = {n: read_png(out_dir / f"{n}.png") for n in ("depth", "mask", "kf")}
+        shapes = {n: a.shape for n, a in pngs.items()}
+        if shapes != {"depth": (H, W), "mask": (H, W), "kf": (H, W, 3)}:
+            raise AssertionError(f"the golden sample's PNGs are {shapes}")
+        diff = np.abs(pngs["depth"].astype(int) - cpu)
+        share = float((diff <= GOLDEN_LEVELS).mean())
+        latency = next(line for line in printed.getvalue().splitlines()
+                       if "Inference took" in line)
+        log(f"[26 KITTI path] golden sample: cli.inference_example --data --index {GOLDEN_INDEX} "
+            f"(keyframe {int(batch['image_id'][0, 0])}) --checkpoint <phase 19's, {name} "
+            f"format>: {latency}; K1 launches {counts['plane_sweep_cost_volume']} for 2 "
+            f"forwards; depth.png vs the CPU forward: max {diff.max()} levels, "
+            f"{100 * share:.4f}% within {GOLDEN_LEVELS}; mask.png levels "
+            f"{pngs['mask'].min()}-{pngs['mask'].max()} on {card}")
+        if share < GOLDEN_SHARE:
+            raise AssertionError(f"the card's depth.png ({name} format) disagrees with the CPU "
+                                 "forward")
+    return launches
 
 
 def phase_kitti_path(dev, card: str, work, stage1_checkpoint, stage4_checkpoint) -> dict:
@@ -3848,6 +4167,72 @@ TUM_DEPTH_FILES = {0: {"compression": "NONE"}, 2: {"compression": "ZIP"},
                    10: {"compression": "ZIP", "line_order": "DECREASING_Y"}}
 
 
+def tum_eval_size():
+    """The shipped tmvo data arguments' target size (480x640)."""
+    with open("configs/test/pointcloud_monorec_tmvo.json") as f:
+        return tuple(json.load(f)["data_set"]["args"]["target_image_size"])
+
+
+def tum_eval_config(work, tree, checkpoint, name: str, **extra):
+    """A copy of ``eval_monorec.json`` (its metrics, batch size and workers)
+    on the TUM mono VO ``tree`` through the shipped tmvo data arguments with
+    ``only_keyframes``, from ``checkpoint``; returns its path and run
+    directory."""
+    from pathlib import Path
+
+    with open("configs/test/pointcloud_monorec_tmvo.json") as f:
+        data_args = json.load(f)["data_set"]["args"]
+    with open("configs/evaluate/eval_monorec.json") as f:
+        config = json.load(f)
+    config["models"][0]["args"]["checkpoint_location"] = [str(checkpoint)]
+    loader = config["data_loader"]["args"]
+    config["data_loader"] = {"type": "TUMMonoVODataset", "args": dict(
+        data_args, dataset_dir=str(tree), only_keyframes=True,
+        batch_size=loader["batch_size"], shuffle=False, validation_split=0,
+        num_workers=loader["num_workers"], **extra)}
+    config["evaluater"].update(save_dir=str(Path(work) / name), verbosity=0)
+    path = write_config(Path(work) / f"{name}.json", config)
+    return path, Path(work) / name / "log" / config["name"] / config["timestamp_replacement"]
+
+
+def tum_evaluate(tag: str, work, tree, checkpoint, name: str, device: str, batches: int,
+                 **extra):
+    """``cli.evaluate`` on ``tum_eval_config``'s copy on ``device``: 7
+    finite metrics, every one of the ``batches`` batches of 2 valid.
+    Returns the config's path, the results and the CLI's wall time."""
+    from pathlib import Path
+
+    from monorec_tpu_torch.cli import evaluate
+
+    path, run_dir = tum_eval_config(work, tree, checkpoint, name, **extra)
+    t = time.perf_counter()
+    evaluate.main(["-c", path, "--device", device])
+    wall = time.perf_counter() - t
+    result = json.loads((Path(run_dir) / "results_0.json").read_text())["metrics"]
+    th, tw = tum_eval_size()
+    log(f"{tag} cli.evaluate on {device}: {batches} batch(es) of 2 keyframes at {th}x{tw}, "
+        f"F=4, D={D} in {wall:.3f} s (host clock, the CLI whole); valid_batches "
+        f"{result['valid_batches']}, num_samples {result['num_samples']}; " + ", ".join(
+            f"{k} {result[k]:.6f}" for k in result if k.endswith("_metric")))
+    if not (len(result["metrics"]) == 7 and all(math.isfinite(v) for v in result["metrics"])
+            and result["valid_batches"] == batches and result["num_samples"] == 2 * batches):
+        raise AssertionError(f"{tag} the evaluation's results are off: {result}")
+    return path, result, wall
+
+
+def card_vs_cpu(tag: str, card_result, cpu_result) -> None:
+    """The evaluation's metrics on the card held to the CPU's within
+    EVAL_RTOL."""
+    import numpy as np
+
+    g, c = np.asarray(card_result["metrics"]), np.asarray(cpu_result["metrics"])
+    rel = np.abs(g - c) / np.where(c == 0, 1.0, np.abs(c))
+    log(f"{tag} first batch, card vs CPU: max relative diff {rel.max():.3e} (metrics "
+        f"{', '.join(f'{v:.6f}' for v in g)} vs {', '.join(f'{v:.6f}' for v in c)})")
+    if not np.isclose(g, c, rtol=EVAL_RTOL, atol=0).all():
+        raise AssertionError(f"{tag} the card's evaluation disagrees with the CPU's")
+
+
 def phase_tum_depth(dev, card: str, work, checkpoint) -> dict:
     """Phase 27: evaluation on the card through ``cli.evaluate`` over a TUM
     mono VO sequence of colour JPEGs with depth EXRs, ``only_keyframes``,
@@ -3859,7 +4244,6 @@ def phase_tum_depth(dev, card: str, work, checkpoint) -> dict:
     import torch
 
     from monorec_tpu_torch import config as config_mod
-    from monorec_tpu_torch.cli import evaluate
     from monorec_tpu_torch.data.exr import read_exr
     from monorec_tpu_torch.data.jpeg import read_jpeg
     from monorec_tpu_torch.eval import Evaluator
@@ -3913,43 +4297,16 @@ def phase_tum_depth(dev, card: str, work, checkpoint) -> dict:
 
     # The main path: cli.evaluate with eval_monorec.json's metrics and batch
     # size over the shipped tmvo data arguments, only the keyframes.
-    with open("configs/test/pointcloud_monorec_tmvo.json") as f:
-        data_args = json.load(f)["data_set"]["args"]
-    th, tw = data_args["target_image_size"]
+    th, tw = tum_eval_size()
     n_samples = 4
     n_batches = n_samples // 2
 
-    def eval_copy(name, **extra):
-        with open("configs/evaluate/eval_monorec.json") as f:
-            config = json.load(f)
-        config["models"][0]["args"]["checkpoint_location"] = [str(checkpoint)]
-        loader = config["data_loader"]["args"]
-        config["data_loader"] = {"type": "TUMMonoVODataset", "args": dict(
-            data_args, dataset_dir=str(tree), only_keyframes=True,
-            batch_size=loader["batch_size"], shuffle=False, validation_split=0,
-            num_workers=loader["num_workers"], **extra)}
-        config["evaluater"].update(save_dir=str(Path(work) / name), verbosity=0)
-        path = write_config(Path(work) / f"{name}.json", config)
-        return path, Path(work) / name / "log" / config["name"] / config["timestamp_replacement"]
-
     def run(name, device, batches, **extra):
-        path, run_dir = eval_copy(name, **extra)
-        t = time.perf_counter()
-        evaluate.main(["-c", path, "--device", device])
-        wall = time.perf_counter() - t
-        result = json.loads((run_dir / "results_0.json").read_text())["metrics"]
-        log(f"{tag} cli.evaluate on {device}: {batches} batch(es) of 2 keyframes at {th}x{tw}, "
-            f"F=4, D={D} in {wall:.3f} s (host clock, the CLI whole); valid_batches "
-            f"{result['valid_batches']}, num_samples {result['num_samples']}; " + ", ".join(
-                f"{k} {result[k]:.6f}" for k in result if k.endswith("_metric")))
-        if not (len(result["metrics"]) == 7 and all(math.isfinite(v) for v in result["metrics"])
-                and result["valid_batches"] == batches and result["num_samples"] == 2 * batches):
-            raise AssertionError(f"{tag} the evaluation's results are off: {result}")
-        return path, result
+        return tum_evaluate(tag, work, tree, checkpoint, name, device, batches, **extra)
 
     # The main path, on the card.
     reset_counts()
-    path, _ = run("tum_depth_card", str(dev), n_batches)
+    path, _, _ = run("tum_depth_card", str(dev), n_batches)
     counts = launch_counts()
     if counts != only(plane_sweep_cost_volume=n_batches):
         raise AssertionError(f"{tag} the evaluation launched {counts}, expected "
@@ -3957,12 +4314,7 @@ def phase_tum_depth(dev, card: str, work, checkpoint) -> dict:
     # The first batch on the card and on the CPU (the plain versions).
     first = {where: run(f"tum_depth_first_{where}", device, 1, start=0, end=2)[1]
              for where, device in (("card", str(dev)), ("cpu", "cpu"))}
-    g, c = np.asarray(first["card"]["metrics"]), np.asarray(first["cpu"]["metrics"])
-    rel = np.abs(g - c) / np.where(c == 0, 1.0, np.abs(c))
-    log(f"{tag} first batch, card vs CPU: max relative diff {rel.max():.3e} (metrics "
-        f"{', '.join(f'{v:.6f}' for v in g)} vs {', '.join(f'{v:.6f}' for v in c)})")
-    if not np.isclose(g, c, rtol=EVAL_RTOL, atol=0).all():
-        raise AssertionError(f"{tag} the card's evaluation disagrees with the CPU's")
+    card_vs_cpu(tag, first["card"], first["cpu"])
 
     # The eval forward per batch, and the evaluate loop's pace and busy share.
     with open(path) as f:
@@ -3995,6 +4347,116 @@ def phase_tum_depth(dev, card: str, work, checkpoint) -> dict:
     del net, batch, evaluator
     torch.cuda.empty_cache()
     return dict(record, launches=counts["plane_sweep_cost_volume"])
+
+
+# ---- phase 28: progressive and CMYK JPEG ---------------------------------------
+
+PROGRESSIVE_TUM_FRAMES = 8  # keyframes 2 and 4 at F=4 read frames 0-6: one batch of 2
+# Phase 28's frames: a label, the array written (the scene's RGB, its grey
+# or its CMYK, ``tum_source``) and ``encode_jpeg``'s arguments at quality 90.
+PROGRESSIVE_TUM_FILES = {
+    0: ("progressive 4:2:0", "rgb", {"progressive": True}),
+    1: ("progressive grey", "grey", {"progressive": True}),
+    2: ("CMYK 4:4:4", "cmyk", {"sampling": ((1, 1),) * 4}),
+    3: ("progressive 4:2:0 + restarts", "rgb", {"progressive": True, "restart_interval": 61}),
+    4: ("YCCK", "cmyk", {"ycck": True}),
+    5: ("CMYK, C at 2x2", "cmyk", {}),
+    6: ("progressive CMYK, C at 2x2", "cmyk", {"progressive": True}),
+    7: ("sequential 4:2:0", "rgb", {}),
+}
+
+
+def tum_source(rgb, kind: str):
+    """The array phase 28 writes for a frame of the scene ``rgb``: as is,
+    its grey (the mean over the channels) or its CMYK (``rgb_to_cmyk``)."""
+    import numpy as np
+
+    if kind == "grey":
+        return np.round(rgb.mean(axis=2)).astype(np.uint8)
+    return rgb_to_cmyk(rgb) if kind == "cmyk" else rgb
+
+
+def write_progressive_frame(path, img, **_):
+    """``write_tum_tree``'s writer for phase 28: frame ``path``'s kind from
+    PROGRESSIVE_TUM_FILES, whatever sampling and restarts the tree asks."""
+    from pathlib import Path
+
+    _, kind, kwargs = PROGRESSIVE_TUM_FILES[int(Path(path).stem)]
+    write_jpeg(path, tum_source(img, kind), quality=90, **kwargs)
+
+
+def phase_progressive_tum(dev, card: str, work, checkpoint) -> int:
+    """Phase 28: a TUM mono VO sequence of progressive, CMYK and YCCK JPEGs
+    at TUM's native size with depth EXRs on its two keyframes, evaluated on
+    the card through ``cli.evaluate`` with ``only_keyframes`` from phase
+    19's checkpoint. Each file decodes to its source within JPEG_LEVELS,
+    and each progressive one bit for bit equal to its baseline twin (the
+    same quantized coefficients, ``encode_jpeg`` without ``progressive``).
+    Returns K1's launches on the main path."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from monorec_tpu_torch.data.jpeg import read_jpeg
+
+    tag = "[28 progressive + CMYK tum]"
+    t0 = time.perf_counter()
+    tree = Path(work) / "tum_progressive"
+    rgbs = write_tum_tree(tree, TUM_SIZE, PROGRESSIVE_TUM_FRAMES, write=write_progressive_frame,
+                          colour=True, depth={2: {"compression": "ZIP"}, 4: {"compression": "ZIP"}})
+    log(f"{tag} wrote a TUM mono VO sequence ({PROGRESSIVE_TUM_FRAMES} JPEGs at {TUM_SIZE[0]}x"
+        f"{TUM_SIZE[1]}, quality 90: " + ", ".join(
+            f"{i} {label}" for i, (label, _, _) in PROGRESSIVE_TUM_FILES.items())
+        + f"; depth EXRs on frames 2 and 4) in {time.perf_counter() - t0:.2f} s")
+
+    decode, twins = {}, []
+    for i, (label, kind, kwargs) in PROGRESSIVE_TUM_FILES.items():
+        path = tree / "images" / f"{i:05d}.jpg"
+        source = tum_source(rgbs[i], kind)
+        t = time.perf_counter()
+        img = read_jpeg(path)
+        decode[label] = (time.perf_counter() - t) * 1e3
+        diff = float(np.abs(img.astype(np.int64) - source).mean())
+        log(f"{tag} read_jpeg {label} ({path.stat().st_size / 2**10:.0f} KiB): "
+            f"{decode[label]:.1f} ms (host clock, the host of {card}); shape {img.shape}, mean "
+            f"|decoded - encoded source| {diff:.3f} levels")
+        if img.shape != source.shape or diff > JPEG_LEVELS:
+            raise AssertionError(f"{tag} {path.name} ({label}) decodes off its source")
+        if kwargs.get("progressive"):
+            twin = Path(work) / f"baseline_twin_{i}.jpg"
+            write_jpeg(twin, source, quality=90, **dict(kwargs, progressive=False))
+            t = time.perf_counter()
+            baseline = read_jpeg(twin)
+            twins.append(f"{label}: baseline {(time.perf_counter() - t) * 1e3:.1f} ms")
+            if not np.array_equal(baseline, img):
+                raise AssertionError(f"{tag} {path.name} ({label}) decodes other than its "
+                                     "baseline twin")
+    log(f"{tag} each progressive file decodes bit for bit equal to its baseline twin ("
+        + "; ".join(twins) + ")")
+
+    # The main path: cli.evaluate on the card, its pace and busy share from a
+    # torch.profiler window over the CLI whole; then on the CPU.
+    result = {}
+
+    def main_path():
+        result["card"] = tum_evaluate(tag, work, tree, checkpoint, "tum_progressive_card",
+                                      str(dev), 1)
+
+    reset_counts()
+    window_ms, busy_ms = busy_window(main_path)
+    counts = launch_counts()
+    if counts != only(plane_sweep_cost_volume=1):
+        raise AssertionError(f"{tag} the evaluation launched {counts}, expected "
+                             f"plane_sweep_cost_volume once for its batch")
+    wall = result["card"][2]
+    log(f"{tag} cli.evaluate on the card, the CLI whole (config, model, checkpoint, reading 10 "
+        f"JPEGs and 2 EXRs, one K1 launch): 2 keyframes in {wall:.3f} s = {2 / wall:.3f} "
+        f"keyframes/s (host clock, under torch.profiler); device busy {busy_ms:.1f} of "
+        f"{window_ms:.1f} ms = {100 * busy_ms / window_ms:.2f}% on {card}")
+    cpu = tum_evaluate(tag, work, tree, checkpoint, "tum_progressive_cpu", "cpu", 1)[1]
+    card_vs_cpu(tag, result["card"][1], cpu)
+    log(f"{tag} phase time {time.perf_counter() - t0:.1f} s")
+    return counts["plane_sweep_cost_volume"]
 
 
 def main() -> int:
@@ -4267,6 +4729,11 @@ def main() -> int:
         # ---- 27. TUM mono VO with colour and depth through cli.evaluate ----
         records["plane_sweep_cost_volume_tum_depth"] = phase_tum_depth(dev, card, run_dir,
                                                                        stage4_checkpoint)
+        torch.cuda.empty_cache()
+
+        # ---- 28. progressive and CMYK JPEG through cli.evaluate ------------
+        records["plane_sweep_cost_volume_tum_depth"]["progressive_cmyk_launches"] = (
+            phase_progressive_tum(dev, card, run_dir, stage4_checkpoint))
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
     for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
@@ -4316,6 +4783,7 @@ def main() -> int:
                                       "stage4_launches", "stage1_cli_launches", "eval_launches",
                                       "variants_forward_launches", "variants_train_launches",
                                       "kitti_path_launches", "pointcloud_launches",
+                                      "progressive_cmyk_launches",
                                       "max_abs_err_vs_float64",
                                       "plain_max_abs_err_vs_float64", "planar_gather_ms",
                                       "second_launch_m",

@@ -4,11 +4,14 @@ within float rounding). It reads DSO ``result.txt`` trajectories (timestamp,
 translation, xyzw quaternion) matched to the frames of ``times.txt``, the
 relative intrinsics of ``camera.txt`` (a model name may come before the
 numbers), and inverts the photometric calibration of ``pcalib.txt``. Each
-JPEG, greyscale or colour, goes through ``data.jpeg.read_jpeg`` (PIL's
-bytes), the centre crop to the target's aspect and Pillow's bilinear
-resize (``data.resize.crop_resize_bilinear``; a greyscale image resized
-once and replicated to three channels, PIL's ``convert("RGB")``), then the
-per-sample colour jitter and the calibration lookup on 0..255 levels. The
+JPEG, greyscale, colour or CMYK, sequential or progressive, goes through
+``data.jpeg.read_jpeg`` (PIL's bytes), a CMYK image through PIL's
+``convert("RGB")`` (``data.jpeg.cmyk_to_rgb``, before the resize, as the
+JAX reader converts before it crops), the centre crop to the target's
+aspect and Pillow's bilinear resize (``data.resize.crop_resize_bilinear``;
+a greyscale image resized once and replicated to three channels, PIL's
+``convert("RGB")``), then the per-sample colour jitter and the calibration
+lookup on 0..255 levels. The
 original size comes from the frame header (``data.jpeg.jpeg_size``). Also
 the multi-directory wrapper.
 
@@ -33,7 +36,7 @@ import numpy as np
 
 from monorec_tpu_torch.data.color_jitter import apply_color_jitter, sample_color_jitter
 from monorec_tpu_torch.data.exr import read_exr
-from monorec_tpu_torch.data.jpeg import jpeg_size, read_jpeg
+from monorec_tpu_torch.data.jpeg import cmyk_to_rgb, jpeg_size, read_jpeg
 from monorec_tpu_torch.data.kitti import compute_crop_and_intrinsics
 from monorec_tpu_torch.data.pose_interp import matrix_from_quat
 from monorec_tpu_torch.data.resize import crop_resize_bilinear, resize_bilinear_float
@@ -146,7 +149,10 @@ class TUMMonoVODataset:
 
     def _image(self, i: int, jitter) -> np.ndarray:
         path = self.root / "images" / f"{self._image_index[i]:05d}.jpg"
-        img = crop_resize_bilinear(read_jpeg(path), self._crop_box, self.target_image_size)
+        img = read_jpeg(path)
+        if img.ndim == 3 and img.shape[2] == 4:
+            img = cmyk_to_rgb(img)
+        img = crop_resize_bilinear(img, self._crop_box, self.target_image_size)
         if img.ndim == 2:
             # The channels of convert("RGB") are equal: resize once, then copy.
             img = np.repeat(img[..., None], 3, axis=-1)

@@ -3,6 +3,18 @@
 (``base/base_trainer.py`` of the original MonoRec; SURVEY section 5.4), so a
 checkpoint of the port reads like one of the reference.
 
+``load_checkpoint`` also reads the reference's own files, as its trainer
+saved them, in the zip and in the legacy (before torch 1.6) format, without
+ever unpickling in full (``weights_only``): the ``config`` there is the
+pickled ``parse_config.ConfigParser``, which loads as ``ReferenceConfig``,
+a stub of this module that only holds the pickled attributes (its
+``pathlib.PosixPath`` folders among them); no module of the reference is
+imported. Any other class in a file raises ``pickle.UnpicklingError``
+naming it. ``state_dict`` takes the tensors of a loaded file, a bare state
+dict too, with the keys stripped as the reference's loader strips them
+(``strip_data_parallel``: ``module.`` of ``DataParallel``, ``0.`` of a
+``Sequential(model, loss)``, keys that then start with a digit dropped).
+
 The stage handoff (``load_stage_checkpoints``) fills a new model from the
 checkpoints of earlier stages, as the reference's ``MonoRecModel.__init__``
 and the JAX package's ``cli/common.py::init_state_with_checkpoints`` do:
@@ -17,6 +29,9 @@ statistics).
 from __future__ import annotations
 
 import logging
+import pathlib
+import pickle
+import re
 import shutil
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
@@ -49,9 +64,62 @@ def save_checkpoint(path, model: torch.nn.Module, optimizer: torch.optim.Optimiz
     return path
 
 
+class ReferenceConfig:
+    """What the reference's pickled ``ConfigParser`` loads as: its
+    attributes (``_config``, ``_save_dir``, ``_log_dir``, ``resume``, ...),
+    and no behaviour."""
+
+
+# The globals a checkpoint may hold beside tensors and containers, under
+# the names its pickle gives them.
+REFERENCE_GLOBALS = [(ReferenceConfig, "parse_config.ConfigParser"),
+                     (ReferenceConfig, "utils.parse_config.ConfigParser"),
+                     (pathlib.PosixPath, "pathlib.PosixPath")]
+
+
 def load_checkpoint(path, map_location=None) -> Dict[str, Any]:
-    """The checkpoint dict (tensors, numbers, strings and containers only)."""
-    return torch.load(Path(path), map_location=map_location, weights_only=True)
+    """The checkpoint dict of ``path``, a port's or the reference's, zip or
+    legacy format: tensors, numbers, strings, containers and, as
+    ``ReferenceConfig``, the reference's ConfigParser with its paths."""
+    try:
+        with torch.serialization.safe_globals(REFERENCE_GLOBALS):
+            return torch.load(Path(path), map_location=map_location, weights_only=True)
+    except pickle.UnpicklingError as e:
+        found = re.search(r"GLOBAL (\S+)", str(e))
+        what = f"the class {found.group(1)}" if found else f"what it cannot read ({e})"
+        raise pickle.UnpicklingError(
+            f"{path} holds {what}: this loader reads only tensors, containers and the "
+            "reference's parse_config.ConfigParser") from None
+
+
+def strip_data_parallel(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The keys as the reference's loader and the JAX package's converter
+    (``convert.py::_strip_data_parallel``) read them: ``module.`` cut from
+    every key where one key has it, then ``0.`` cut, and the keys that then
+    start with a digit dropped."""
+    if any(k.startswith("module.") for k in state):
+        state = {k[len("module."):]: v for k, v in state.items()}
+    out = {}
+    for k, v in state.items():
+        if k.startswith("0."):
+            k = k[2:]
+        if k[0].isdigit():
+            continue
+        out[k] = v
+    return out
+
+
+def state_dict(payload) -> Dict[str, torch.Tensor]:
+    """The tensors of a loaded checkpoint: its ``state_dict``, or the dict
+    itself where it is a bare state dict (every value a tensor), the keys
+    stripped (``strip_data_parallel``)."""
+    if isinstance(payload, dict) and "state_dict" in payload:
+        return strip_data_parallel(payload["state_dict"])
+    if isinstance(payload, dict) and payload and all(
+            isinstance(v, torch.Tensor) for v in payload.values()):
+        return strip_data_parallel(payload)
+    keys = sorted(payload)[:8] if isinstance(payload, dict) else type(payload).__name__
+    raise ValueError(f"a checkpoint holds a 'state_dict' or only tensors; this one holds {keys}")
 
 
 def _resolve(path) -> Path:
@@ -65,12 +133,13 @@ def _resolve(path) -> Path:
 def load_submodule_state(model: torch.nn.Module, paths: Sequence,
                          prefix: str = "") -> List[str]:
     """Overwrite the tensors of ``model`` whose keys start with ``prefix``
-    from the checkpoints at ``paths``, in order; keys the model lacks are
-    skipped and a shape mismatch raises. Returns the keys loaded."""
+    from the checkpoints at ``paths`` (the port's or the reference's, or
+    bare state dicts), in order; keys the model lacks are skipped and a
+    shape mismatch raises. Returns the keys loaded."""
     own = model.state_dict()
     loaded = []
     for path in paths:
-        state = load_checkpoint(_resolve(path), map_location="cpu")["state_dict"]
+        state = state_dict(load_checkpoint(_resolve(path), map_location="cpu"))
         picked = {k: v for k, v in state.items() if k.startswith(prefix) and k in own}
         if not picked:
             logger.warning("%s holds no tensor of this model under '%s'", path, prefix)

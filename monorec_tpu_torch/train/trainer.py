@@ -368,6 +368,11 @@ class Trainer:
         """Continue from a checkpoint: weights, and the optimizer state when
         the optimizer type is unchanged."""
         payload = checkpoints.load_checkpoint(checkpoint_path)
+        if not (isinstance(payload, dict) and isinstance(payload.get("config"), dict)
+                and {"state_dict", "optimizer", "epoch", "monitor_best"} <= set(payload)):
+            raise ValueError(f"{checkpoint_path} is not a checkpoint of one of the port's runs, "
+                             "which resume continues; load its weights through the config's "
+                             "arch.args.checkpoint_location")
         self.model.load_state_dict(payload["state_dict"])
         saved = payload.get("config", {}).get("optimizer", {}).get("type")
         if saved is None or saved == self.optimizer_type:

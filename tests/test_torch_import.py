@@ -66,9 +66,11 @@ def test_readers_read_without_pil_cv2_or_jax(reader, tmp_path):
     if reader == "OxfordRobotCarDataset":
         args = dict(torch_trees.write_robotcar(tmp_path), cutout=[0, 0, 0, 0])
     elif reader == "TUMMonoVODataset":
-        # Colour JPEGs, and sample 0's keyframe (frame 1) with a depth EXR.
+        # Colour JPEGs, and sample 0's keyframe (frame 1, a CMYK file) with a
+        # depth EXR; its sources, frames 0 and 2, progressive RGB and CMYK.
         tree = torch_trees.write_tum_mono(tmp_path, colour=True,
-                                          depth={1: {"compression": "ZIP"}})
+                                          depth={1: {"compression": "ZIP"}},
+                                          write=torch_trees.pil_progressive_cmyk)
         args = {"dataset_dir": str(tree), "target_image_size": list(torch_trees.TARGET)}
     else:
         args = {"dataset_dir": str(torch_trees.write_tum_rgbd(tmp_path))}

@@ -16,11 +16,15 @@ as ``tests/test_torch_kitti.py`` holds it).
   OpenEXR returns None for them, so the tests stub ``cv2.imread`` to return
   the written arrays, and hold the port's decode, crop, 2x2 max or float
   resize, clamp and ``only_keyframes`` index to the JAX reader's.
-* A colour tree (PIL's JPEGs at 4:4:4, 4:2:2 and 4:2:0) with depth files.
+* A colour tree (PIL's JPEGs at 4:4:4, 4:2:2 and 4:2:0) with depth files,
+  and one whose frames are by turns progressive, CMYK (which both readers
+  convert to RGB before they resize), progressive CMYK and progressive
+  with restart markers (``torch_trees.pil_progressive_cmyk``).
 """
 
 import numpy as np
 import pytest
+from PIL import Image
 
 import chip_smoke
 from monorec_tpu.data.tum_mono_vo import TUMMonoVODataset as JMonoVO
@@ -96,9 +100,9 @@ DEPTH = {0: {"compression": "ZIP"}, 2: {"compression": "ZIP", "origin": (5, -3)}
          6: {"compression": "ZIPS", "line_order": "DECREASING_Y"}, 8: {"compression": "NONE"}}
 
 
-def _write_depth_tree(root, colour: bool):
+def _write_depth_tree(root, colour: bool, write=torch_trees.pil_jpeg):
     """A TUM tree with DEPTH's files, and what cv2 returns for each file."""
-    torch_trees.write_tum_mono(root, colour=colour, depth=DEPTH)
+    torch_trees.write_tum_mono(root, colour=colour, depth=DEPTH, write=write)
     written = {}
     for i, options in DEPTH.items():
         path = root / "images_depth" / f"{i:05d}_d.exr"
@@ -178,6 +182,28 @@ def test_mono_vo_colour_matches_jax(colour_tree, case, monkeypatch):
     _assert_samples_equal(port, ref, jitter=args.get("color_augmentation", True))
     frames = port[0]["frames"]
     assert not np.array_equal(frames[..., 0], frames[..., 1])  # colour, not grey
+
+
+@pytest.fixture(scope="module")
+def progressive_cmyk_tree(tmp_path_factory):
+    return _write_depth_tree(tmp_path_factory.mktemp("progressive_cmyk"), colour=True,
+                             write=torch_trees.pil_progressive_cmyk)
+
+
+@pytest.mark.parametrize("case", sorted(COLOUR_CASES))
+def test_mono_vo_progressive_cmyk_matches_jax(progressive_cmyk_tree, case, monkeypatch):
+    """Progressive and CMYK JPEGs written by PIL, which the JAX reader
+    decodes and converts to RGB with PIL."""
+    root, written = progressive_cmyk_tree
+    modes = {}
+    for path in sorted((root / "images").glob("*.jpg")):
+        with Image.open(path) as im:
+            modes[im.mode, "progression" in im.info] = path
+    assert set(modes) == {("RGB", True), ("CMYK", False), ("CMYK", True)}
+    _stub_cv2(monkeypatch, written)
+    args = COLOUR_CASES[case]
+    port, ref = TUMMonoVODataset(str(root), **args), JMonoVO(str(root), **args)
+    _assert_samples_equal(port, ref, jitter=args.get("color_augmentation", True))
 
 
 def test_exr_depth_absent_and_no_keyframes(mono):

@@ -47,11 +47,26 @@ def write_robotcar(root) -> dict:
     return args
 
 
-def write_tum_mono(root, colour: bool = False, depth=None) -> Path:
+def pil_progressive_cmyk(path, array, restart_interval: int = 0, sampling=None):
+    """A colour frame of ``write_tum_tree`` (its index the file's name) by
+    PIL at quality 90, by turns progressive RGB, CMYK, progressive CMYK and
+    progressive RGB with a restart marker every block row; the chroma
+    sampling as given, CMYK by PIL's ``convert("CMYK")``."""
+    kind = int(Path(path).stem) % 4
+    extra = {"subsampling": PIL_SUBSAMPLING[sampling[0]]} if sampling is not None else {}
+    if kind == 3:
+        extra["restart_marker_rows"] = 1
+    image = Image.fromarray(np.ascontiguousarray(array))
+    if kind in (1, 2):
+        image = image.convert("CMYK")
+    image.save(path, quality=90, progressive=kind != 1, **extra)
+
+
+def write_tum_mono(root, colour: bool = False, depth=None, write=pil_jpeg) -> Path:
     """chip_smoke's TUM mono VO tree at TUM_RAW with PIL's JPEGs (colour at
-    4:4:4, 4:2:2 and 4:2:0 with ``colour``) and the depth files ``depth``
-    names (``chip_smoke.write_tum_tree``)."""
-    chip_smoke.write_tum_tree(root, TUM_RAW, TUM_FRAMES, write=pil_jpeg, colour=colour,
+    4:4:4, 4:2:2 and 4:2:0 with ``colour``), each written by ``write``, and
+    the depth files ``depth`` names (``chip_smoke.write_tum_tree``)."""
+    chip_smoke.write_tum_tree(root, TUM_RAW, TUM_FRAMES, write=write, colour=colour,
                               depth=depth)
     return Path(root)
 
