@@ -223,7 +223,31 @@ checkout, then:
    baseline twin (the same quantized coefficients, written sequential);
    runs ``cli.evaluate`` as phase 27 does over the tree on the card (the
    main path, one batch of 2 keyframes: one K1 launch; keyframes/s and
-   the busy share over the CLI whole) and on the CPU (within rtol 1e-3).
+   the busy share over the CLI whole) and on the CPU (within rtol 1e-3);
+29. data parallelism through the CLIs' launcher, each run held to one
+   process without a group on ``cuda:0`` (a one-card run has no group):
+   ``cli.train.main`` on ``monorec_depth.json`` (256x512, D=32, F=2, global
+   B=8, exact, SGD) for ``DP_STEPS`` stage-1 steps and
+   ``cli.train_monorec.main`` on ``monorec_mask.json`` (stage 2: the mask
+   augmentation and the MaskModule's dropout drawn for the global batch)
+   for ``DP_STAGE2_STEPS`` steps from that stage-1 checkpoint, each on one
+   NCCL rank in this process (``group=True``: the group, the losses'
+   all-reduces, the gradient all-reduce; stage 1's is the main path, K1-K3
+   counted) and, where two or more cards are visible, on every card
+   (spawned NCCL ranks): per-step losses (``tb/metrics.jsonl``) within rtol
+   1e-5, the checkpoint's parameters within rtol 1e-5 / atol 5e-7, and the
+   same launches; ``cli.evaluate`` over ``DP_EVAL_BATCHES`` batches of
+   phase 20's tree from phase 19's checkpoint the same ways (the sharded
+   evaluator, the metric inputs' NCCL all-gather), every field of the
+   results within rtol 1e-5; then stage 1's steps in turns without a group
+   and on one NCCL rank, on an epoch's batches read first, timed with CUDA
+   events, with the all-reduces of a step, the host's time in the feed,
+   the gradient all-reduce and the metrics and the device's busy time from
+   a torch.profiler trace of 4 steps, and the gradient and scalar
+   all-reduces timed alone. Prints the
+   world sizes it ran and each run's step times (the host clock between
+   steps, ``steps_per_sec``). On one card the multi-rank math rests on the
+   CPU tests (``tests/test_torch_parallel.py``), and a line says so.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -3868,6 +3892,11 @@ class WaitTimed:
     def __init__(self, loader):
         self.loader, self.waits = loader, []
 
+    @property
+    def sharded(self) -> bool:
+        """The loader's: whether its last batch is this rank's shard."""
+        return self.loader.sharded
+
     def __iter__(self):
         it = iter(self.loader)
         try:
@@ -3992,10 +4021,10 @@ def kitti_stage2(dev, card: str, work, tree, stage1_checkpoint, num_workers: int
     step_s = []
     train_step = trainer.train_step
 
-    def timed_step(batch, alpha):
+    def timed_step(batch, alpha, sharded=False):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = train_step(batch, alpha)
+        out = train_step(batch, alpha, sharded)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         return out
@@ -4459,6 +4488,337 @@ def phase_progressive_tum(dev, card: str, work, checkpoint) -> int:
     return counts["plane_sweep_cost_volume"]
 
 
+DP_STEPS = 8
+DP_STAGE2_STEPS = 4
+DP_EVAL_BATCHES = 4
+DP_LR = 1e-3
+DP_RTOL, DP_ATOL = 1e-5, 5e-7  # tests/test_train.py's 8-device vs 1-device step
+
+
+def dp_config(work, tag: str) -> str:
+    """Phase 29's stage-1 config: ``monorec_depth.json`` at the operating
+    point, ``DP_STEPS`` steps of global batch B without validation, SGD (a
+    sign-like Adam step would turn reduction-order noise into ~lr moves,
+    tests/test_train.py:64-69), its run under ``work/tag``."""
+    config = stage1_cli_config(work / tag, B, DP_STEPS, 1, tensorboard=False,
+                               module_timing=False, timestamp_replacement=tag)
+    config.pop("val_data_loader")
+    config.pop("lr_scheduler")
+    config["optimizer"] = {"type": "SGD", "args": {"lr": DP_LR}}
+    return write_config(work / f"{tag}.json", config)
+
+
+def dp_stage2_config(work, tag: str, depth_checkpoint) -> str:
+    """Phase 29's stage-2 config: ``monorec_mask.json`` (pretrain mode 2,
+    the mask augmentation, the MaskModule's dropout, mask_loss) from
+    ``depth_checkpoint``, ``DP_STAGE2_STEPS`` steps of global batch B on
+    synthetic data at the operating point, SGD, its run under
+    ``work/tag``."""
+    with open("configs/train/monorec/monorec_mask.json") as f:
+        config = json.load(f)
+    config["arch"]["args"]["depth_cp_loc"] = [str(depth_checkpoint)]
+    config["data_loader"] = {"type": "SyntheticSweepDataloader", "args": {
+        "frame_count": F, "target_image_size": [H, W], "batch_size": B, "return_stereo": True,
+        "return_mvobj_mask": 2, "length": DP_STAGE2_STEPS * B, "shuffle": True}}
+    config.pop("lr_scheduler")
+    config["optimizer"] = {"type": "SGD", "args": {"lr": DP_LR}}
+    config["trainer"].update(epochs=1, len_epoch=DP_STAGE2_STEPS, log_step=1,
+                             save_dir=str(work / tag), timestamp_replacement=tag,
+                             tensorboard=False)
+    config["precision"] = "exact"
+    return write_config(work / f"{tag}.json", config)
+
+
+def dp_run(work, tag: str, config: str, device: str, world_size=None, group=False,
+           stage2=False) -> dict:
+    """One run of ``cli.train`` (``cli.train_monorec`` with ``stage2``) on
+    ``config``: per-step losses, step times (ms, from ``steps_per_sec``),
+    the checkpoint's state dict and the launch counts of this process."""
+    from pathlib import Path
+
+    from monorec_tpu_torch.cli import train as train_cli
+    from monorec_tpu_torch.cli import train_monorec
+    from monorec_tpu_torch.train.checkpoints import load_checkpoint, state_dict
+    from monorec_tpu_torch.train.loggers import read_scalars
+
+    argv = ["-c", config, "--device", device]
+    if world_size is not None:
+        argv += ["--world-size", str(world_size)]
+    reset_counts()
+    t0 = time.perf_counter()
+    if stage2:
+        train_monorec.main(argv, group=group)
+    else:
+        train_cli.main(argv, group=group)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = DP_STAGE2_STEPS if stage2 else DP_STEPS
+    name = "monorec_mask" if stage2 else "monorec_depth"
+    run = Path(work) / tag / "models" / name / tag
+    scalars = read_scalars(run / "tb" / "metrics.jsonl")
+    return {"losses": [scalars[s]["loss"] for s in range(steps)],
+            # steps_per_sec of the step after s is written at step s
+            "step_ms": [1e3 / scalars[s]["steps_per_sec"] for s in range(steps - 1)],
+            "state": state_dict(load_checkpoint(run / "checkpoint.pth", map_location="cpu")),
+            "wall_s": wall, "counts": counts, "checkpoint": run / "checkpoint.pth"}
+
+
+def dp_held(tag: str, card: str, name: str, run: dict, ref: dict) -> bool:
+    """Log ``run`` against the single process's ``ref``; whether its
+    losses and parameters are within the gates and finite."""
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"]))
+    param_err = max(((run["state"][k].float() - v.float()).abs()
+                     / (DP_ATOL + DP_RTOL * v.float().abs())).max().item()
+                    for k, v in ref["state"].items() if v.is_floating_point())
+    log(f"{tag} {name}: losses {', '.join(f'{x:.6f}' for x in run['losses'])}; step times "
+        f"{', '.join(f'{t:.1f}' for t in run['step_ms'])} ms (median "
+        f"{statistics.median(run['step_ms']):.1f} ms, host clock between steps, loader "
+        f"included, {B} keyframes per global step); run {run['wall_s']:.1f} s with start-up; "
+        f"largest loss rel diff vs the single process {loss_err:.2e} (gate {DP_RTOL:g}), "
+        f"parameters {param_err:.3f} of the gate (rtol {DP_RTOL:g}, atol {DP_ATOL:g}) on {card}")
+    return loss_err <= DP_RTOL and param_err <= 1.0 and all(
+        math.isfinite(x) for x in run["losses"])
+
+
+def dp_timed_rank(device, config: str, run_dir: str) -> dict:
+    """A rank body of phase 29's timing: the trainer ``cli.train`` builds
+    from ``config`` on its loader's batches, all read first (no loader
+    thread runs while it steps). Two passes of steps, each timed with CUDA
+    events, and the all-reduces of a step; then 4 steps under
+    torch.profiler: the host's time per step in the feed (forward and
+    loss), the gradient all-reduce and the metrics, the window's length
+    and the device's busy time in it. In a group, also the gradient
+    all-reduce and a scalar all-reduce alone (CUDA events, medians of 10
+    and 20)."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from monorec_tpu_torch import parallel
+    from monorec_tpu_torch.cli import train as train_cli
+
+    with open(config) as f:
+        trainer = train_cli.build_trainer(json.load(f), device, run_dir=run_dir)
+    batches = [parallel.loader_batch(trainer.data_loader, b) for b in trainer.data_loader]
+    sizes = []
+    real = dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        sizes.append(t.numel())
+        return real(t, *args, **kwargs)
+
+    def event_ms(fn, reps: int) -> float:
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    dist.all_reduce = counted
+    try:
+        step_ms = []
+        for batch, sharded in batches + batches:
+            del sizes[:]
+            step_ms.append(event_ms(lambda: trainer.train_step(batch, 0.5, sharded), 1))
+        per_step = list(sizes)
+    finally:
+        dist.all_reduce = real
+
+    def marked(name, fn):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
+
+    parts = {"feed": "_feed", "metrics": "_metrics"}
+    for name, attr in parts.items():
+        setattr(trainer, attr, marked(name, getattr(trainer, attr)))
+    reduce_gradients = parallel.reduce_gradients
+    parallel.reduce_gradients = marked("gradient all-reduce", reduce_gradients)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for batch, sharded in batches[2:6]:
+                with record_function("step"):
+                    trainer.train_step(batch, 0.5, sharded)
+            torch.cuda.synchronize()
+    finally:
+        parallel.reduce_gradients = reduce_gradients
+    events = prof.events()
+    host = {e.name for e in events if e.device_type == DeviceType.CPU}
+    marks = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in ("step", "gradient all-reduce", *parts):
+            marks.setdefault(e.name, []).append(e.time_range)
+    t0 = min(r.start for r in marks["step"])
+    t1 = max(r.end for r in marks["step"])
+    busy, reach = 0.0, t0
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in events
+                             if e.device_type == DeviceType.CUDA and e.name not in host):
+        busy += max(0.0, min(end, t1) - max(start, reach))
+        reach = max(reach, end)
+    host_ms = {k: sum(r.end - r.start for r in v) / 4e3 for k, v in marks.items()}
+    out = {"step_ms": step_ms, "all_reduce_sizes": per_step, "host_ms": host_ms,
+           "window_ms": (t1 - t0) / 4e3, "busy_ms": busy / 4e3, "grad_ms": None,
+           "scalar_ms": None}
+    if parallel.is_active():
+        params = [p for g in trainer.optimizer.param_groups for p in g["params"]]
+        out["grad_ms"] = event_ms(lambda: parallel.reduce_gradients(params, True), 10)
+        x = torch.ones((), device=device)
+        out["scalar_ms"] = event_ms(lambda: dist.all_reduce(x), 20)
+    return out
+
+
+def dp_evaluate(work, tree, checkpoint, tag: str, argv, group=False) -> tuple:
+    """``cli.evaluate`` over the first ``DP_EVAL_BATCHES`` batches of 2 of
+    phase 20's tree: (its results' metrics, the launch counts)."""
+    from monorec_tpu_torch.cli import evaluate
+
+    path, run_dir = eval_config(work, tree, checkpoint, tag, start=0,
+                                end=2 * DP_EVAL_BATCHES)
+    reset_counts()
+    evaluate.main(["-c", path, *argv], group=group)
+    counts = launch_counts()
+    return json.loads((run_dir / "results_0.json").read_text())["metrics"], counts
+
+
+def phase_data_parallel(dev, card: str, run_dir, checkpoint) -> dict:
+    """Phase 29: data parallelism through the CLIs' launcher. Stage 1 and
+    stage 2 train, and ``cli.evaluate`` evaluates phase 20's tree with
+    ``checkpoint``, in one process without a group (what a one-card run
+    is) and on one NCCL rank (a group of one, where every collective of
+    the data-parallel path runs) and, where the machine has them, on every
+    card; each is held to the process without a group. Stage 1's steps are
+    then timed in turns with CUDA events, without a group and on one NCCL
+    rank. Returns the launch counts of the one-rank stage-1 run (the main
+    path; spawned ranks count in their own processes)."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from monorec_tpu_torch.precision import set_precision
+
+    tag = "[29 data parallel]"
+    work = Path(run_dir) / "data_parallel"
+    work.mkdir()
+    tree = Path(run_dir) / "kitti"  # phase 20's
+    set_precision("exact", expect_rebuild=True)
+    n_cards = torch.cuda.device_count()
+    ok = True
+
+    # Stage 1: the single process, then one NCCL rank (the main path).
+    ref = dp_run(work, "reference", dp_config(work, "reference"), str(dev))
+    runs = {1: dp_run(work, "w1", dp_config(work, "w1"), "cuda", 1, group=True)}
+    counts = runs[1]["counts"]
+    if n_cards >= 2:
+        runs[n_cards] = dp_run(work, f"w{n_cards}", dp_config(work, f"w{n_cards}"), "cuda")
+    log(f"{tag} world sizes run: {', '.join(f'{n} (NCCL)' for n in runs)}, each against one "
+        f"process without a group on {dev}; stage 1 (monorec_depth.json, {DP_STEPS} steps), "
+        f"stage 2 (monorec_mask.json, {DP_STAGE2_STEPS} steps), B={B} global, {H}x{W}, D={D}, "
+        f"F={F}, exact, SGD lr {DP_LR:g}; cli.evaluate over {DP_EVAL_BATCHES} batches of 2")
+    if n_cards < 2:
+        log(f"{tag} one card visible: two NCCL ranks cannot share a card, so the multi-rank "
+            f"math (global losses over shards, summed gradients, lockstep draws, sharded "
+            f"loading, rank-0 writes) rests on the CPU tests (tests/test_torch_parallel.py, 2 "
+            f"gloo ranks against one process and the JAX package)")
+    expected = only(plane_sweep_cost_volume=DP_STEPS, grid_warp_jac=DP_STEPS,
+                    photo_error_fwd=2 * DP_STEPS, photo_error_bwd=DP_STEPS)
+    log(f"{tag} stage 1 launches, one process {nonzero(ref['counts'])}, one NCCL rank "
+        f"{nonzero(counts)} (expected K1 {DP_STEPS}, grid_warp_jac {DP_STEPS}, photo_error_fwd "
+        f"{2 * DP_STEPS}, photo_error_bwd {DP_STEPS}, every other kernel 0)")
+    ok = ok and counts == ref["counts"] == expected
+    for n, run in runs.items():
+        ok = dp_held(f"{tag} stage 1", card, f"W={n}", run, ref) and ok
+    ok = dp_held(f"{tag} stage 1", card, "one process", ref, ref) and ok
+
+    # Stage 2 from the single process's stage-1 checkpoint.
+    depth = ref["checkpoint"]
+    ref2 = dp_run(work, "s2_reference", dp_stage2_config(work, "s2_reference", depth), str(dev),
+                  stage2=True)
+    runs2 = {1: dp_run(work, "s2_w1", dp_stage2_config(work, "s2_w1", depth), "cuda", 1,
+                       group=True, stage2=True)}
+    if n_cards >= 2:
+        runs2[n_cards] = dp_run(work, f"s2_w{n_cards}",
+                                dp_stage2_config(work, f"s2_w{n_cards}", depth), "cuda",
+                                stage2=True)
+    expected2 = only(plane_sweep_cost_volume=DP_STAGE2_STEPS,
+                     grid_warp=STAGE2_CROPS * DP_STAGE2_STEPS)
+    log(f"{tag} stage 2 launches, one process {nonzero(ref2['counts'])}, one NCCL rank "
+        f"{nonzero(runs2[1]['counts'])} (expected K1 {DP_STAGE2_STEPS}, grid_warp "
+        f"{STAGE2_CROPS * DP_STAGE2_STEPS}, every other kernel 0)")
+    ok = ok and runs2[1]["counts"] == ref2["counts"] == expected2
+    for n, run in runs2.items():
+        ok = dp_held(f"{tag} stage 2", card, f"W={n}", run, ref2) and ok
+
+    # cli.evaluate: every field of the results against the process without a group.
+    want, want_counts = dp_evaluate(work, tree, checkpoint, "dp_eval_reference",
+                                    ["--device", str(dev)])
+    evals = {1: dp_evaluate(work, tree, checkpoint, "dp_eval_w1",
+                            ["--device", "cuda", "--world-size", "1"], group=True)}
+    if n_cards >= 2:
+        evals[n_cards] = dp_evaluate(work, tree, checkpoint, f"dp_eval_w{n_cards}",
+                                     ["--device", "cuda"])
+    ok = ok and want_counts == evals[1][1] == only(plane_sweep_cost_volume=DP_EVAL_BATCHES)
+    log(f"{tag} cli.evaluate launches, one process {nonzero(want_counts)}, one NCCL rank "
+        f"{nonzero(evals[1][1])} (expected K1 {DP_EVAL_BATCHES}); one process: valid_batches "
+        f"{want['valid_batches']}, num_samples {want['num_samples']}, metrics "
+        f"{', '.join(f'{v:.6f}' for v in want['metrics'])}")
+    for n, (got, _) in evals.items():
+        worst = 0.0
+        for k, v in want.items():
+            a, b = np.asarray(got[k], dtype=np.float64), np.asarray(v, dtype=np.float64)
+            worst = max(worst, float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max()))
+            ok = ok and a.shape == b.shape and np.allclose(a, b, rtol=DP_RTOL, atol=0)
+        log(f"{tag} cli.evaluate W={n}: every field ({', '.join(sorted(got))}) against one "
+            f"process, largest relative diff {worst:.2e} (gate {DP_RTOL:g})")
+        ok = ok and set(got) == set(want)
+    ok = ok and want["valid_batches"] == DP_EVAL_BATCHES and want["num_samples"] == 2 * (
+        DP_EVAL_BATCHES)
+
+    # Stage 1's steps in turns: no group, one rank, one rank, no group.
+    from monorec_tpu_torch import parallel
+
+    timed = {"no group": [], "one NCCL rank": []}
+    config = dp_config(work, "timed")
+    for i, name in enumerate(("no group", "one NCCL rank", "one NCCL rank", "no group")):
+        out, = parallel.launch(dp_timed_rank, 1, "cuda", (config, str(work / f"timed{i}")),
+                               group=name != "no group")
+        timed[name].append(out)
+    meds = {}
+    for name, outs in timed.items():
+        # each run's first step warms up
+        meds[name] = statistics.median(t for out in outs for t in out["step_ms"][1:])
+        listed = "; ".join(", ".join(f"{t:.1f}" for t in out["step_ms"]) for out in outs)
+        split = "; ".join(
+            f"window {out['window_ms']:.2f}, device busy {out['busy_ms']:.2f}, host in "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(out["host_ms"].items()) if k != "step")
+            for out in outs)
+        log(f"{tag} timed {name}: steps {listed} ms (CUDA events around train_step, the "
+            f"epoch's batches read first, two passes; median after each run's first "
+            f"{meds[name]:.2f} ms); per step of 4 under torch.profiler, ms: {split} on {card}")
+    one = timed["one NCCL rank"][0]
+    sizes = one["all_reduce_sizes"]
+    log(f"{tag} one NCCL rank: {len(sizes)} all-reduces a step ({sum(n == 1 for n in sizes)} "
+        f"of one element, {sum(n == 2 for n in sizes)} of two, the largest {max(sizes)} "
+        f"elements: the gradients); the gradient all-reduce alone {one['grad_ms']:.3f} ms, a "
+        f"scalar all-reduce alone {one['scalar_ms']:.4f} ms (CUDA events, medians of 10 and "
+        f"20); the step's median {meds['one NCCL rank'] - meds['no group']:+.2f} ms against "
+        f"no group ({100 * (meds['one NCCL rank'] / meds['no group'] - 1):+.1f}%)")
+    ok = ok and not timed["no group"][0]["all_reduce_sizes"]
+    if not ok:
+        raise AssertionError(f"{tag} a data-parallel run failed its checks")
+    return counts
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
 def main() -> int:
     import torch
 
@@ -4734,6 +5094,13 @@ def main() -> int:
         # ---- 28. progressive and CMYK JPEG through cli.evaluate ------------
         records["plane_sweep_cost_volume_tum_depth"]["progressive_cmyk_launches"] = (
             phase_progressive_tum(dev, card, run_dir, stage4_checkpoint))
+        torch.cuda.empty_cache()
+
+        # ---- 29. data parallelism through the CLI's launcher --------------
+        dp_counts = phase_data_parallel(dev, card, run_dir, stage4_checkpoint)
+        for k in ("plane_sweep_cost_volume", "grid_warp_jac", "photo_error_fwd",
+                  "photo_error_bwd"):
+            records[k]["data_parallel_launches"] = dp_counts[k]
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
     for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
@@ -4783,7 +5150,7 @@ def main() -> int:
                                       "stage4_launches", "stage1_cli_launches", "eval_launches",
                                       "variants_forward_launches", "variants_train_launches",
                                       "kitti_path_launches", "pointcloud_launches",
-                                      "progressive_cmyk_launches",
+                                      "progressive_cmyk_launches", "data_parallel_launches",
                                       "max_abs_err_vs_float64",
                                       "plain_max_abs_err_vs_float64", "planar_gather_ms",
                                       "second_launch_m",

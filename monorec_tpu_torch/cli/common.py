@@ -6,7 +6,8 @@ weights its config names.
 ``config.json`` beside it is read (updated by ``-c`` where both are given);
 ``-d`` the torch device, cuda unless the caller asks for the CPU; ``-o``
 options (the trainers' loss options; accepted and unused elsewhere, as in
-the JAX package). The trainers add ``--lr`` and ``--bs``.
+the JAX package). The trainers add ``--lr`` and ``--bs``; they and the
+evaluation add ``--world-size`` (``data_parallel``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict
 import torch
 
 from monorec_tpu_torch import config as config_mod
+from monorec_tpu_torch import parallel
 from monorec_tpu_torch.models import MonoRec, MonoRecConfig
 from monorec_tpu_torch.models.pretrained import (
     inject_imagenet_encoder,
@@ -43,6 +45,18 @@ def train_overrides(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return p
 
 
+def data_parallel(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """``--world-size``: the number of ranks, one process each
+    (``parallel.launch``), as ``make_mesh(n_devices)`` counts devices. By
+    default every visible card on ``--device cuda`` (``CUDA_VISIBLE_DEVICES``
+    narrows them) and one process on ``cpu`` or on a card named by index;
+    more than one on ``cpu`` runs gloo ranks. One rank runs in the calling
+    process without a group. Under ``torchrun`` the ranks are torchrun's."""
+    p.add_argument("--world-size", default=None, type=int,
+                   help="ranks (default: every visible card on cuda, 1 on cpu)")
+    return p
+
+
 def parse_config(args: argparse.Namespace, with_train_overrides: bool = False) -> Dict:
     """The config dict of parsed ``args``: ``-c`` / ``-r``, with ``--lr`` and
     ``--bs`` where ``with_train_overrides``, and ``--precision`` where the
@@ -54,9 +68,14 @@ def parse_config(args: argparse.Namespace, with_train_overrides: bool = False) -
 
 
 def console_logging(verbosity: int = 2) -> None:
-    """The console log at ``verbosity`` (0 warning, 1 info, 2 debug)."""
-    logging.basicConfig(level={0: logging.WARNING, 1: logging.INFO}.get(verbosity, logging.DEBUG),
+    """The console log at ``verbosity`` (0 warning, 1 info, 2 debug); a
+    rank other than 0 prints its warnings only."""
+    level = {0: logging.WARNING, 1: logging.INFO}.get(verbosity, logging.DEBUG)
+    logging.basicConfig(level=level if parallel.is_main() else logging.WARNING,
                         format="%(asctime)s %(levelname)s %(message)s")
+    if not parallel.is_main():
+        for handler in logging.getLogger().handlers:
+            handler.setLevel(logging.WARNING)
 
 
 def init_model_with_checkpoints(model_cfg: MonoRecConfig, ckpts: Dict, device) -> MonoRec:

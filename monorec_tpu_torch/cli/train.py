@@ -17,6 +17,16 @@ checkpoints of earlier stages that ``arch.args`` names
 ``checkpoint_location``, the ImageNet encoder (``imagenet_weights``); every
 random draw comes from seed 0. The run directory gets ``info.log`` and
 ``tb/metrics.jsonl`` (``train/loggers.py``).
+
+Run plainly it trains data parallel on every visible card, one process per
+card (``parallel.launch``, NCCL; ``CUDA_VISIBLE_DEVICES`` narrows the set),
+and a step over W cards computes the step of one card over the global
+batch (``train/trainer.py``); ``--world-size`` sets W, ``--device cuda:<i>``
+names one card, and on ``--device cpu`` ``--world-size`` > 1 runs gloo
+ranks. One rank (one visible card, ``cuda:<i>``, or the CPU) trains in this
+process without a group, as one process always has. ``torchrun --nproc-per-node <W> -m
+monorec_tpu_torch.cli.train ...`` runs one rank per process it starts. A
+rank that fails, or a group that cannot be set up, fails the run.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from typing import Dict, Sequence, Type
 import torch
 
 from monorec_tpu_torch import config as config_mod
+from monorec_tpu_torch import parallel
 from monorec_tpu_torch.cli import common
 from monorec_tpu_torch.precision import POLICIES, set_precision
 from monorec_tpu_torch.train import Trainer
@@ -57,21 +68,30 @@ def build_trainer(config: Dict, device, options: Sequence[str] = (), run_dir=Non
 
 
 def main(argv=None, trainer_cls: Type[Trainer] = Trainer,
-         description: str = "monorec_tpu_torch stage-1 training") -> int:
-    p = common.train_overrides(common.standard_parser(description))
+         description: str = "monorec_tpu_torch stage-1 training", group: bool = False) -> int:
+    """Train as the command line says; ``group`` runs even one rank in a
+    group of its own (``parallel.launch``)."""
+    p = common.data_parallel(common.train_overrides(common.standard_parser(description)))
     p.add_argument("--precision", choices=sorted(POLICIES), default=None,
                    help="precision policy (default: the config's \"precision\", else exact)")
     args = p.parse_args(argv)
+    parallel.launch(train_rank, args.world_size, args.device, (args, trainer_cls), group)
+    return 0
 
+
+def train_rank(device, args, trainer_cls: Type[Trainer]) -> Dict:
+    """One rank of ``main``: the trainer of ``args`` on ``device``, trained;
+    returns the last epoch's log."""
     config = common.parse_config(args, with_train_overrides=True)
     common.console_logging(config.get("trainer", {}).get("verbosity", 2))
-    trainer = build_trainer(config, args.device, args.options, trainer_cls=trainer_cls)
+    trainer = build_trainer(config, device, args.options, trainer_cls=trainer_cls)
     if args.resume:
         trainer.resume(args.resume)
     log = trainer.train()
-    print(f"trained {log.get('epoch', 0)} epoch(s); loss {log.get('loss', float('nan')):.6f}; "
-          f"run directory {trainer.run_dir}")
-    return 0
+    if parallel.is_main():
+        print(f"trained {log.get('epoch', 0)} epoch(s); loss "
+              f"{log.get('loss', float('nan')):.6f}; run directory {trainer.run_dir}")
+    return log
 
 
 if __name__ == "__main__":

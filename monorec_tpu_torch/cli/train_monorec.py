@@ -31,8 +31,8 @@ def build_trainer(config, device, options=(), run_dir=None) -> MonoRecTrainer:
     return train.build_trainer(config, device, options, run_dir, trainer_cls=MonoRecTrainer)
 
 
-def main(argv=None) -> int:
-    return train.main(argv, MonoRecTrainer, "monorec_tpu_torch stage 2-4 training")
+def main(argv=None, group: bool = False) -> int:
+    return train.main(argv, MonoRecTrainer, "monorec_tpu_torch stage 2-4 training", group)
 
 
 if __name__ == "__main__":

@@ -26,6 +26,7 @@ from operator import getitem
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
+from monorec_tpu_torch import parallel
 from monorec_tpu_torch.models.monorec import MonoRecConfig
 from monorec_tpu_torch.precision import apply_to_model_kwargs, set_precision
 
@@ -63,16 +64,20 @@ def make_run_dir(config: Dict, kind: str = "models") -> Path:
     written into it. ``save_dir`` and the timestamp come from the
     ``trainer`` (or ``evaluater``) block, else from the top level; a
     ``timestamp_replacement`` there fixes the last part. The trainers use
-    kind "models", the evaluation "log", as the JAX package does."""
-    section = config.get("trainer", config.get("evaluater", {}))
-    save_dir = Path(section.get("save_dir", config.get("save_dir", "saved/")))
-    ts = section.get("timestamp_replacement", config.get(
-        "timestamp_replacement", datetime.now().strftime(r"%m%d_%H%M%S")))
-    run_dir = save_dir / kind / config.get("name", "run") / ts
-    run_dir.mkdir(parents=True, exist_ok=True)
-    with open(run_dir / "config.json", "w") as f:
-        json.dump(config, f, indent=4)
-    return run_dir
+    kind "models", the evaluation "log", as the JAX package does. In a
+    data-parallel run rank 0 makes it and every rank gets rank 0's path
+    (its clock names the folder)."""
+    run_dir = None
+    if parallel.is_main():
+        section = config.get("trainer", config.get("evaluater", {}))
+        save_dir = Path(section.get("save_dir", config.get("save_dir", "saved/")))
+        ts = section.get("timestamp_replacement", config.get(
+            "timestamp_replacement", datetime.now().strftime(r"%m%d_%H%M%S")))
+        run_dir = save_dir / kind / config.get("name", "run") / ts
+        run_dir.mkdir(parents=True, exist_ok=True)
+        with open(run_dir / "config.json", "w") as f:
+            json.dump(config, f, indent=4)
+    return Path(parallel.broadcast_object(run_dir))
 
 
 def build_model_config(arch_args: Dict) -> MonoRecConfig:

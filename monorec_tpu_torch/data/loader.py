@@ -11,6 +11,17 @@ consumer, the caller's thread, makes the non-blocking copy to the device on
 its own current stream: the producer issues no device copy. Threads overlap
 what releases the interpreter lock (zlib, numpy); a reader's Python loops
 do not run in parallel.
+
+In a data-parallel run (``parallel``) ``batch_size`` is the global batch.
+Every rank draws the same seeded split and permutation, and rank r reads
+and decodes only its rows ``[r B/W, (r+1) B/W)`` of each global batch, so
+the ranks split the host's decoding between their processes; a batch the
+ranks do not divide is read whole on every rank (``parallel.shard_rows``).
+``sharded`` tells the consumer which of the two the batch it was last
+handed is. A dataset whose samples draw their own random jitter (the
+KITTI and TUM mono VO readers' colour augmentation) draws it per process
+and in thread order, so such samples differ between world sizes, as they
+differ between runs.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ import numpy as np
 import torch
 
 from monorec_tpu_torch.data.synthetic import batch_to_host
+from monorec_tpu_torch.parallel import shard_rows
 
 
 class DatasetWrapper:
@@ -76,6 +88,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.device = torch.device(device)
+        self.sharded = False  # whether the batch last yielded is this rank's shard
         self._rng = np.random.default_rng(seed)
         n = len(dataset)
         self._val_indices = None
@@ -110,7 +123,10 @@ class DataLoader:
                 for i in range(len(self))]
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
-        batches = self._batch_indices()
+        batches = []
+        for b in self._batch_indices():
+            rows, sharded = shard_rows(len(b))
+            batches.append((b[rows], sharded))
         if not batches:
             return
         pin = self.device.type == "cuda"
@@ -129,11 +145,11 @@ class DataLoader:
         def produce() -> None:
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    for b in batches:
+                    for b, sharded in batches:
                         if stop.is_set():
                             return
-                        put(batch_to_host(collate(list(pool.map(self.dataset.__getitem__, b))),
-                                          pin))
+                        put((sharded, batch_to_host(
+                            collate(list(pool.map(self.dataset.__getitem__, b))), pin)))
             except BaseException as e:  # raised again in the consumer
                 put(e)
             put(_DONE)
@@ -144,7 +160,8 @@ class DataLoader:
             while (item := q.get()) is not _DONE:
                 if isinstance(item, BaseException):
                     raise item
-                yield {k: t.to(self.device, non_blocking=True) for k, t in item.items()}
+                self.sharded, host = item
+                yield {k: t.to(self.device, non_blocking=True) for k, t in host.items()}
         finally:
             stop.set()
             producer.join()

@@ -6,6 +6,14 @@ metric vector to the host. A batch with any NaN metric is zeroed and not
 counted; ``metrics`` divides each total by its valid batches, and
 ``metrics_correct`` is the running sample-weighted mean over every batch
 (the zeroed ones included), as in the JAX package.
+
+Data parallel (``parallel``): each rank forwards its rows of every global
+batch (the loader reads only those) and median-scales them, then the
+metrics' inputs are gathered and every rank computes the metrics of the
+global batch, so ``metrics``, ``metrics_correct``, ``valid_batches`` and
+``num_samples`` are those of one process over the whole batch. A batch the
+ranks do not divide is forwarded whole on every rank. Only rank 0 writes
+the results.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from monorec_tpu_torch import parallel
+from monorec_tpu_torch.metrics import METRIC_INPUTS
 from monorec_tpu_torch.utils import median_scaling
 
 logger = logging.getLogger(__name__)
@@ -39,14 +49,19 @@ class Evaluator:
         self.use_median_scaling = ecfg.get("median_scaling", False)
         self.log_step = ecfg.get("log_step", 10)
         self.run_dir = Path(run_dir)
-        self.run_dir.mkdir(parents=True, exist_ok=True)
+        if parallel.is_main():
+            self.run_dir.mkdir(parents=True, exist_ok=True)
 
     @torch.no_grad()
-    def step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The metric vector of one batch, on the model's device."""
+    def step(self, batch: Dict[str, torch.Tensor], sharded: bool = False) -> torch.Tensor:
+        """The metric vector of one batch, on the model's device; with
+        ``sharded``, ``batch`` is this rank's rows and the metrics are the
+        global batch's."""
         data = {**batch, **self.model(batch)}
         if self.use_median_scaling:
             data["result"] = median_scaling(data["result"], data["target"])
+        with parallel.batch_scope(sharded):
+            data = parallel.gather_rows(data, METRIC_INPUTS)
         return torch.stack([m(data, self.roi, self.max_distance) for m in self.metric_fns])
 
     def eval(self) -> Dict:
@@ -57,13 +72,14 @@ class Evaluator:
         running = np.zeros(n_metrics)
         num_samples = 0
         for batch_idx, batch in enumerate(self.data_loader):
-            metrics = self.step(batch).cpu().numpy()
+            batch, sharded = parallel.loader_batch(self.data_loader, batch)
+            metrics = self.step(batch, sharded).cpu().numpy()
             if np.any(np.isnan(metrics)):
                 metrics = np.zeros(n_metrics)
             else:
                 valid += 1
             total += metrics
-            bs = batch["target"].shape[0]
+            bs = batch["target"].shape[0] * (parallel.world_size() if sharded else 1)
             if num_samples == 0:
                 running += metrics
             else:

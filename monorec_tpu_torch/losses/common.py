@@ -25,6 +25,7 @@ from monorec_tpu_torch import geometry
 from monorec_tpu_torch.ops.cost_volume import border_mask
 from monorec_tpu_torch.ops.photo_error import photo_error, photo_error_reference
 from monorec_tpu_torch.ops.sampling import grid_sample_planar
+from monorec_tpu_torch.parallel import batch_mean, draw_rows, global_sum
 from monorec_tpu_torch.precision import loss_warp_dtype
 from monorec_tpu_torch.utils import mask_mean
 
@@ -113,7 +114,8 @@ def reprojection_loss(
 
     Returns a scalar if ``reduce`` else a (B, H, W) error map in which
     invalid pixels carry +inf. ``with_coverage`` also returns the loss
-    warp's uncovered-pixel count (always 0). ``automask_errors``
+    warp's uncovered-pixel count (always 0; the global batch's, as the
+    scalar is). ``automask_errors``
     optionally supplies the identity-reprojection errors (B, F, H, W),
     which depend only on the input frames, so multi-scale callers compute
     them once. ``combine_frames="rnd"`` draws each sample's frame from
@@ -175,7 +177,8 @@ def reprojection_loss(
     elif combine_frames == "rnd":
         if generator is None:
             raise ValueError("combine_frames='rnd' requires a generator")
-        idx = torch.randint(0, f, (b,), generator=generator).to(errors.device)
+        idx = draw_rows(lambda n: torch.randint(0, f, (n,), generator=generator), b)
+        idx = idx.to(errors.device)
         pick = idx[:, None, None, None].expand(b, 1, h, w)
         errors = torch.gather(errors, 1, pick)[:, 0]
         invalid = torch.gather(invalid, 1, pick)[:, 0]
@@ -184,7 +187,7 @@ def reprojection_loss(
 
     out = mask_mean(torch.where(invalid, 0.0, errors), invalid) if reduce else errors
     if with_coverage:
-        return out, warp_cov
+        return out, global_sum(warp_cov)
     return out
 
 
@@ -235,7 +238,7 @@ def edge_aware_smoothness_loss(inv_depth: Tensor, keyframe: Tensor, reduce: bool
     d_dx = d_dx * torch.exp(-k_dx)
     d_dy = d_dy * torch.exp(-k_dy)
     if reduce:
-        return d_dx.mean() + d_dy.mean()
+        return batch_mean(d_dx) + batch_mean(d_dy)
     return torch.nn.functional.pad(d_dx, (0, 1)) + torch.nn.functional.pad(d_dy, (0, 0, 0, 1))
 
 

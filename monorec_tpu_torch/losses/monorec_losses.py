@@ -7,6 +7,11 @@ quirks, which the curriculum's logs and totals depend on (ROADMAP Queue 3).
 A loss is ``loss(data, alpha=None, roi=None, options=()) -> dict`` with a
 ``"loss"`` entry, where ``data`` merges the batch, the model outputs and
 ``"target"`` (inverse-depth GT (B, 1, H, W), 0 = invalid).
+
+Every reduction that couples samples (``mask_mean`` over the batch, the
+batch means, the counts) goes through ``parallel``: under a batch sharded
+over ranks it is the global batch's, so the loss dict equals the one of one
+process over the whole batch. Per-sample reductions stay local.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from monorec_tpu_torch.losses.common import (
     tile_batch_for_scales,
     upsample_nearest_to,
 )
+from monorec_tpu_torch.parallel import batch_mean, global_sum
 from monorec_tpu_torch.utils import mask_mean
 
 Tensor = torch.Tensor
@@ -99,8 +105,8 @@ def _mask_stats(cv_mask: Tensor, gt_mask: Tensor) -> Dict[str, Tensor]:
     prec = torch.where(cv_sum == 0, empty, inter / cv_sum.clamp_min(1))
     rec = torch.where(gt_sum == 0, empty, inter / gt_sum.clamp_min(1))
     iou = torch.where(union == 0, 1.0, inter / union.clamp_min(1))
-    return {"acc": (cv_pred == gt_pred).float().mean(), "prec": prec.mean(),
-            "rec": rec.mean(), "iou": iou.mean()}
+    return {"acc": batch_mean((cv_pred == gt_pred).float()), "prec": batch_mean(prec),
+            "rec": batch_mean(rec), "iou": batch_mean(iou)}
 
 
 def mask_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[str, Tensor]:
@@ -118,7 +124,7 @@ def mask_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[str, Tensor]
     g = gt_mask.float()
     bce = -(g * torch.clamp_min(torch.log(p), -100.0)
             + (1 - g) * torch.clamp_min(torch.log(1 - p), -100.0))
-    return {"loss": (weight * bce).mean(), **_mask_stats(cv_mask, gt_mask)}
+    return {"loss": batch_mean(weight * bce), **_mask_stats(cv_mask, gt_mask)}
 
 
 def _dist_diff(mono_pred: Tensor, gt_mask: Tensor, cv_mask: Tensor, threshold, scale: int):
@@ -136,7 +142,9 @@ def _dist_diff(mono_pred: Tensor, gt_mask: Tensor, cv_mask: Tensor, threshold, s
     box = F.conv2d(padded, torch.ones(1, 1, b + 1, b + 1, device=dd.device))
     dd_c = (box >= (b + 1) ** 2 / 4)[:, :, 4 * b : -b, b:-b]
     logp = -torch.log(torch.clamp(cv_mask[:, :, 4 * b : -b, b:-b], 1e-12, 1.0))
-    dist = torch.where(dd_c, logp, 0.0).sum() / torch.clamp_min(dd_c.float().sum(), 1.0)
+    total, count = global_sum(torch.stack([torch.where(dd_c, logp, 0.0).sum(),
+                                           dd_c.float().sum()])).unbind()
+    dist = total / torch.clamp_min(count, 1.0)
     return dist * 2.0**-3, mono_thresh
 
 
@@ -196,7 +204,7 @@ def mask_refinement_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[s
 
         mono_sm = edge_aware_smoothness_loss(mono_pred, data["keyframe"], reduce=False)
         stereo_sm = edge_aware_smoothness_loss(stereo_pred, data["keyframe"], reduce=False)
-        smoothness = (mono_sm * (1 - cv_mask) + stereo_sm * cv_mask).mean()
+        smoothness = batch_mean(mono_sm * (1 - cv_mask) + stereo_sm * cv_mask)
 
         mono_inf, stereo_inf = torch.isinf(mono_all[scale]), torch.isinf(stereo_all[scale])
         mono_repr = torch.where(mono_inf, 0.0, mono_all[scale])
@@ -245,7 +253,7 @@ def depth_refinement_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[
     gt = torch.clamp(data["target"], 0.0, 100.0)
     b, _, h, w = gt.shape
     cv_disc = (data["cv_mask"] > 0.5).to(torch.float32)
-    ratio = cv_disc.sum() / cv_disc.numel()
+    ratio = batch_mean(cv_disc)
 
     mono_preds = [upsample_nearest_to(p, h, w) for p in data["mono_pred"]]
     s = len(mono_preds)
@@ -281,7 +289,8 @@ def depth_refinement_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[
 
         # The reference adds the un-reduced map and the trainer means the
         # sum; the mean here gives the same value as a scalar.
-        smoothness = edge_aware_smoothness_loss(mono_pred, data["keyframe"], reduce=False).mean()
+        smoothness = batch_mean(
+            edge_aware_smoothness_loss(mono_pred, data["keyframe"], reduce=False))
 
         mono_inf = torch.isinf(mono_all[scale]) | (cv_disc > 0.5)
         mono_repr = mask_mean(torch.where(mono_inf, 0.0, mono_all[scale]), mono_inf)

@@ -1,5 +1,5 @@
 """Depth metrics of the port (``monorec_tpu/metrics``)."""
 
-from monorec_tpu_torch.metrics.depth_metrics import METRICS, get_metric
+from monorec_tpu_torch.metrics.depth_metrics import METRIC_INPUTS, METRICS, get_metric
 
-__all__ = ["METRICS", "get_metric"]
+__all__ = ["METRIC_INPUTS", "METRICS", "get_metric"]

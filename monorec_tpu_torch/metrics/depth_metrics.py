@@ -12,7 +12,8 @@ all 33 names of the JAX package.
 Each metric reads inverse depth for both the prediction (``data["result"]``)
 and the GT (``data["target"]``) and converts both by relu ->
 clamp_min(1 / max_distance) -> reciprocal. Signature: ``metric(data, roi,
-max_distance) -> scalar``.
+max_distance) -> scalar``; ``METRIC_INPUTS`` names every key a metric
+reads (what a data-parallel run gathers from its ranks).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from monorec_tpu_torch.utils import (
 )
 
 Tensor = torch.Tensor
+
+METRIC_INPUTS = ("result", "target", "mvobj_mask")
 
 
 def _prep_dense(data, roi, max_distance):

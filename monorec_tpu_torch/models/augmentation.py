@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from monorec_tpu_torch.ops.sampling import grid_sample_planar
+from monorec_tpu_torch.parallel import draw_rows
 
 Tensor = torch.Tensor
 
@@ -220,8 +221,10 @@ _IMAGE_KEYS = ("keyframe", "frames", "stereoframe")
 
 def jitter_image_keys(batch: dict, generator: torch.Generator) -> dict:
     """Draw one jitter per sample from ``generator`` and apply it to every
-    image key of ``batch`` (a new dict; the rest is shared)."""
-    params = sample_color_jitter_batch(generator, batch["keyframe"].shape[0])
+    image key of ``batch`` (a new dict; the rest is shared). Under a sharded
+    batch the draws are the global batch's and each rank applies its rows'."""
+    params = draw_rows(lambda n: sample_color_jitter_batch(generator, n),
+                       batch["keyframe"].shape[0])
     out = dict(batch)
     for k in _IMAGE_KEYS:
         if out.get(k) is not None:

@@ -8,7 +8,9 @@ ResNet features predicts a 1-channel sigmoid mask. In training, dropout
 (rate 0.5, the kept values scaled by 1 / (1 - rate)) acts on each fused
 feature map after the frame fusion (``monorec_tpu/models/mask_module.py:
 129-130``); its keep masks are drawn from a ``torch.Generator`` on the
-features' device, so a step copies nothing from the host. In eval it is
+features' device, so a step copies nothing from the host, and under a
+batch sharded over ranks drawn for the global batch (each rank keeps its
+rows). In eval it is
 the identity. ``dtype`` is the convolution dtype: the per-frame CVs and the
 image features are cast to it at entry, and the mask returns in float32.
 ``use_cv`` / ``use_features`` off multiply that input by 0.0 (as the JAX
@@ -31,6 +33,7 @@ from torch import nn
 
 from monorec_tpu_torch.models.layers import ConvLReLU, SamePadConv, Upconv
 from monorec_tpu_torch.models.resnet import ENCODER_CHANNELS
+from monorec_tpu_torch.parallel import draw_rows
 
 Tensor = torch.Tensor
 
@@ -53,7 +56,9 @@ def dropout(x: Tensor, generator: torch.Generator) -> Tensor:
         raise ValueError(f"the dropout generator is on {generator.device}, the features on "
                          f"{x.device}: draw on the features' device")
     keep_prob = 1.0 - DROPOUT_RATE
-    keep = dropout_keep(x.shape, keep_prob, generator, x.device)
+    # The global batch's mask, as one process draws it; this rank's rows.
+    keep = draw_rows(lambda n: dropout_keep((n,) + tuple(x.shape[1:]), keep_prob, generator,
+                                            x.device), x.shape[0])
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

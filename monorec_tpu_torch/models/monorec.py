@@ -7,7 +7,10 @@ generator=None, dropout_generator=None)``: the eval and the train forward of
 pretrain modes 0-3. Its small random draws (the depth flip, mode 1's CV-mask
 dropout in both ``pretrain_dropout_mode``s) come from ``generator``, a CPU
 generator; the MaskModule's dropout (modes 0 and 2) from
-``dropout_generator``, on the model's device. The entry points ``features``,
+``dropout_generator``, on the model's device. Under a batch sharded over
+ranks every draw is made for the global batch and a rank keeps its rows
+(``parallel.draw_rows``), so the generators of all ranks stay in step with
+one process's. The entry points ``features``,
 ``cost_volume``, ``mask`` and ``depth`` serve the stage 2-4 protocol
 (``train/monorec_trainer.py``); ``freeze_module`` ("att", "depth") stops
 the gradient at the output of ``mask`` / ``depth``. The mask augmentation
@@ -61,6 +64,7 @@ from monorec_tpu_torch.models.depth_module import DepthModule
 from monorec_tpu_torch.models.mask_module import MaskModule, SimpleMaskModule
 from monorec_tpu_torch.models.resnet import ResNetEncoder, encoder_channels
 from monorec_tpu_torch.ops.cost_volume import CostVolumeConfig, compute_cost_volume
+from monorec_tpu_torch.parallel import draw_rows
 from monorec_tpu_torch.precision import torch_dtype, use_exact_precision
 
 Tensor = torch.Tensor
@@ -245,8 +249,9 @@ class MonoRec(nn.Module):
         cfg = self.config
         b, _, h, w = keyframe.shape
         keep_p = cfg.pretrain_dropout
-        shape = (b, 1, h // 8, w // 8) if cfg.pretrain_dropout_mode == 0 else (b, 1, 1, 1)
-        draw = torch.bernoulli(torch.full(shape, keep_p), generator=generator)
+        tail = (1, h // 8, w // 8) if cfg.pretrain_dropout_mode == 0 else (1, 1, 1)
+        draw = draw_rows(lambda n: torch.bernoulli(torch.full((n,) + tail, keep_p),
+                                                   generator=generator), b)
         mask = (draw / max(keep_p, 1e-8)).to(keyframe.device, keyframe.dtype)
         if cfg.pretrain_dropout_mode == 0:
             return mask.repeat_interleave(8, 2).repeat_interleave(8, 3)
@@ -271,7 +276,7 @@ class MonoRec(nn.Module):
 
         flip = None
         if cfg.augmentation == "depth" and train:
-            flip = sample_flip_conditions(generator, b)
+            flip = draw_rows(lambda n: sample_flip_conditions(generator, n), b)
             keyframe, cv, sfcv = (conditional_hflip(t, flip) for t in (keyframe, cv, sfcv))
         out["cost_volume"] = cv
         out["single_frame_cvs"] = sfcv

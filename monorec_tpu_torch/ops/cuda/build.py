@@ -6,12 +6,15 @@ build, and no ``ninja`` and no PyTorch headers are needed (both of which
 ``torch.utils.cpp_extension.load`` would want, at minutes per build). The
 library lands in ``_build/`` beside the sources, named by the hash of the
 source and of the shared headers (``*.cuh``) beside it, so an edited
-kernel is never served from a stale build.
+kernel is never served from a stale build. Processes that load the same
+source at once (the ranks of a data-parallel run) take turns on a lock
+file beside it: the first builds, the others wait and load its library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -47,13 +50,22 @@ def load(name: str) -> ctypes.CDLL:
     lib = BUILD_DIR / f"{name}-{digest[:16]}.so"
     if not lib.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp.so"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
-        (BUILD_DIR / f"{name}.ptxas.txt").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
+        # The kernel releases the lock with the file, also when a build
+        # fails or its process dies.
+        with open(BUILD_DIR / f"{lib.stem}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not lib.exists():  # built while this process waited
+                _compile(name, src, lib)
     return ctypes.CDLL(str(lib))
+
+
+def _compile(name: str, src: Path, lib: Path) -> None:
+    tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp.so"
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
+    (BUILD_DIR / f"{name}.ptxas.txt").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)  # atomic: a reader never sees half a file

@@ -38,6 +38,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from monorec_tpu_torch import parallel
+
 logger = logging.getLogger(__name__)
 
 # What each handoff key loads: a state_dict key prefix ("" = everything).
@@ -48,19 +50,23 @@ STAGE_PREFIXES = {"checkpoint_location": "", "mask_cp_loc": "att_module.",
 def save_checkpoint(path, model: torch.nn.Module, optimizer: torch.optim.Optimizer, epoch: int,
                     monitor_best: float, config: Dict, keep_copy: Optional[str] = None) -> Path:
     """Write the checkpoint dict to ``path``; optionally copy it to the name
-    ``keep_copy`` beside it (e.g. ``model_best.pth``)."""
+    ``keep_copy`` beside it (e.g. ``model_best.pth``). In a data-parallel
+    run every rank calls it, rank 0 writes, and no rank returns before the
+    files are complete."""
     path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({
-        "arch": type(model).__name__,
-        "epoch": epoch,
-        "state_dict": model.state_dict(),
-        "optimizer": optimizer.state_dict(),
-        "monitor_best": float(monitor_best),
-        "config": config,
-    }, path)
-    if keep_copy:
-        shutil.copyfile(path, path.parent / keep_copy)
+    if parallel.is_main():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({
+            "arch": type(model).__name__,
+            "epoch": epoch,
+            "state_dict": model.state_dict(),
+            "optimizer": optimizer.state_dict(),
+            "monitor_best": float(monitor_best),
+            "config": config,
+        }, path)
+        if keep_copy:
+            shutil.copyfile(path, path.parent / keep_copy)
+    parallel.barrier()
     return path
 
 

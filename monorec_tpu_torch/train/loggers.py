@@ -8,7 +8,9 @@ scalar, always written, with the tag suffixed by the writer's mode
 scalar whenever the train step advances. TensorBoard event files go beside
 it when ``torch.utils.tensorboard`` imports (it needs the ``tensorboard``
 package, which is optional); images go to TensorBoard only. ``read_scalars``
-reads the stream back.
+reads the stream back. In a data-parallel run only rank 0 writes: the
+other ranks get no ``info.log`` handler and a writer that drops
+everything.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Dict
 
 import numpy as np
 
+from monorec_tpu_torch import parallel
+
 PACKAGE_LOGGER = "monorec_tpu_torch"
 
 
@@ -31,14 +35,16 @@ def setup_logging(log_dir, name: str = PACKAGE_LOGGER, verbosity: int = 2) -> lo
     port logs through it) at ``verbosity`` (0 warning, 1 info, 2 debug),
     writing to ``<log_dir>/info.log``. A later call moves the file to its
     own ``log_dir``. The console is the root logger's: the CLIs configure
-    it, and records propagate there."""
+    it, and records propagate there. A rank other than 0 writes no file."""
     log_dir = Path(log_dir)
-    log_dir.mkdir(parents=True, exist_ok=True)
     logger = logging.getLogger(name)
     logger.setLevel({0: logging.WARNING, 1: logging.INFO}.get(verbosity, logging.DEBUG))
     for handler in [h for h in logger.handlers if getattr(h, "_run_log", False)]:
         logger.removeHandler(handler)
         handler.close()
+    if not parallel.is_main():
+        return logger
+    log_dir.mkdir(parents=True, exist_ok=True)
     fh = logging.handlers.RotatingFileHandler(log_dir / "info.log", maxBytes=10 * 1024 * 1024,
                                               backupCount=20)
     fh.setFormatter(logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s"))
@@ -49,15 +55,20 @@ def setup_logging(log_dir, name: str = PACKAGE_LOGGER, verbosity: int = 2) -> lo
 
 class MetricsWriter:
     """Scalar and image sink: ``metrics.jsonl`` always, TensorBoard when
-    ``enable_tensorboard`` and the ``tensorboard`` package is installed."""
+    ``enable_tensorboard`` and the ``tensorboard`` package is installed; on
+    a rank other than 0, nothing."""
 
     def __init__(self, log_dir, enable_tensorboard: bool = True):
         self.log_dir = Path(log_dir)
-        self.log_dir.mkdir(parents=True, exist_ok=True)
         self.step = 0
         self.mode = ""
-        self._jsonl = open(self.log_dir / "metrics.jsonl", "a")
+        self._jsonl = None
         self._tb = None
+        self._timer = time.monotonic()
+        if not parallel.is_main():
+            return
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self._jsonl = open(self.log_dir / "metrics.jsonl", "a")
         if enable_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -65,7 +76,6 @@ class MetricsWriter:
                 SummaryWriter = None
             if SummaryWriter is not None:
                 self._tb = SummaryWriter(str(self.log_dir))
-        self._timer = time.monotonic()
 
     @property
     def tensorboard(self) -> bool:
@@ -86,6 +96,8 @@ class MetricsWriter:
         return f"{tag}/{self.mode}" if self.mode else tag
 
     def add_scalar(self, tag: str, value) -> None:
+        if self._jsonl is None:
+            return
         value = float(np.asarray(value))
         self._jsonl.write(json.dumps({"step": self.step, "tag": self._tag(tag), "value": value})
                           + "\n")
@@ -106,7 +118,8 @@ class MetricsWriter:
             self._tb.flush()
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
 

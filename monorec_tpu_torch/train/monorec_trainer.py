@@ -24,9 +24,9 @@ One ``_feed``, in the JAX package's order:
      augmentation has none), the optional batch doubling of
      ``concat_mono_stereo``, and the stage loss on the merged data.
 
-Not ported, and refused: ``joint_cv`` and ``joint_depth_decode`` (one fused
-launch for the mono and stereo CVs or decodes; off in every shipped config,
-and slower on the TPU where they were measured).
+Not ported yet, and refused: ``joint_cv`` and ``joint_depth_decode`` (one
+fused launch for the mono and stereo CVs or decodes; off in every shipped
+config; ROADMAP item 18b, the next slice).
 
 Two JAX quirks the port keeps. A ``simple_mask`` model is refused: the JAX
 trainer calls ``MonoRec.mask`` with no keyframe and no depth prediction
@@ -50,11 +50,12 @@ from monorec_tpu_torch.models.augmentation import (
     sample_flip_conditions,
     sample_mask_aug_params,
 )
+from monorec_tpu_torch.parallel import draw_rows
 from monorec_tpu_torch.train.trainer import Trainer
 
 _NOT_PORTED = {
-    "joint_cv": "ROADMAP item 18: one launch for the mono and stereo cost volumes",
-    "joint_depth_decode": "ROADMAP item 18: one 2B-batch depth decode",
+    "joint_cv": "ROADMAP item 18b: one launch for the mono and stereo cost volumes",
+    "joint_depth_decode": "ROADMAP item 18b: one 2B-batch depth decode",
 }
 
 
@@ -90,7 +91,7 @@ class MonoRecTrainer(Trainer):
         data = dict(batch)
         flip = None
         if aug == "depth":
-            flip = sample_flip_conditions(self.generator, b)
+            flip = draw_rows(lambda n: sample_flip_conditions(self.generator, n), b)
 
             def aug_one(x):
                 return conditional_hflip(x, flip)
@@ -100,7 +101,8 @@ class MonoRecTrainer(Trainer):
                 data["mvobj_mask"] = aug_one(batch["mvobj_mask"])
         elif aug == "mask":
             h, w = batch["keyframe"].shape[-2:]
-            params = sample_mask_aug_params(self.generator, b, h, w).to(batch["keyframe"].device)
+            params = draw_rows(lambda n: sample_mask_aug_params(self.generator, n, h, w), b)
+            params = params.to(batch["keyframe"].device)
 
             def aug_one(x):
                 if x.dim() == 5:  # (B, F, C, H, W): frame stacks, per-frame CVs

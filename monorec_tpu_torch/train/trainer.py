@@ -1,4 +1,5 @@
-"""Stage-1 trainer (``monorec_tpu/train/trainer.py``) on one device.
+"""Stage-1 trainer (``monorec_tpu/train/trainer.py``), on one device or
+data parallel over the ranks of a process group (``parallel``).
 
 One step: the optional colour jitter of the images
 (``trainer.color_aug_on_device``), the train forward (augmentation and
@@ -10,6 +11,18 @@ reference's epoch mechanics: iteration-based epochs (``len_epoch``),
 NaN-metric batch invalidation, value faders (``alpha``), a monitored metric
 with best tracking and early stopping, and checkpoints every
 ``save_period`` epochs.
+
+Data parallel (one process per card, ``parallel.launch``): every rank
+builds the same seed-0 model (then takes rank 0's weights) and its loader
+reads only its rows of each global batch. The step runs the forward and
+the loss on those rows inside ``parallel.batch_scope``, where every
+reduction that couples samples is the global batch's, so each rank's loss
+dict is the global one; the gradients are summed over the ranks before the
+non-finite guard reads them, so every rank applies (or skips) the same
+update. The metrics are computed on the global batch's gathered
+``result``, ``target`` and ``mvobj_mask``. ``len_epoch``, ``log_step`` and
+``data_loader.batch_size`` count global batches. Only rank 0 writes the
+logs, the images (of its own rows) and the checkpoints.
 
 Logs as the JAX trainer's (``train/loggers.py``): ``<run_dir>/info.log``,
 and ``<run_dir>/tb/metrics.jsonl`` with ``loss`` and ``loss_<key>`` of every
@@ -32,6 +45,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from monorec_tpu_torch import parallel
+from monorec_tpu_torch.metrics import METRIC_INPUTS
 from monorec_tpu_torch.models.augmentation import jitter_image_keys
 from monorec_tpu_torch.train import checkpoints
 from monorec_tpu_torch.train.loggers import MetricsWriter, make_grid, setup_logging
@@ -84,6 +99,7 @@ class Trainer:
         self.device_generator = torch.Generator(device=device).manual_seed(
             self.generator.initial_seed())
         self.optimizer_type = config.get("optimizer", {}).get("type", "Adam")
+        parallel.broadcast_module(model)
 
         tcfg = config.get("trainer", {})
         self.epochs = tcfg.get("epochs", 1)
@@ -110,7 +126,8 @@ class Trainer:
         self.module_timing = tcfg.get("module_timing", False)
 
         self.run_dir = Path(run_dir)
-        self.run_dir.mkdir(parents=True, exist_ok=True)
+        if parallel.is_main():
+            self.run_dir.mkdir(parents=True, exist_ok=True)
         setup_logging(self.run_dir, verbosity=tcfg.get("verbosity", 2))
         self.writer = MetricsWriter(self.run_dir / "tb",
                                     enable_tensorboard=tcfg.get("tensorboard", True))
@@ -125,10 +142,13 @@ class Trainer:
     # ----- steps -------------------------------------------------------------
 
     @torch.no_grad()
-    def _metrics(self, data: Dict) -> np.ndarray:
-        data = dict(data, result=data["result"].detach())
+    def _metrics(self, data: Dict, sharded: bool = False) -> np.ndarray:
+        """The metric vector of the global batch (its inputs gathered from
+        the ranks when ``sharded``)."""
         if not self.metric_fns:
             return np.zeros(0)
+        with parallel.batch_scope(sharded):
+            data = parallel.gather_rows(data, METRIC_INPUTS)
         values = torch.stack([m(data, self.roi, self.max_distance) for m in self.metric_fns])
         return values.cpu().numpy().astype(np.float64)
 
@@ -164,26 +184,34 @@ class Trainer:
         mask = data.get("mask")
         return {"result": data["result"].detach(), "mask": None if mask is None else mask.detach()}
 
-    def train_step(self, batch: Dict, alpha: float) -> Tuple[Dict[str, float], np.ndarray, Dict]:
+    def train_step(self, batch: Dict, alpha: float,
+                   sharded: bool = False) -> Tuple[Dict[str, float], np.ndarray, Dict]:
         """One optimizer step on ``batch``; returns the loss dict as floats,
-        the metrics and the outputs for the image log."""
+        the metrics and the outputs for the image log. ``sharded``: the
+        batch is this rank's rows of the global batch (else every rank
+        holds all of it)."""
         self.model.train()
-        loss_dict, data = self._feed(batch, True, alpha)
+        with parallel.batch_scope(sharded):
+            loss_dict, data = self._feed(batch, True, alpha)
+            if "cv_uncovered" in data:
+                loss_dict["cv_uncovered"] = parallel.global_sum(data["cv_uncovered"].sum())
         self.optimizer.zero_grad(set_to_none=True)
         loss_dict["loss"].backward()
+        parallel.reduce_gradients([p for g in self.optimizer.param_groups for p in g["params"]],
+                                  sharded)
         skipped = apply_gradients_guarded(self.optimizer, self.skip_nonfinite_updates)
-        if "cv_uncovered" in data:
-            loss_dict["cv_uncovered"] = data["cv_uncovered"].sum()
         floats = self._to_floats(loss_dict)
         if skipped is not None:
             floats["skipped_nonfinite"] = skipped
-        return floats, self._metrics(data), self._viz(data)
+        return floats, self._metrics(data, sharded), self._viz(data)
 
     @torch.no_grad()
-    def valid_step(self, batch: Dict, alpha: float) -> Tuple[Dict[str, float], np.ndarray, Dict]:
+    def valid_step(self, batch: Dict, alpha: float,
+                   sharded: bool = False) -> Tuple[Dict[str, float], np.ndarray, Dict]:
         self.model.eval()
-        loss_dict, data = self._feed(batch, False, alpha)
-        return self._to_floats(loss_dict), self._metrics(data), self._viz(data)
+        with parallel.batch_scope(sharded):
+            loss_dict, data = self._feed(batch, False, alpha)
+        return self._to_floats(loss_dict), self._metrics(data, sharded), self._viz(data)
 
     @torch.no_grad()
     def _module_times(self, batch: Dict) -> Dict[str, float]:
@@ -266,7 +294,8 @@ class Trainer:
             except StopIteration:
                 it = iter(self.data_loader)
                 batch = next(it)
-            loss_dict, metrics, viz = self.train_step(batch, alpha)
+            batch, sharded = parallel.loader_batch(self.data_loader, batch)
+            loss_dict, metrics, viz = self.train_step(batch, alpha, sharded)
             step = (epoch - 1) * self.len_epoch + batch_idx
             self.writer.set_step(step)
             self.writer.add_scalar("loss", loss_dict["loss"])
@@ -304,7 +333,8 @@ class Trainer:
         total_loss, n, total_valid = 0.0, 0, 0
         total_metrics = np.zeros(len(self.metric_fns))
         for batch_idx, batch in enumerate(self.valid_data_loader):
-            loss_dict, metrics, viz = self.valid_step(batch, alpha)
+            batch, sharded = parallel.loader_batch(self.valid_data_loader, batch)
+            loss_dict, metrics, viz = self.valid_step(batch, alpha, sharded)
             if np.any(np.isnan(metrics)):
                 metrics = np.zeros_like(metrics)
             else:
@@ -366,8 +396,9 @@ class Trainer:
 
     def resume(self, checkpoint_path) -> None:
         """Continue from a checkpoint: weights, and the optimizer state when
-        the optimizer type is unchanged."""
-        payload = checkpoints.load_checkpoint(checkpoint_path)
+        the optimizer type is unchanged. Every rank reads the file, onto the
+        host (a card's tensors would land on the card that saved them)."""
+        payload = checkpoints.load_checkpoint(checkpoint_path, map_location="cpu")
         if not (isinstance(payload, dict) and isinstance(payload.get("config"), dict)
                 and {"state_dict", "optimizer", "epoch", "monitor_best"} <= set(payload)):
             raise ValueError(f"{checkpoint_path} is not a checkpoint of one of the port's runs, "

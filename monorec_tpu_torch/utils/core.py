@@ -7,6 +7,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from monorec_tpu_torch.parallel import ratio_of_sums
+
 Tensor = torch.Tensor
 
 
@@ -15,12 +17,15 @@ def mask_mean(t: Tensor, invalid: Tensor, dim=None) -> Tensor:
 
     The denominator is (element count - #invalid), as in the reference
     (``utils/util.py:110-118``), so an all-invalid reduction divides by zero
-    and yields NaN, which callers guard as the reference does.
+    and yields NaN, which callers guard as the reference does. With
+    ``dim=None`` it couples the samples: under a sharded batch the sum and
+    the count are the global batch's (``parallel.ratio_of_sums``), so a
+    shard with no valid entry is NaN only where the global batch is.
     """
     invalid = torch.broadcast_to(invalid, t.shape)
     t = torch.where(invalid, 0.0, t)
     if dim is None:
-        return t.sum() / (t.numel() - invalid.sum().to(t.dtype))
+        return ratio_of_sums(t.sum(), t.numel() - invalid.sum().to(t.dtype))
     dims = tuple(dim) if isinstance(dim, (tuple, list)) else (dim,)
     total = 1
     for d in dims:
