@@ -247,7 +247,27 @@ checkout, then:
    all-reduces timed alone. Prints the
    world sizes it ran and each run's step times (the host clock between
    steps, ``steps_per_sec``). On one card the multi-rank math rests on the
-   CPU tests (``tests/test_torch_parallel.py``), and a line says so.
+   CPU tests (``tests/test_torch_parallel.py``), and a line says so;
+30. the joint passes of the stage 2-4 trainer: K1's grouped cost-volume
+   mode (one launch over each keyframe's F = 2 mono frames and its stereo
+   frame, fused per group) at B=8, 256x512, D=32, float32 and bf16 sources,
+   both motions, against its plain version with phase 4's budgets and
+   bit for bit against a launch per group, timed against both; the joint
+   trainer's ``compute_cost_volume_pair`` against the two
+   ``compute_cost_volume`` calls of the separate passes, in 7 windows of 10
+   calls each in turns (CUDA events and the host clock, the device's idle
+   share); then stages 3 (B=4) and 4 (B=8) from the checkpoints phases 18
+   and 19 start from, one trainer per variant (separate, ``joint_cv``,
+   ``joint_depth_decode``, both): one step's loss (rtol 1e-6) and every
+   gradient (rtol 1e-5 / atol 1e-7) against the separate passes on the same
+   batch and draws (with ``cudnn.deterministic``: as the trainers run, the
+   separate step does not repeat itself within those budgets); three steps
+   and a validation pass of each joint variant
+   through ``trainer.train()`` (one K1 launch a step under ``joint_cv``, two
+   otherwise, K2 and K3 as phases 18-19); and the card's probe of the four:
+   10 steps each (CUDA events, the variants in turns), each one's peak
+   memory over a step and busy share, printed side by side with the card's
+   name and power limit.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -985,18 +1005,20 @@ def step_split(trainer, batches, alpha, n_steps: int):
     return [statistics.median(c) for c in zip(*rows)]
 
 
-def profile_steps(tag: str, trainer, batches, alpha, step_median: float) -> None:
+def profile_steps(tag: str, trainer, batches, alpha, step_median: float,
+                  steps: int = PROFILED_STEPS) -> tuple:
     """Device busy share and the largest kernels, from one torch.profiler
-    trace of PROFILED_STEPS steps after an untimed profiled one: the window
+    trace of ``steps`` steps after an untimed profiled one: the window
     runs from the host's start of the first timed step to the end of the
     last device activity, and the busy time is the union of the device
-    activities (kernels, copies, fills) in it."""
+    activities (kernels, copies, fills) in it. Returns (busy ms per step,
+    busy % of the window)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(PROFILED_STEPS + 1):
+        for i in range(steps + 1):
             with record_function(f"chip_smoke_step_{i}"):
                 trainer.train_step(batches[i % len(batches)], alpha)
         torch.cuda.synchronize()
@@ -1016,13 +1038,14 @@ def profile_steps(tag: str, trainer, batches, alpha, step_median: float) -> None
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
         per_name[kname] = per_name.get(kname, 0.0) + (end - start)
-    busy_ms = busy / 1e3 / PROFILED_STEPS
+    busy_ms = busy / 1e3 / steps
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"{tag} torch.profiler, {PROFILED_STEPS} steps with the kernels: device busy "
+    log(f"{tag} torch.profiler, {steps} steps with the kernels: device busy "
         f"{busy_ms:.3f} ms per step = {100.0 * busy / (t1 - t0):.1f}% of the profiled window "
-        f"({(t1 - t0) / 1e3 / PROFILED_STEPS:.3f} ms per step) and "
+        f"({(t1 - t0) / 1e3 / steps:.3f} ms per step) and "
         f"{100.0 * busy_ms / step_median:.1f}% of the unprofiled median step; largest, "
-        f"ms per step: " + "; ".join(f"{k[:60]} {v / 1e3 / PROFILED_STEPS:.3f}" for k, v in top))
+        f"ms per step: " + "; ".join(f"{k[:60]} {v / 1e3 / steps:.3f}" for k, v in top))
+    return busy_ms, 100.0 * busy / (t1 - t0)
 
 
 STEP_NAMES = ("forward", "loss", "backward", "optimizer")
@@ -1189,16 +1212,17 @@ def k1_raw_bound(images, keyframes, homs) -> dict:
                  K1_FLOPS * n * d * h * w)
 
 
-def k1_cv_bound(images, keyframes, homs, frames: int = F) -> dict:
+def k1_cv_bound(images, keyframes, homs, frames: int = F, groups=None) -> dict:
     """K1's cost-volume mode: sources, keyframes and homographies in; the
-    per-frame CVs (N, D, H, W) and the fused CV (B, D, H, W) out, B = N /
-    ``frames``."""
+    per-frame CVs (N, D, H, W) and a fused CV (B, D, H, W) per group of
+    frames (``groups``; one group of all) out, B = N / ``frames``."""
     n, _, h, w = images.shape
     d = homs.shape[1]
+    groups = groups or (frames,)
     fused = n // frames * d * h * w
-    return bound(nbytes(images, keyframes, homs) + (n * d * h * w + fused) * 4,
+    return bound(nbytes(images, keyframes, homs) + (n * d * h * w + len(groups) * fused) * 4,
                  K1_CV_FLOPS * n * d * h * w
-                 + (K1_FUSE_FLOPS_PER_FRAME * frames + K1_FUSE_FLOPS) * fused)
+                 + sum(K1_FUSE_FLOPS_PER_FRAME * g + K1_FUSE_FLOPS for g in groups) * fused)
 
 
 def phase_cost_volume_kernel(dev, card: str, dtype) -> dict:
@@ -1725,11 +1749,14 @@ def phase_stage2(dev, card: str, run_dir, stage1_checkpoint):
     return counts, record, stage2_checkpoint
 
 
-def refinement_trainer(dev, run_dir, name: str, batch_size: int, options, checkpoints: dict):
+def refinement_trainer(dev, run_dir, name: str, batch_size: int, options, checkpoints: dict,
+                       steps: int = TRAIN_STEPS, **flags):
     """The trainer of ``cli/train_monorec.py`` on ``configs/train/monorec/
     <name>.json`` with synthetic data at the operating point (stereo frames,
-    the config's moving-object mask) and batch ``batch_size``, starting from
-    the ``checkpoints`` ({"depth_cp_loc": path, "mask_cp_loc": path})."""
+    the config's moving-object mask) and batch ``batch_size``, ``steps`` to
+    an epoch, starting from the ``checkpoints`` ({"depth_cp_loc": path,
+    "mask_cp_loc": path}), with the trainer ``flags`` (``joint_cv``,
+    ``joint_depth_decode``) set."""
     from monorec_tpu_torch.cli.train_monorec import build_trainer
     from monorec_tpu_torch.precision import set_precision
 
@@ -1738,13 +1765,14 @@ def refinement_trainer(dev, run_dir, name: str, batch_size: int, options, checkp
     data = {"frame_count": F, "target_image_size": [H, W], "batch_size": batch_size,
             "return_stereo": True, "return_mvobj_mask": 1}
     config["data_loader"] = {"type": "SyntheticSweepDataloader",
-                             "args": {**data, "length": TRAIN_STEPS * batch_size, "shuffle": True}}
+                             "args": {**data, "length": steps * batch_size, "shuffle": True}}
     config["val_data_loader"] = {"type": "SyntheticSweepDataloader",
                                  "args": {**data, "length": batch_size, "shuffle": False,
                                           "seed": 1}}
     config["arch"]["args"].update({k: [str(v)] for k, v in checkpoints.items()})
-    config["trainer"].update(epochs=1, len_epoch=TRAIN_STEPS, log_step=1,
-                             save_dir=f"{run_dir}/{name}", tensorboard=False)
+    config["trainer"].update(epochs=1, len_epoch=steps, log_step=1,
+                             save_dir="_".join([f"{run_dir}/{name}", *flags]),
+                             tensorboard=False, **flags)
     set_precision("exact", expect_rebuild=True)
     return build_trainer(config, dev, options)
 
@@ -1796,8 +1824,9 @@ def refinement_split(trainer, batches, alpha, n_steps: int):
 
 
 def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_step: dict):
-    """Six steps and a validation pass through ``trainer.train()``, the main
-    path, with the counts set to 0 just before. Checks that every tensor of
+    """An epoch (``trainer.len_epoch`` steps) and a validation pass through
+    ``trainer.train()``, the main path, with the counts set to 0 just
+    before. Checks that every tensor of
     the ``trained`` modules moved and none of the ``fixed`` ones did, and
     the launches: ``per_step`` per train step, and per validation batch the
     same forwards with every K2 launch in values mode and no backward.
@@ -1806,6 +1835,7 @@ def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_st
     import torch
 
     model = trainer.model
+    steps = trainer.len_epoch
     start = {k: p.detach().clone() for k, p in model.named_parameters()}
     n_val = len(trainer.valid_data_loader)
     ratios = []
@@ -1822,7 +1852,7 @@ def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_st
     counts, by_batch = launch_counts(), launches_by_batch()
     trainer.loss_fn = stage_loss
     k2_val = per_step.get("grid_warp", 0) + per_step.get("grid_warp_jac", 0)
-    expected = only(**{k: v * TRAIN_STEPS for k, v in per_step.items()})
+    expected = only(**{k: v * steps for k, v in per_step.items()})
     for k, v in (("plane_sweep_cost_volume", per_step["plane_sweep_cost_volume"]),
                  ("grid_warp", k2_val), ("photo_error_fwd", per_step["photo_error_fwd"])):
         expected[k] += v * n_val
@@ -1832,8 +1862,8 @@ def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_st
     total = {prefix: sum(k.startswith(prefix) for k in start) for prefix in trained + fixed}
     losses = ", ".join(f"{r['loss']:.5f}" for r in lines)
     shares = [", ".join(f"{x:.4f}" for x in part)
-              for part in (ratios[:TRAIN_STEPS], ratios[TRAIN_STEPS:])]
-    log(f"{tag} {TRAIN_STEPS} steps + {n_val} validation batch(es) through the trainer of "
+              for part in (ratios[:steps], ratios[steps:])]
+    log(f"{tag} {steps} steps + {n_val} validation batch(es) through the trainer of "
         f"cli/train_monorec.py (options {' '.join(trainer.options)}), "
         f"B={trainer.data_loader.batch_size}, {H}x{W}, F={F}, D={D}: losses {losses}; moving "
         f"share per step {shares[0]} (validation {shares[1]}); val_loss "
@@ -1841,11 +1871,11 @@ def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_st
         + ", ".join(f"{p[:-1]} {moved[p]} of {total[p]}" for p in trained + fixed)
         + f"; launches { {k: v for k, v in counts.items() if v} } (expected the same, every "
         f"other kernel 0)")
-    if not (len(lines) == TRAIN_STEPS and counts == expected
+    if not (len(lines) == steps and counts == expected
             and all(moved[p] == total[p] > 0 for p in trained)
             and all(moved[p] == 0 for p in fixed)):
         raise AssertionError(f"{tag} training through the entry point failed its checks")
-    return counts, by_batch, lines, ratios[:TRAIN_STEPS]
+    return counts, by_batch, lines, ratios[:steps]
 
 
 def refinement_timing(tag: str, card: str, dev, trainer, per_step: dict) -> None:
@@ -4815,6 +4845,372 @@ def phase_data_parallel(dev, card: str, run_dir, checkpoint) -> dict:
     return counts
 
 
+# ---- phase 30: the joint passes of the stage 2-4 trainer --------------------
+
+JOINT_GROUPS = (F, 1)  # a keyframe's mono frames, then its stereo frame
+PAIR_KEYS = ("keyframe", "keyframe_intrinsics", "keyframe_pose", "frames", "intrinsics", "poses",
+             "stereoframe", "stereoframe_intrinsics", "stereoframe_pose")
+JOINT_VARIANTS = {"separate": {}, "joint_cv": {"joint_cv": True},
+                  "joint_depth_decode": {"joint_depth_decode": True},
+                  "both": {"joint_cv": True, "joint_depth_decode": True}}
+# A joint trainer's step against the separate passes' on the same batch and
+# draws: tests/test_train.py::test_joint_depth_decode_equals_two_pass.
+JOINT_LOSS_RTOL, JOINT_GRAD_RTOL, JOINT_GRAD_ATOL = 1e-6, 1e-5, 1e-7
+JOINT_WINDOWS = 7  # cost-volume timing windows of 10 calls per path, in turns
+JOINT_TURN_STEPS = 5  # timed steps per turn; the variants in turns there and back
+JOINT_TRAIN_STEPS = 3  # steps of each joint variant's epoch on the main path
+JOINT_PROFILED_STEPS = 2  # steps of each variant's busy-share trace
+
+
+def joint_sweep_inputs(dev, tz: float, dtype):
+    """The grouped sweep's inputs at the operating point: B keyframes, each
+    with its F mono frames and its stereo frame, as sources (B (F + 1), 3, H,
+    W) in ``dtype``, keyframes and homographies (B (F + 1), D, 3, 3); and the
+    batch."""
+    import torch
+
+    from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
+    from monorec_tpu_torch.ops.cost_volume import plane_sweep_homographies
+
+    bt = batch_to_torch(make_batch(B, H, W, F, stereo=True, mask=False, tz=tz), dev)
+    frames, intr, poses = (torch.cat([bt[m], bt[s][:, None]], 1) for m, s in (
+        ("frames", "stereoframe"), ("intrinsics", "stereoframe_intrinsics"),
+        ("poses", "stereoframe_pose")))
+    inv_depths = torch.linspace(0.0025, 0.33, D, dtype=torch.float64, device=dev)
+    homs = plane_sweep_homographies(bt["keyframe_intrinsics"], bt["keyframe_pose"], intr, poses,
+                                    inv_depths, H, W).reshape(B * (F + 1), D, 3, 3).contiguous()
+    return frames.reshape(B * (F + 1), 3, H, W).to(dtype).contiguous(), bt["keyframe"], homs, bt
+
+
+def group_rows(t, g: slice):
+    """The sources (or homographies) of frames ``g`` of each keyframe, from
+    a (B (F + 1), ...) stack, contiguous."""
+    return t.reshape((B, F + 1) + t.shape[1:])[:, g].flatten(0, 1).contiguous()
+
+
+def cost_volume_turns(card: str, bt, warp_dtype: str) -> None:
+    """``compute_cost_volume_pair`` (the joint trainer's one grouped launch)
+    against the two ``compute_cost_volume`` calls of the separate passes, on
+    one batch: their outputs' largest difference, then JOINT_WINDOWS windows
+    of 10 calls each, the two in turns, timed with CUDA events and the host
+    clock (median and spread), and the device's idle share over 10 calls of
+    each from a torch.profiler trace."""
+    import torch
+
+    from monorec_tpu_torch.ops.cost_volume import (
+        CostVolumeConfig,
+        compute_cost_volume,
+        compute_cost_volume_pair,
+    )
+
+    cfg = CostVolumeConfig(depth_steps=D, warp_dtype=warp_dtype)
+    args = [bt[k] for k in PAIR_KEYS]
+
+    def separate():
+        mono = compute_cost_volume(*args[:6], 0.0025, 0.33, cfg, return_coverage=True)
+        stereo = compute_cost_volume(*args[:3], *(a[:, None] for a in args[6:]), 0.0025, 0.33,
+                                     cfg, return_coverage=True)
+        return mono[0], mono[1], stereo[0], stereo[1], mono[2] + stereo[2]
+
+    fns = {"pair": lambda: compute_cost_volume_pair(*args, 0.0025, 0.33, cfg),
+           "separate": separate}
+    diff = max((a - b).abs().max().item() for a, b in zip(fns["pair"](), separate()))
+    tag = f"[30 joint cost volume, {warp_dtype} sources]"
+    if diff > SAD_TOL:
+        raise AssertionError(f"{tag} the pair is {diff:.3e} from the separate calls")
+    windows = {name: [] for name in fns}
+    for i in range(JOINT_WINDOWS):
+        for name in (fns if i % 2 == 0 else reversed(fns)):
+            fns[name]()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(10):
+                fns[name]()
+            end.record()
+            end.synchronize()
+            windows[name].append((start.elapsed_time(end) / 10,
+                                  (time.perf_counter() - t0) * 1e3 / 10))
+    parts = []
+    for name, rows in windows.items():
+        dev_ms, host_ms = ([r[i] for r in rows] for i in range(2))
+        wall, busy = busy_window(lambda: [fns[name]() for _ in range(10)])  # noqa: B023
+        parts.append(f"{name} {statistics.median(dev_ms):.3f} ms (CUDA events; spread "
+                     f"{min(dev_ms):.3f}-{max(dev_ms):.3f}), host clock "
+                     f"{statistics.median(host_ms):.3f} ({min(host_ms):.3f}-{max(host_ms):.3f}), "
+                     f"device idle {100.0 * (1.0 - busy / wall):.1f}% of {wall / 10:.3f} ms")
+    log(f"{tag} B={B}, F={F} + 1, D={D}, {H}x{W}: the pair vs the two calls max|diff| "
+        f"{diff:.3e}; per call, medians of {JOINT_WINDOWS} windows of 10 in turns: "
+        + "; ".join(parts) + f" on {card}")
+
+
+def phase_joint_kernel(dev, card: str, dtype) -> dict:
+    """Phase 30 (a): K1's grouped cost-volume mode at the operating point,
+    B=8, F=2 + 1, on float32 or bf16 sources, for both motions: against its
+    plain version (the per-frame CVs within SAD_TOL, each fused CV against
+    the plain version in float64 within twice the float32 plain version's
+    own error where that exceeds SAD_TOL, as phases 3 and 4 hold them) and
+    against a launch per group on the same sources (bit-equal); then timed
+    against its plain version and against the two launches, and the cost
+    volume of the joint trainer against the separate calls
+    (``cost_volume_turns``). Returns the kernel record."""
+    import torch
+
+    from monorec_tpu_torch.ops import plane_sweep
+
+    bf16 = dtype == torch.bfloat16
+    tag = "[30 joint K1, bf16 sources]" if bf16 else "[30 joint K1]"
+    ft = F + 1
+    slices = (slice(0, F), slice(F, ft))
+    counter = "launches_bf16" if bf16 else "launches"
+    max_err = sfcv_err = sep_diff = 0.0
+    for tz in MOTIONS:
+        images, keyframes, homs, _ = joint_sweep_inputs(dev, tz, dtype)
+        before = getattr(plane_sweep.plane_sweep_cost_volume, counter)
+        outs = plane_sweep.plane_sweep_cost_volume(images, keyframes, homs, 2, ft, 1,
+                                                   groups=JOINT_GROUPS)
+        torch.cuda.synchronize()
+        counted = getattr(plane_sweep.plane_sweep_cost_volume, counter) - before
+        refs = plane_sweep.plane_sweep_cost_volume_reference(images, keyframes, homs, 2, ft, 1,
+                                                             groups=JOINT_GROUPS)
+        for (fused, sfcv), (pf, psf), g in zip(outs, refs, slices):
+            fg = g.stop - g.start
+            src, hg = group_rows(images, g), group_rows(homs, g)
+            alone = plane_sweep.plane_sweep_cost_volume(src, keyframes, hg, 2, fg, 1)
+            diff = max((fused - alone[0]).abs().max().item(),
+                       (sfcv - alone[1]).abs().max().item())
+            e_sfcv, e32 = (sfcv - psf).abs().max().item(), (fused - pf).abs().max().item()
+            e64 = e32_64 = 0.0
+            for b in range(B):  # float64 one keyframe at a time, to bound memory
+                rows = slice(b * fg, (b + 1) * fg)
+                f64, _ = plane_sweep.plane_sweep_cost_volume_reference(
+                    src[rows].double(), keyframes[b : b + 1].double(), hg[rows], 2, fg, 1)
+                e64 = max(e64, (fused[b : b + 1] - f64).abs().max().item())
+                e32_64 = max(e32_64, (pf[b : b + 1] - f64).abs().max().item())
+            fused_tol = max(SAD_TOL, 2.0 * e32_64)
+            log(f"{tag} tz={tz} group of {fg} frame(s): max|sfcv diff| vs plain {e_sfcv:.3e} "
+                f"(gate {SAD_TOL}); fused vs plain float64 {e64:.3e} (gate {fused_tol:.3e}), "
+                f"plain float32 vs float64 {e32_64:.3e}; vs a launch over the group alone "
+                f"{diff:.3e} (gate 0)")
+            if not (counted == 1 and fused.shape == (B, D, H, W)
+                    and sfcv.shape == (B, fg, D, H, W) and torch.isfinite(fused).all()
+                    and torch.isfinite(sfcv).all() and e_sfcv <= SAD_TOL and e64 <= fused_tol
+                    and diff == 0.0):
+                raise AssertionError(f"{tag} the grouped launch ({counted} counted) disagrees "
+                                     f"with its plain version or a launch per group (tz={tz})")
+            max_err, sfcv_err = max(max_err, e_sfcv, e32), max(sfcv_err, e_sfcv)
+            sep_diff = max(sep_diff, diff)
+            del fused, sfcv, pf, psf, alone, f64
+        del outs, refs
+
+    images, keyframes, homs, bt = joint_sweep_inputs(dev, 0.0, dtype)
+    parts = [(group_rows(images, g), group_rows(homs, g), g.stop - g.start) for g in slices]
+    grouped = lambda: plane_sweep.plane_sweep_cost_volume(  # noqa: E731
+        images, keyframes, homs, 2, ft, 1, groups=JOINT_GROUPS)
+    plain = lambda: plane_sweep.plane_sweep_cost_volume_reference(  # noqa: E731
+        images, keyframes, homs, 2, ft, 1, groups=JOINT_GROUPS)
+    two = lambda: [plane_sweep.plane_sweep_cost_volume(s, keyframes, h, 2, fg, 1)  # noqa: E731
+                   for s, h, fg in parts]
+    k_ms, p_ms, _, turns, order = in_turns(grouped, plain, 20, 3)
+    g_ms, two_ms, _, two_turns, two_order = in_turns(grouped, two, 20, 20)
+    log(f"{tag} time at N={B * ft}, D={D}, {H}x{W}, groups {JOINT_GROUPS} ({order}): "
+        f"{', '.join(f'{t:.3f}' for t in turns)} ms; grouped {k_ms:.3f} ms vs plain "
+        f"{p_ms:.3f} ms; against a launch per group ({two_order.replace('plain', 'two')}): "
+        f"{', '.join(f'{t:.3f}' for t in two_turns)} ms, grouped {g_ms:.3f} vs two launches "
+        f"{two_ms:.3f} ms on {card}")
+    cost_volume_turns(card, bt, "bfloat16" if bf16 else "float32")
+    return {"max_abs_err": max_err, "sfcv_max_abs_err": sfcv_err,
+            "separate_max_abs_diff": sep_diff, "separate_ms": two_ms, "ms": k_ms,
+            "plain_ms": p_ms, "library_ms": None,
+            **k1_cv_bound(images, keyframes, homs, ft, JOINT_GROUPS)}
+
+
+def joint_trainers(dev, run_dir, stage: int, checkpoints: dict) -> dict:
+    """Phase 30's trainers of one stage, one per JOINT_VARIANTS entry, each
+    from ``refinement_trainer`` with the stage's config, batch and
+    checkpoints; in stage 4 each with the separate trainer's mask shift
+    (``mixed_mask``), so that all start from the same weights."""
+    import torch
+
+    name, batch, options = ({3: ("monorec_mask_ref", STAGE3_B, ("mask_loss",)),
+                             4: ("monorec_depth_ref", B, ("stereo", "stereo_repr"))}[stage])
+    trainers = {v: refinement_trainer(dev, run_dir, name, batch, options, checkpoints,
+                                      JOINT_TRAIN_STEPS, **flags)
+                for v, flags in JOINT_VARIANTS.items()}
+    if stage == 4:
+        mixed_mask(trainers["separate"], next(iter(trainers["separate"].data_loader)))
+        bias = trainers["separate"].model.att_module.classifier[0].bias
+        with torch.no_grad():
+            for t in trainers.values():
+                t.model.att_module.classifier[0].bias.copy_(bias)
+    return trainers
+
+
+def joint_step(trainer, batch, alpha, states) -> tuple:
+    """One step's loss and gradients of ``trainer`` on ``batch`` from the
+    generator ``states`` (CPU, device); no update."""
+    trainer.generator.set_state(states[0])
+    trainer.device_generator.set_state(states[1])
+    trainer.model.train()
+    loss_dict, _ = trainer._feed(batch, True, alpha)
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss_dict["loss"].backward()
+    grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()
+             if p.grad is not None}
+    trainer.optimizer.zero_grad(set_to_none=True)
+    return loss_dict["loss"].item(), grads
+
+
+def joint_step_diff(got: tuple, want: tuple) -> dict:
+    """A step against another: the loss's relative difference, the gradient
+    elements outside JOINT_GRAD_RTOL / JOINT_GRAD_ATOL, the largest excess
+    over rtol |want| in units of atol, and whether the two are bit-equal."""
+    import torch
+
+    (loss, grads), (loss0, grads0) = got, want
+    outside, worst, n = 0, 0.0, 0
+    for k, g0 in grads0.items():
+        excess = (grads[k] - g0).abs() - JOINT_GRAD_RTOL * g0.abs()
+        worst = max(worst, (excess / JOINT_GRAD_ATOL).max().item())
+        outside += int((excess > JOINT_GRAD_ATOL).sum())
+        n += g0.numel()
+    return {"loss_rel": abs(loss - loss0) / abs(loss0), "outside": outside, "worst": worst,
+            "elements": n, "tensors": len(grads0), "same_tensors": set(grads) == set(grads0),
+            "finite": math.isfinite(loss), "equal": loss == loss0 and all(
+                torch.equal(grads[k], g0) for k, g0 in grads0.items())}
+
+
+def joint_step_check(tag: str, trainers: dict, batch) -> None:
+    """One step's loss and every parameter's gradient of each joint trainer
+    against the separate passes', on one batch from the same generator
+    states, the separate step also against itself. Twice: as the trainers
+    run (cuDNN free to pick nondeterministic algorithms, whose sums differ
+    from run to run), then with ``cudnn.deterministic``. Gated on the
+    second: the separate step repeats bit for bit, and each joint step is
+    within JOINT_LOSS_RTOL on the loss and JOINT_GRAD_RTOL / JOINT_GRAD_ATOL
+    per gradient element."""
+    import torch
+
+    ref = trainers["separate"]
+    states = ref.generator.get_state(), ref.device_generator.get_state()
+    alpha = ref._alpha(1)
+    saved = torch.backends.cudnn.deterministic
+    failed = []
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            base = joint_step(ref, batch, alpha, states)
+            steps = {"separate again": joint_step(ref, batch, alpha, states)}
+            steps.update({v: joint_step(t, batch, alpha, states) for v, t in trainers.items()
+                          if v != "separate"})
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        mode = "cudnn.deterministic" if deterministic else "as the trainers run"
+        for v, step in steps.items():
+            d = joint_step_diff(step, base)
+            log(f"{tag} {mode}: {v} vs separate, one step on one batch: loss {step[0]:.7f} vs "
+                f"{base[0]:.7f} (rel diff {d['loss_rel']:.2e}, gate {JOINT_LOSS_RTOL}); "
+                f"gradients of {d['tensors']} tensors, {d['elements']} elements: "
+                f"{d['outside']} outside rtol {JOINT_GRAD_RTOL} / atol {JOINT_GRAD_ATOL}, "
+                f"largest |diff| - rtol |ref| = {d['worst']:.3f} atol; bit-equal {d['equal']}")
+            ok = (d["same_tensors"] and d["finite"] and d["loss_rel"] <= JOINT_LOSS_RTOL
+                  and d["outside"] == 0 and (v != "separate again" or d["equal"]))
+            if deterministic and not ok:
+                failed.append(v)
+    if failed:
+        raise AssertionError(f"{tag} the step of {failed} differs from the separate passes")
+
+
+def joint_probe(tag: str, card: str, dev, trainers: dict, per_step: dict) -> dict:
+    """The card's counterpart of the TPU's stage-4 probe: each variant's
+    step (CUDA events) on the same 3 batches, the variants in turns there
+    and back, JOINT_TURN_STEPS steps a turn (10 a variant), each step's
+    launches checked; then each variant's peak memory over one step and
+    its busy share from a profiler trace. Returns the medians."""
+    import torch
+
+    ref = trainers["separate"]
+    batches = [b for _, b in zip(range(3), ref.data_loader)]
+    alpha = ref._alpha(1)
+    for t in trainers.values():
+        step_times(t, batches, alpha, 1, "exact")
+    times = {v: [] for v in trainers}
+    for v in [*trainers, *reversed(trainers)]:
+        for ms, delta in step_times(trainers[v], batches, alpha, JOINT_TURN_STEPS, "exact"):
+            if delta != only(**per_step[v]):
+                raise AssertionError(f"{tag} a {v} step launched {delta}, expected "
+                                     f"{only(**per_step[v])}")
+            times[v].append(ms)
+    out = {}
+    for v, t in trainers.items():
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t.train_step(batches[0], alpha)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - resident) / 2**30
+        med = statistics.median(times[v])
+        busy_ms, busy = profile_steps(f"{tag} {v}", t, batches, alpha, med,
+                                      JOINT_PROFILED_STEPS)
+        out[v] = {"ms": med, "peak_gib": peak, "busy_pct": busy, "busy_ms": busy_ms}
+        log(f"{tag} {v}: median step {med:.3f} ms (10 steps, CUDA events; "
+            + ", ".join(f"{x:.2f}" for x in times[v]) + f") = "
+            f"{t.data_loader.batch_size * 1e3 / med:.2f} keyframes/s; a step's peak memory "
+            f"{peak:.2f} GiB above the {resident / 2**30:.2f} GiB resident; launches per step "
+            f"{ {k: n for k, n in per_step[v].items() if n} }")
+    base = out["separate"]["ms"]
+    log(f"{tag} the four variants side by side (median step ms, vs separate, peak GiB, device "
+        f"busy % of the profiled window): " + "; ".join(
+            f"{v} {r['ms']:.3f} ({100.0 * (r['ms'] / base - 1.0):+.1f}%), {r['peak_gib']:.2f} "
+            f"GiB, busy {r['busy_pct']:.1f}%" for v, r in out.items()) + f" on {card}")
+    return out
+
+
+def phase_joint_passes(dev, card: str, run_dir, checkpoints: dict) -> dict:
+    """Phase 30 (b) and (c): stages 3 and 4 (from the checkpoints phases 18
+    and 19 start from: ``checkpoints[stage]``) under each of ``joint_cv``,
+    ``joint_depth_decode`` and both against the separate passes: one step's
+    loss and gradients, JOINT_TRAIN_STEPS steps and a validation pass through
+    ``trainer.train()`` (the main path; under ``joint_cv`` one K1 launch a
+    step, the other kernels as phases 18 and 19), and the probe. Returns the
+    K1 launches of the ``joint_cv`` main paths and the probe's medians."""
+    import torch
+
+    joint_k1 = 0
+    probes = {}
+    for stage, step, trained, fixed in (
+            (3, STAGE3_STEP, ("att_module.", "depth_module."), ("_feature_extractor.",)),
+            (4, STAGE4_STEP, ("depth_module.",), ("_feature_extractor.", "att_module."))):
+        tag = f"[30 joint passes, stage {stage}]"
+        t0 = time.perf_counter()
+        trainers = joint_trainers(dev, run_dir, stage, checkpoints[stage])
+        times = [time.perf_counter()]
+        per_step = {v: dict(step, plane_sweep_cost_volume=1 if flags.get("joint_cv") else 2)
+                    for v, flags in JOINT_VARIANTS.items()}
+        joint_step_check(tag, trainers, next(iter(trainers["separate"].data_loader)))
+        times.append(time.perf_counter())
+        for v, t in trainers.items():
+            if v == "separate":
+                continue  # phases 18 and 19
+            counts, _, lines, _ = refinement_main_path(f"{tag} {v}", t, trained, fixed,
+                                                       per_step[v])
+            if any(r.get("skipped_nonfinite") for r in lines) or (
+                    stage == 3 and not all(math.isfinite(r["loss"]) for r in lines)):
+                raise AssertionError(f"{tag} {v}: a step was skipped or a loss not finite")
+            if JOINT_VARIANTS[v].get("joint_cv"):
+                joint_k1 += counts["plane_sweep_cost_volume"]
+        times.append(time.perf_counter())
+        probes[stage] = joint_probe(tag, card, dev, trainers, per_step)
+        times.append(time.perf_counter())
+        log(f"{tag} host time, s: the trainers {times[0] - t0:.1f}, the step checks "
+            f"{times[1] - times[0]:.1f}, the main paths {times[2] - times[1]:.1f}, the probe "
+            f"{times[3] - times[2]:.1f}")
+        del trainers
+        torch.cuda.empty_cache()
+    return {"joint_k1": joint_k1, "probes": probes}
+
+
 def nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
@@ -4834,6 +5230,12 @@ def main() -> int:
     from monorec_tpu_torch.precision import use_exact_precision
 
     use_exact_precision()
+    t_start = time.perf_counter()
+
+    def stamp(phases: str) -> None:
+        log(f"[time] phases up to {phases} done {time.perf_counter() - t_start:.1f} s after "
+            f"the start")
+
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(dev)
     smi = subprocess.run(
@@ -4985,6 +5387,8 @@ def main() -> int:
     del model, model_plain, outs
     torch.cuda.empty_cache()
 
+    stamp("6")
+
     # ---- 7-10. the stage-1 training path ---------------------------------
     records = {"plane_sweep_sad": {"launches": serve_counts["plane_sweep_sad"],
                                    "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
@@ -5004,6 +5408,8 @@ def main() -> int:
                   "photo_error_bwd"):
             records[k]["launches"] = train_counts[k]
         torch.cuda.empty_cache()
+
+        stamp("10")
 
         # ---- 11-13. the kernels of the serving policy and K4 -------------
         records["plane_sweep_sad_bf16"] = phase_sweep_bf16(dev, card)
@@ -5030,9 +5436,13 @@ def main() -> int:
         del exact_trainer
         torch.cuda.empty_cache()
 
+        stamp("15")
+
         # ---- 16. the convergence check -----------------------------------
         phase_convergence(dev)
         torch.cuda.empty_cache()
+
+        stamp("16")
 
         # ---- 17. stage 2 of the curriculum and the handoff into stage 3 --
         stage2_counts, records["grid_warp_crop_c32"], stage2_checkpoint = phase_stage2(
@@ -5046,6 +5456,8 @@ def main() -> int:
             dev, card, run_dir, stage1_checkpoint, stage3_checkpoint)
         torch.cuda.empty_cache()
 
+        stamp("19")
+
         # ---- 20-21. evaluation and the point cloud on a KITTI tree ---------
         records["plane_sweep_cost_volume"].update(
             phase_evaluate(dev, card, run_dir, stage4_checkpoint))
@@ -5053,6 +5465,8 @@ def main() -> int:
         records["plane_sweep_cost_volume"].update(
             phase_pointcloud(dev, card, run_dir, stage4_checkpoint))
         torch.cuda.empty_cache()
+
+        stamp("21")
 
         # ---- 22-23. RobotCar and TUM mono VO trees -------------------------
         records["plane_sweep_cost_volume_320x640"] = phase_robotcar(dev, card, run_dir,
@@ -5062,12 +5476,16 @@ def main() -> int:
                                                                   stage4_checkpoint)
         torch.cuda.empty_cache()
 
+        stamp("23")
+
         # ---- 24. the stage-1 CLI: ImageNet encoder, AdamW, module timing --
         cli_counts = phase_stage1_cli(dev, card, run_dir)
         for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
                   "photo_error_bwd"):
             records[k]["stage1_cli_launches"] = cli_counts[k]
         torch.cuda.empty_cache()
+
+        stamp("24")
 
         # ---- 25. the model variants ----------------------------------------
         variant_counts = phase_variants(dev, card, run_dir)
@@ -5078,6 +5496,8 @@ def main() -> int:
             records[k]["variants_train_launches"] = variant_counts["train"][k]
         torch.cuda.empty_cache()
 
+        stamp("25")
+
         # ---- 26. the KITTI user's path: prepare, stage 2, golden sample ----
         kitti_counts = phase_kitti_path(dev, card, run_dir, stage1_checkpoint,
                                         stage4_checkpoint)
@@ -5085,6 +5505,8 @@ def main() -> int:
             kitti_counts["plane_sweep_cost_volume"])
         records["grid_warp_crop_c32"]["kitti_path_launches"] = kitti_counts["grid_warp"]
         torch.cuda.empty_cache()
+
+        stamp("26")
 
         # ---- 27. TUM mono VO with colour and depth through cli.evaluate ----
         records["plane_sweep_cost_volume_tum_depth"] = phase_tum_depth(dev, card, run_dir,
@@ -5096,11 +5518,29 @@ def main() -> int:
             phase_progressive_tum(dev, card, run_dir, stage4_checkpoint))
         torch.cuda.empty_cache()
 
+        stamp("28")
+
         # ---- 29. data parallelism through the CLI's launcher --------------
         dp_counts = phase_data_parallel(dev, card, run_dir, stage4_checkpoint)
         for k in ("plane_sweep_cost_volume", "grid_warp_jac", "photo_error_fwd",
                   "photo_error_bwd"):
             records[k]["data_parallel_launches"] = dp_counts[k]
+        torch.cuda.empty_cache()
+        stamp("29")
+
+        # ---- 30. the joint passes of the stage 2-4 trainer ------------------
+        records["plane_sweep_cost_volume_joint"] = phase_joint_kernel(dev, card, torch.float32)
+        torch.cuda.empty_cache()
+        records["plane_sweep_cost_volume_joint_bf16"] = phase_joint_kernel(dev, card,
+                                                                           torch.bfloat16)
+        torch.cuda.empty_cache()
+        joint = phase_joint_passes(dev, card, run_dir, {
+            3: {"depth_cp_loc": stage1_checkpoint, "mask_cp_loc": stage2_checkpoint},
+            4: {"depth_cp_loc": stage1_checkpoint, "mask_cp_loc": stage3_checkpoint}})
+        records["plane_sweep_cost_volume_joint"]["launches"] = joint["joint_k1"]
+        # The trainers run exact: no bf16 grouped launch is on a main path.
+        records["plane_sweep_cost_volume_joint_bf16"]["launches"] = 0
+        stamp("30")
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
     for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
@@ -5123,6 +5563,10 @@ def main() -> int:
                                                "monorec_tpu/ops/pallas/cv_kernel.py:600"),
         "plane_sweep_cost_volume_tum_depth": ("plane_sweep_sad.cu",
                                               "monorec_tpu/ops/pallas/cv_kernel.py:600"),
+        "plane_sweep_cost_volume_joint": ("plane_sweep_sad.cu",
+                                          "monorec_tpu/ops/pallas/cv_kernel.py:600"),
+        "plane_sweep_cost_volume_joint_bf16": ("plane_sweep_sad.cu",
+                                               "monorec_tpu/ops/pallas/cv_kernel.py:600"),
         "grid_warp": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:421"),
         "grid_warp_jac": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:431"),
         "grid_warp_grad": ("grid_warp.cu", "monorec_tpu/ops/pallas/grid_warp.py:444"),
@@ -5151,6 +5595,7 @@ def main() -> int:
                                       "variants_forward_launches", "variants_train_launches",
                                       "kitti_path_launches", "pointcloud_launches",
                                       "progressive_cmyk_launches", "data_parallel_launches",
+                                      "separate_max_abs_diff", "separate_ms",
                                       "max_abs_err_vs_float64",
                                       "plain_max_abs_err_vs_float64", "planar_gather_ms",
                                       "second_launch_m",

@@ -63,7 +63,11 @@ from monorec_tpu_torch.models.augmentation import conditional_hflip, sample_flip
 from monorec_tpu_torch.models.depth_module import DepthModule
 from monorec_tpu_torch.models.mask_module import MaskModule, SimpleMaskModule
 from monorec_tpu_torch.models.resnet import ResNetEncoder, encoder_channels
-from monorec_tpu_torch.ops.cost_volume import CostVolumeConfig, compute_cost_volume
+from monorec_tpu_torch.ops.cost_volume import (
+    CostVolumeConfig,
+    compute_cost_volume,
+    compute_cost_volume_pair,
+)
 from monorec_tpu_torch.parallel import draw_rows
 from monorec_tpu_torch.precision import torch_dtype, use_exact_precision
 
@@ -212,6 +216,22 @@ class MonoRec(nn.Module):
             cv_depths=batch.get("cv_depths"),
             plain=cfg.plain_cost_volume,
             return_coverage=return_coverage,
+        )
+
+    def cost_volume_pair(self, batch: Batch):
+        """The mono and the stereo cost volumes of the batch's keyframes, from
+        one grouped launch of K1 where the sweep path serves
+        (``compute_cost_volume_pair``); returns (cv_mono, sfcv_mono,
+        cv_stereo, sfcv_stereo, coverage)."""
+        cfg = self.config
+        return compute_cost_volume_pair(
+            batch["keyframe"], batch["keyframe_intrinsics"], batch["keyframe_pose"],
+            batch["frames"], batch["intrinsics"], batch["poses"],
+            batch["stereoframe"], batch["stereoframe_intrinsics"], batch["stereoframe_pose"],
+            cfg.inv_depth_min_max[1], cfg.inv_depth_min_max[0],
+            cfg.cv_config(),
+            cv_depths=batch.get("cv_depths"),
+            plain=cfg.plain_cost_volume,
         )
 
     def features(self, keyframe: Tensor):

@@ -1,6 +1,10 @@
 """Operators of the port: the cost volume, its kernels, SSIM and sampling."""
 
-from monorec_tpu_torch.ops.cost_volume import CostVolumeConfig, compute_cost_volume
+from monorec_tpu_torch.ops.cost_volume import (
+    CostVolumeConfig,
+    compute_cost_volume,
+    compute_cost_volume_pair,
+)
 from monorec_tpu_torch.ops.plane_sweep import (
     plane_sweep_cost_volume,
     plane_sweep_cost_volume_reference,
@@ -12,6 +16,7 @@ from monorec_tpu_torch.ops.warp_sweep import warp_plane_sweep, warp_plane_sweep_
 __all__ = [
     "CostVolumeConfig",
     "compute_cost_volume",
+    "compute_cost_volume_pair",
     "plane_sweep_cost_volume",
     "plane_sweep_cost_volume_reference",
     "plane_sweep_sad",

@@ -21,6 +21,10 @@ Three paths compute it:
     reference's ``_cost_volume_single``. It serves a per-pixel
     ``cv_depths`` override; ``plain=True`` forces it for A/B checks.
 
+``compute_cost_volume_pair`` gives the stage 2-4 protocol's mono and stereo
+cost volumes of one keyframe, from one grouped launch of K1 where the sweep
+path serves.
+
 ``CostVolumeConfig.warp_dtype="bfloat16"`` (the serving policy) hands the
 sweep and warp paths bf16 source frames; the keyframe stays float32. The
 plain path ignores it, as the JAX package's XLA path does.
@@ -151,13 +155,16 @@ def _sweep_sources(keyframe, keyframe_intrinsics, keyframe_pose, frames, frame_i
 
 
 def _cost_volume_sweep(keyframe, keyframe_intrinsics, keyframe_pose, frames,
-                       frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min, cfg):
+                       frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min, cfg,
+                       groups=None):
+    """K1 over every frame; with ``groups``, ``[(fused, sfcv) per group]``
+    from the one launch and the coverage, else (fused, sfcv, coverage)."""
     b, f = frames.shape[:2]
     images, homs = _sweep_sources(keyframe, keyframe_intrinsics, keyframe_pose, frames,
                                   frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min,
                                   cfg)
     cw = tuple(float(x) / cfg.patch_size**2 for x in cfg.channel_weights)
-    fused, sfcv = plane_sweep_cost_volume(
+    out = plane_sweep_cost_volume(
         images,
         keyframe.contiguous(),
         homs,
@@ -167,8 +174,10 @@ def _cost_volume_sweep(keyframe, keyframe_intrinsics, keyframe_pose, frames,
         channel_weights=cw,
         alpha=cfg.alpha,
         not_center_cv=cfg.not_center_cv,
+        groups=groups,
     )
-    return fused, sfcv, torch.zeros(b, device=keyframe.device)
+    coverage = torch.zeros(b, device=keyframe.device)
+    return (out, coverage) if groups is not None else (*out, coverage)
 
 
 def _score_warped(warped, keyframe, valid, cfg):
@@ -295,3 +304,56 @@ def compute_cost_volume(
                 frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min, cfg,
             )
     return out if return_coverage else out[:2]
+
+
+def compute_cost_volume_pair(
+    keyframe: Tensor,
+    keyframe_intrinsics: Tensor,
+    keyframe_pose: Tensor,
+    mono_frames: Tensor,
+    mono_intrinsics: Tensor,
+    mono_poses: Tensor,
+    stereo_frame: Tensor,
+    stereo_intrinsics: Tensor,
+    stereo_pose: Tensor,
+    inv_depth_max: float,
+    inv_depth_min: float,
+    cfg: CostVolumeConfig = CostVolumeConfig(),
+    cv_depths: Optional[Tensor] = None,
+    plain: bool = False,
+):
+    """The mono and the stereo cost volume of one keyframe
+    (``monorec_tpu/ops/cost_volume.py::compute_cost_volume_pair``): the
+    stage 2-4 protocol's two cost volumes, which the reference computes in
+    two passes. Where the sweep path serves (``_sweep_path_ok``, no
+    ``cv_depths``, not ``plain``), the stereo frame joins the F mono frames
+    of its keyframe and ONE launch of K1 sweeps the F + 1 frames, fusing the
+    mono group and the stereo group apart; the result equals two
+    ``compute_cost_volume`` calls. Otherwise it is those two calls.
+
+    Args:
+      mono_frames: (B, F, C, H, W); mono_intrinsics / mono_poses: (B, F, 4, 4).
+      stereo_frame: (B, C, H, W); stereo_intrinsics / stereo_pose: (B, 4, 4).
+      The rest as ``compute_cost_volume``.
+
+    Returns:
+      (mono fused (B, D, H, W), mono per-frame (B, F, D, H, W), stereo fused,
+      stereo per-frame (B, 1, D, H, W), coverage (B,) summed over the mono and
+      the stereo frames), computed without a gradient.
+    """
+    stereo = (stereo_frame[:, None], stereo_intrinsics[:, None], stereo_pose[:, None])
+    if plain or cv_depths is not None or not _sweep_path_ok(keyframe, cfg):
+        common = (inv_depth_max, inv_depth_min, cfg, cv_depths, plain, True)
+        m_fused, m_sfcv, m_cov = compute_cost_volume(
+            keyframe, keyframe_intrinsics, keyframe_pose, mono_frames, mono_intrinsics,
+            mono_poses, *common)
+        s_fused, s_sfcv, s_cov = compute_cost_volume(
+            keyframe, keyframe_intrinsics, keyframe_pose, *stereo, *common)
+        return m_fused, m_sfcv, s_fused, s_sfcv, m_cov + s_cov
+    with torch.no_grad():
+        frames, intr, poses = (torch.cat([m, s], 1) for m, s in zip(
+            (mono_frames, mono_intrinsics, mono_poses), stereo))
+        ((m_fused, m_sfcv), (s_fused, s_sfcv)), coverage = _cost_volume_sweep(
+            keyframe, keyframe_intrinsics, keyframe_pose, frames, intr, poses, inv_depth_max,
+            inv_depth_min, cfg, groups=(mono_frames.shape[1], 1))
+    return m_fused, m_sfcv, s_fused, s_sfcv, coverage

@@ -31,6 +31,14 @@
 //     block of one source frame cannot see the other frames of its keyframe,
 //     and blocks that each took all F frames would be F times fewer (1024 at
 //     B = 8, 256x512: under three waves of the 396 an H100 holds at once).
+//   * grouped cost volumes (monorec_tpu/ops/cost_volume.py::
+//     _plane_sweep_sad_grouped): the frames of one keyframe are split into
+//     groups, consecutive runs of the frame axis (the stage 2-4 protocol's
+//     F mono frames and its stereo frame), each fused into a cost volume of
+//     its own. The sweep runs once over all of them (a frame is scored
+//     against its keyframe alone, so nothing in it mixes frames), and
+//     fuse_frames_kernel runs once per group over that group's frames:
+//     each group's output is bit-equal to a launch over its frames alone.
 //
 // What bounds it: instruction issue. Per output pixel and hypothesis it
 // evaluates a displacement (two IEEE divisions), gathers 4 bilinear taps
@@ -312,12 +320,12 @@ plane_sweep_kernel(const typename sweep::Texel<T>::type* __restrict__ texels,  /
   }
 }
 
-// fused (B, D, H, W) from sfcv (B, F, D, H, W) and the frame weights
-// (B, F, H, W): sum_f sfcv w / sum_f w (= 1 - 2 sum_f sad w / sum_f w where
-// the weights are positive), or sum_f sad w / sum_f w without centring;
-// 0 where no frame has weight. Grid: (ceil(H W / (V THREADS)), D, B); V
-// neighbouring pixels per thread, moved as one float4 where V = 4 (the
-// wrapper's tensors are 16-byte aligned and V divides H W).
+// fused (B, D, H, W) from frames [f0, f0 + fg) of sfcv (B, F, D, H, W) and
+// of the frame weights (B, F, H, W): sum_f sfcv w / sum_f w (= 1 - 2 sum_f
+// sad w / sum_f w where the weights are positive), or sum_f sad w / sum_f w
+// without centring; 0 where no frame has weight. Grid: (ceil(H W / (V
+// THREADS)), D, B); V neighbouring pixels per thread, moved as one float4
+// where V = 4 (the wrapper's tensors are 16-byte aligned and V divides H W).
 template <int V>
 __device__ __forceinline__ void load_px(const float* p, float (&v)[V]) {
   if constexpr (V == 4) {
@@ -331,7 +339,8 @@ __device__ __forceinline__ void load_px(const float* p, float (&v)[V]) {
 template <int V>
 __global__ void __launch_bounds__(THREADS)
 fuse_frames_kernel(const float* __restrict__ sfcv, const float* __restrict__ weight,
-                   float* __restrict__ fused, int F, int D, int plane, int center) {
+                   float* __restrict__ fused, int F, int f0, int fg, int D, int plane,
+                   int center) {
   const int p = (blockIdx.x * THREADS + threadIdx.x) * V;
   if (p >= plane) return;
   const int d = blockIdx.y;
@@ -339,7 +348,7 @@ fuse_frames_kernel(const float* __restrict__ sfcv, const float* __restrict__ wei
   float wsum[V], num[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) wsum[i] = num[i] = 0.f;
-  for (int f = 0; f < F; ++f) {
+  for (int f = f0; f < f0 + fg; ++f) {
     const size_t nf = b * F + f;
     float w[V], s[V];
     load_px<V>(weight + nf * plane + p, w);
@@ -424,30 +433,42 @@ int plane_sweep_sad_launch(const void* images, const float* keyframes, const dou
 }
 
 // The cost volume: sfcv (N, D, H, W) = (B, F, D, H, W), the frame weights
-// (N, H, W) and fused (B, D, H, W), all 16-byte aligned; texels as above.
-// Returns the first error (0 on success).
+// (N, H, W) and the fused CVs (G, B, D, H, W), one per group of frames
+// (groups[g] frames each, in order along F; they sum to F), all 16-byte
+// aligned; texels as above. Returns the first error (0 on success).
 int plane_sweep_cost_volume_launch(const void* images, const float* keyframes,
                                    const double* homs, void* texels, float* sfcv, float* weight,
                                    float* fused, int N, int D, int H, int W,
-                                   int frames_per_image, int border_radius, int use_ssim,
-                                   int images_bf16, float alpha, int center, float cw0,
-                                   float cw1, float cw2, void* stream) {
-  if (frames_per_image <= 0 || N % frames_per_image) return (int)cudaErrorInvalidValue;
+                                   int frames_per_image, int n_groups, const int* groups,
+                                   int border_radius, int use_ssim, int images_bf16, float alpha,
+                                   int center, float cw0, float cw1, float cw2, void* stream) {
+  if (frames_per_image <= 0 || N % frames_per_image || n_groups <= 0)
+    return (int)cudaErrorInvalidValue;
+  int total = 0;
+  for (int g = 0; g < n_groups; ++g) {
+    if (groups[g] <= 0) return (int)cudaErrorInvalidValue;
+    total += groups[g];
+  }
+  if (total != frames_per_image) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int code = launch_sources(images, keyframes, homs, texels, sfcv, weight, N, D, H, W,
                                   frames_per_image, border_radius, use_ssim, images_bf16, CV,
                                   alpha, cw0, cw1, cw2, s);
   if (code) return code;
-  const int plane = H * W;
-  if (plane % FUSE_VEC == 0)
-    fuse_frames_kernel<FUSE_VEC>
-        <<<dim3((plane / FUSE_VEC + THREADS - 1) / THREADS, D, N / frames_per_image), THREADS,
-           0, s>>>(sfcv, weight, fused, frames_per_image, D, plane, center);
-  else
-    fuse_frames_kernel<1><<<dim3((plane + THREADS - 1) / THREADS, D, N / frames_per_image),
-                            THREADS, 0, s>>>(sfcv, weight, fused, frames_per_image, D, plane,
-                                             center);
-  return (int)cudaGetLastError();
+  const int plane = H * W, B = N / frames_per_image;
+  for (int g = 0, f0 = 0; g < n_groups; f0 += groups[g++]) {
+    float* out = fused + (size_t)g * B * D * plane;
+    if (plane % FUSE_VEC == 0)
+      fuse_frames_kernel<FUSE_VEC>
+          <<<dim3((plane / FUSE_VEC + THREADS - 1) / THREADS, D, B), THREADS, 0, s>>>(
+              sfcv, weight, out, frames_per_image, f0, groups[g], D, plane, center);
+    else
+      fuse_frames_kernel<1><<<dim3((plane + THREADS - 1) / THREADS, D, B), THREADS, 0, s>>>(
+          sfcv, weight, out, frames_per_image, f0, groups[g], D, plane, center);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return 0;
 }
 
 const char* plane_sweep_sad_error_string(int code) {

@@ -34,14 +34,18 @@ overwrites). Its plain version is
 ``plane_sweep_cost_volume_reference``: ``plane_sweep_sad_reference``, the
 validity mask, then ``score_and_fuse``. It counts on its own
 ``.launches`` / ``.launches_bf16``; a launch is the kernel and its frame
-fusion together.
+fusion together. With ``groups``, a partition of each keyframe's frames into
+consecutive runs (``monorec_tpu/ops/cost_volume.py::_plane_sweep_sad_grouped``),
+one launch sweeps every frame and fuses each group into a cost volume of its
+own; per-frame work never mixes frames, so each group's result equals a
+launch over its frames alone.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -194,6 +198,16 @@ def score_and_fuse(sad: Tensor, valid: Tensor, alpha: float = 10.0,
     return torch.where(nonzero, fused, 0.0), sfcv
 
 
+def _group_slices(groups, frames_per_image: int):
+    """The frame slices of ``groups`` (None: one group of every frame),
+    checked to partition the ``frames_per_image`` frames of a keyframe."""
+    groups = (frames_per_image,) if groups is None else tuple(int(g) for g in groups)
+    if not groups or min(groups) <= 0 or sum(groups) != frames_per_image:
+        raise ValueError(f"groups {groups} do not partition {frames_per_image} frames")
+    starts = [sum(groups[:i]) for i in range(len(groups))]
+    return [slice(f0, f0 + fg) for f0, fg in zip(starts, groups)]
+
+
 def plane_sweep_cost_volume_reference(
     images: Tensor,
     keyframes: Tensor,
@@ -204,17 +218,23 @@ def plane_sweep_cost_volume_reference(
     channel_weights: Tuple[float, ...] = DEFAULT_CHANNEL_WEIGHTS,
     alpha: float = 10.0,
     not_center_cv: bool = False,
-) -> Tuple[Tensor, Tensor]:
+    groups: Optional[Sequence[int]] = None,
+):
     """Plain version of ``plane_sweep_cost_volume``, on any device; runs in
     the keyframes' dtype (float64 keyframes and sources give the exact
     scoring of the kernel's float32 displacements)."""
+    slices = _group_slices(groups, frames_per_image)
     sad, wmask, _ = plane_sweep_sad_reference(images, keyframes, homographies, border_radius,
                                               frames_per_image, use_ssim, channel_weights)
     n, d, h, w = sad.shape
     b, f = n // frames_per_image, frames_per_image
-    valid = valid_pixels(wmask, border_radius).to(sad.dtype)
-    return score_and_fuse(sad.reshape(b, f, d, h, w), valid.reshape(b, f, h, w), alpha,
-                          not_center_cv)
+    valid = valid_pixels(wmask, border_radius).to(sad.dtype).reshape(b, f, h, w)
+    sad = sad.reshape(b, f, d, h, w)
+    # Each group scored on its own contiguous copy, as a call over its frames
+    # alone would be.
+    outs = [score_and_fuse(sad[:, g].contiguous(), valid[:, g].contiguous(), alpha,
+                           not_center_cv) for g in slices]
+    return outs[0] if groups is None else outs
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,8 +247,9 @@ def _library() -> ctypes.CDLL:
     )
     lib.plane_sweep_sad_launch.restype = ctypes.c_int
     lib.plane_sweep_cost_volume_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int]
-        + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int] + [ctypes.c_float] * 3
+        + [ctypes.c_void_p]
     )
     lib.plane_sweep_cost_volume_launch.restype = ctypes.c_int
     lib.plane_sweep_sad_error_string.argtypes = [ctypes.c_int]
@@ -339,25 +360,30 @@ def plane_sweep_cost_volume(
     channel_weights: Tuple[float, ...] = DEFAULT_CHANNEL_WEIGHTS,
     alpha: float = 10.0,
     not_center_cv: bool = False,
-) -> Tuple[Tensor, Tensor]:
+    groups: Optional[Sequence[int]] = None,
+):
     """Fused plane-sweep cost volume; returns fused (B, D, H, W) and the
-    per-frame CVs (B, F, D, H, W), float32.
+    per-frame CVs (B, F, D, H, W), float32. With ``groups`` (frame counts
+    that sum to ``frames_per_image``, in order along the frame axis) it
+    returns ``[(fused, per-frame CVs) per group]`` from the same one launch;
+    the groups' per-frame CVs are views of one (B, F, D, H, W) buffer.
 
     CUDA tensors launch the kernel (its scoring epilogue, then the frame
-    fusion), CPU tensors run the plain version.
+    fusion of each group), CPU tensors run the plain version.
     ``plane_sweep_cost_volume.launches`` / ``.launches_bf16`` count kernel
     launches on float32 / bf16 sources.
     """
     if images.device.type == "cpu":
         return plane_sweep_cost_volume_reference(
             images, keyframes, homographies, border_radius, frames_per_image, use_ssim,
-            channel_weights, alpha, not_center_cv,
+            channel_weights, alpha, not_center_cv, groups,
         )
     if not images.is_cuda:
         raise ValueError(
             f"plane_sweep_cost_volume runs on CUDA or CPU tensors, not {images.device}")
     _check_kernel_inputs(images, keyframes, homographies, frames_per_image, use_ssim,
                          channel_weights)
+    slices = _group_slices(groups, frames_per_image)
     n, _, h, w = images.shape
     d = homographies.shape[1]
     b = n // frames_per_image
@@ -365,18 +391,20 @@ def plane_sweep_cost_volume(
     lib = _library()
     sfcv = torch.empty(b, frames_per_image, d, h, w, dtype=torch.float32, device=images.device)
     weight = torch.empty(n, h, w, dtype=torch.float32, device=images.device)
-    fused = torch.empty(b, d, h, w, dtype=torch.float32, device=images.device)
+    fused = torch.empty(len(slices), b, d, h, w, dtype=torch.float32, device=images.device)
     texels = _texels(images)
+    sizes = (ctypes.c_int * len(slices))(*(g.stop - g.start for g in slices))
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.plane_sweep_cost_volume_launch(
             images.data_ptr(), keyframes.data_ptr(), homographies.data_ptr(),
             texels.data_ptr(), sfcv.data_ptr(), weight.data_ptr(), fused.data_ptr(),
-            n, d, h, w, frames_per_image, border_radius, use_ssim, int(bf16), float(alpha),
-            int(not not_center_cv), *(float(x) for x in channel_weights), stream,
+            n, d, h, w, frames_per_image, len(slices), sizes, border_radius, use_ssim, int(bf16),
+            float(alpha), int(not not_center_cv), *(float(x) for x in channel_weights), stream,
         )
     _count(plane_sweep_cost_volume, lib, code, bf16)
-    return fused, sfcv
+    outs = [(fused[i], sfcv[:, g]) for i, g in enumerate(slices)]
+    return outs[0] if groups is None else outs
 
 
 plane_sweep_cost_volume.launches = 0

@@ -14,19 +14,25 @@ One ``_feed``, in the JAX package's order:
   C) the cost volumes, computed from the UN-augmented batch without a
      gradient and augmented afterwards: the stereo one
      (``compute_stereo_pred``), then the mono one, whose coverage is
-     ``cv_uncovered``;
+     ``cv_uncovered``; with ``joint_cv`` both from one grouped launch of K1
+     (``MonoRec.cost_volume_pair``), the coverage then summed over the mono
+     and the stereo frames;
   D) the MaskModule on the mono per-frame CVs (``compute_mask``; its
      dropout from the trainer's device generator), optionally attenuating
      the mono CV (``mult_mask_on_cv``);
   E) the depth decodes: stereo (without a gradient unless
-     ``concat_mono_stereo``) and mono (``compute_mono_pred``);
+     ``concat_mono_stereo``) and mono (``compute_mono_pred``); with
+     ``joint_depth_decode`` and both, one DepthModule pass over the 2B
+     samples ``[mono, stereo]``, split at B, the stereo half detached unless
+     ``concat_mono_stereo`` (the backward then runs over all 2B samples, the
+     stereo half's cotangents zero, as the JAX package's does);
   F) the revert of the flip on the predictions and masks (the mask
      augmentation has none), the optional batch doubling of
      ``concat_mono_stereo``, and the stage loss on the merged data.
 
-Not ported yet, and refused: ``joint_cv`` and ``joint_depth_decode`` (one
-fused launch for the mono and stereo CVs or decodes; off in every shipped
-config; ROADMAP item 18b, the next slice).
+``joint_cv`` and ``joint_depth_decode`` are off by default and in every
+shipped config, as in the JAX trainer; each result equals the separate
+passes'.
 
 Two JAX quirks the port keeps. A ``simple_mask`` model is refused: the JAX
 trainer calls ``MonoRec.mask`` with no keyframe and no depth prediction
@@ -53,12 +59,6 @@ from monorec_tpu_torch.models.augmentation import (
 from monorec_tpu_torch.parallel import draw_rows
 from monorec_tpu_torch.train.trainer import Trainer
 
-_NOT_PORTED = {
-    "joint_cv": "ROADMAP item 18b: one launch for the mono and stereo cost volumes",
-    "joint_depth_decode": "ROADMAP item 18b: one 2B-batch depth decode",
-}
-
-
 class MonoRecTrainer(Trainer):
     """The stage 2-4 trainer; flags from the config's ``trainer`` block."""
 
@@ -75,9 +75,8 @@ class MonoRecTrainer(Trainer):
         self.compute_mask = tcfg.get("compute_mask", True)
         self.mult_mask_on_cv = tcfg.get("mult_mask_on_cv", False)
         self.concat_mono_stereo = tcfg.get("concat_mono_stereo", False)
-        for key, where in _NOT_PORTED.items():
-            if tcfg.get(key):
-                raise NotImplementedError(f"trainer.{key} is not ported ({where})")
+        self.joint_depth_decode = tcfg.get("joint_depth_decode", False)
+        self.joint_cv = tcfg.get("joint_cv", False)
 
     def _feed(self, batch: Dict, train: bool, alpha: float) -> Tuple[Dict, Dict]:
         batch = self._jitter(batch, train)
@@ -129,13 +128,17 @@ class MonoRecTrainer(Trainer):
         # --- C) cost volumes of the un-augmented batch, then augmented ------
         cv_s = None
         with torch.no_grad():
-            if self.compute_stereo_pred:
-                cv_s, sfcv_s = model.cost_volume(batch, use_mono=False, use_stereo=True)
+            if self.compute_stereo_pred and self.joint_cv:
+                cv_m, sfcv_m, cv_s, sfcv_s, cv_uncov = model.cost_volume_pair(batch)
                 cv_s, sfcv_s = aug_one(cv_s), aug_one(sfcv_s)
-            cv_m, sfcv_m, cv_uncov = model.cost_volume(
-                batch, return_coverage=True, use_mono=True, use_stereo=False)
+            else:
+                if self.compute_stereo_pred:
+                    cv_s, sfcv_s = model.cost_volume(batch, use_mono=False, use_stereo=True)
+                    cv_s, sfcv_s = aug_one(cv_s), aug_one(sfcv_s)
+                cv_m, sfcv_m, cv_uncov = model.cost_volume(  # mono frames only
+                    batch, return_coverage=True, use_mono=True, use_stereo=False)
             cv_m, sfcv_m = aug_one(cv_m), aug_one(sfcv_m)
-        data["cv_uncovered"] = cv_uncov  # mono frames only
+        data["cv_uncovered"] = cv_uncov
 
         # --- D) the mask ---------------------------------------------------
         if self.compute_mask:
@@ -147,16 +150,22 @@ class MonoRecTrainer(Trainer):
 
         # --- E) depth decodes (one DepthModule, two inputs) ------------------
         stereo_pred = None
-        if self.compute_stereo_pred:
-            # Without concat_mono_stereo the stereo prediction is a target
-            # only: decoding it without a gradient equals detaching it.
-            grad = contextlib.nullcontext() if self.concat_mono_stereo else torch.no_grad()
-            with grad:
-                stereo_pred = model.depth(cv_s, data["keyframe"], feats)
-        if self.compute_mono_pred:
-            mono_pred = model.depth(cv_m, data["keyframe"], feats)
+        if self.compute_stereo_pred and self.compute_mono_pred and self.joint_depth_decode:
+            preds = model.depth(torch.cat([cv_m, cv_s]), torch.cat([data["keyframe"]] * 2),
+                                [torch.cat([f, f]) for f in feats])
+            mono_pred = [p[:b] for p in preds]
+            stereo_pred = [p[b:] if self.concat_mono_stereo else p[b:].detach() for p in preds]
         else:
-            mono_pred = [torch.zeros_like(cv_m[:, :1])]
+            if self.compute_stereo_pred:
+                # Without concat_mono_stereo the stereo prediction is a target
+                # only: decoding it without a gradient equals detaching it.
+                grad = contextlib.nullcontext() if self.concat_mono_stereo else torch.no_grad()
+                with grad:
+                    stereo_pred = model.depth(cv_s, data["keyframe"], feats)
+            if self.compute_mono_pred:
+                mono_pred = model.depth(cv_m, data["keyframe"], feats)
+            else:
+                mono_pred = [torch.zeros_like(cv_m[:, :1])]
 
         data["cost_volume"] = cv_m
         data["single_frame_cvs"] = sfcv_m

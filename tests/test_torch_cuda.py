@@ -91,6 +91,40 @@ def test_plane_sweep_cost_volume_kernel_matches_plain_version(cuda, h, w, f, d, 
     assert (fused - f64).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [(2, 1), (1, 2), (1, 1, 1), (3, 1)])
+@pytest.mark.parametrize("h,w", [(21, 45), (32, 64)])  # ragged and whole tiles
+def test_grouped_cost_volume_launch_matches_plain_version_and_a_launch_per_group(
+        cuda, h, w, groups, dtype):
+    """One launch over every frame, fused per group (the mono frames and the
+    stereo frame of the joint cost volume): each group within the budgets
+    of the ungrouped test above, and bit-equal to a launch over its frames
+    alone."""
+    f, d = sum(groups), 8
+    images, keyframes, homs = _sweep_inputs(cuda, h, w, f=f, d=d)
+    images = images.to(dtype)
+    before = _counter(plane_sweep.plane_sweep_cost_volume, dtype)
+    outs = plane_sweep.plane_sweep_cost_volume(images, keyframes, homs, 2, f, 1, groups=groups)
+    torch.cuda.synchronize()
+    assert _counter(plane_sweep.plane_sweep_cost_volume, dtype) == before + 1
+    refs = plane_sweep.plane_sweep_cost_volume_reference(images, keyframes, homs, 2, f, 1,
+                                                         groups=groups)
+    f64s = plane_sweep.plane_sweep_cost_volume_reference(images.double(), keyframes.double(),
+                                                         homs, 2, f, 1, groups=groups)
+    per_key = lambda t, g: t.reshape((2, f) + t.shape[1:])[:, g].flatten(0, 1)  # noqa: E731
+    f0 = 0
+    for (fused, sfcv), (rfused, rsfcv), (f64, _), fg in zip(outs, refs, f64s, groups):
+        assert fused.shape == (2, d, h, w) and sfcv.shape == (2, fg, d, h, w)
+        assert (sfcv - rsfcv).abs().max().item() <= SAD_TOL
+        tol = max(SAD_TOL, 2.0 * (rfused - f64).abs().max().item())
+        assert (fused - f64).abs().max().item() <= tol
+        g = slice(f0, f0 + fg)
+        alone = plane_sweep.plane_sweep_cost_volume(per_key(images, g).contiguous(), keyframes,
+                                                    per_key(homs, g).contiguous(), 2, fg, 1)
+        assert torch.equal(fused, alone[0]) and torch.equal(sfcv, alone[1])
+        f0 += fg
+
+
 def _shifted(t):
     """A contiguous copy of ``t`` that starts one element into its storage:
     no 16-byte alignment, so the kernels take their scalar or 4-byte paths."""

@@ -346,14 +346,7 @@ def test_feed_matches_jax_under_later_stage_flags(monkeypatch, tmp_path, stage):
         _close(t_dict[key], j_dict[key], key)
 
 
-# ----- what is refused ------------------------------------------------------------
-
-
-@pytest.mark.parametrize("flag,match", [("joint_cv", "item 18"),
-                                        ("joint_depth_decode", "item 18")])
-def test_unported_trainer_flags_raise(tmp_path, flag, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _trainer(tmp_path, 2, {flag: True}, 2)
+# ----- the colour jitter, frozen modules, repeatability ------------------------------
 
 
 @pytest.mark.parametrize("stage", ["stage1", "stage3"])

@@ -106,7 +106,9 @@ def runs(tmp_path_factory):
             "stage1_batches": {k: batches[k] for k in ("unequal", "empty_shard")},
             "nan_batch": batches["nan"],
             "stage2": ranks.stage_config("monorec_mask.json", CONFIGS),
-            "stage4": ranks.stage_config("monorec_depth_ref.json", CONFIGS)}
+            "stage4": ranks.stage_config("monorec_depth_ref.json", CONFIGS),
+            "stage4_joint": ranks.stage_config("monorec_depth_ref.json", CONFIGS, joint_cv=True,
+                                               joint_depth_decode=True)}
     w2 = parallel.launch(ranks.run_cases, 2, "cpu", (spec, str(tmp / "w2")))
     w1 = ranks.run_cases(torch.device("cpu"), spec, str(tmp / "w1"))
     return jax_ref, w1, w2, spec, tmp
@@ -147,11 +149,13 @@ def test_two_rank_stage1_step_equals_the_jax_one_device_step(runs, batch):
     assert abs(naive - want_loss["loss"]) > 100 * RTOL * abs(want_loss["loss"])
 
 
-@pytest.mark.parametrize("stage", ["stage2", "stage4"])
+@pytest.mark.parametrize("stage", ["stage2", "stage4", "stage4_joint"])
 def test_two_rank_monorec_step_equals_one_process(runs, stage):
     """(b) stage 2 (mask_loss, the mask augmentation and the MaskModule's
-    dropout drawn for the global batch) and (c) stage 4 (``-o stereo
-    stereo_repr``, the mask at about half moving pixels)."""
+    dropout drawn for the global batch), (c) stage 4 (``-o stereo
+    stereo_repr``, the mask at about half moving pixels) and stage 4 under
+    ``joint_cv`` and ``joint_depth_decode`` (each rank's rows in one grouped
+    cost volume and one 2B-batch decode)."""
     _, w1, w2, *_ = runs
     got = _same_ranks(w2, lambda r: r[stage])
     want = w1[stage]
@@ -159,6 +163,14 @@ def test_two_rank_monorec_step_equals_one_process(runs, stage):
     assert all(np.isfinite(v) for v in want["loss"].values())
     _assert_step_close(got, want["loss"], want["params"])
     np.testing.assert_allclose(got["metrics"], want["metrics"], rtol=RTOL)
+
+
+def test_joint_stage4_step_equals_the_separate_passes(runs):
+    """In one process, stage 4 under both joint flags takes the separate
+    passes' step: the same loss dict and the same parameters after it."""
+    _, w1, *_ = runs
+    _assert_step_close(w1["stage4_joint"], w1["stage4"]["loss"], w1["stage4"]["params"])
+    np.testing.assert_allclose(w1["stage4_joint"]["metrics"], w1["stage4"]["metrics"], rtol=RTOL)
 
 
 def test_two_rank_evaluation_equals_one_process(runs):

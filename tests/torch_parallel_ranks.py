@@ -44,6 +44,8 @@ def run_cases(device, spec: dict, work: str) -> dict:
             "stage2": monorec_step(device, spec["stage2"], (), f"{work}/stage2"),
             "stage4": monorec_step(device, spec["stage4"], ("stereo", "stereo_repr"),
                                    f"{work}/stage4", mixed=True),
+            "stage4_joint": monorec_step(device, spec["stage4_joint"], ("stereo", "stereo_repr"),
+                                         f"{work}/stage4_joint", mixed=True),
             "skip": skip_step(device, spec["state"], spec["nan_batch"], spec["flip"],
                               f"{work}/skip"),
             "eval": evaluate(device, f"{work}/eval"),
