@@ -121,8 +121,9 @@ checkout, then:
    first two batches on the card and on the CPU (agreeing within rtol
    1e-3); times the eval forward per batch (CUDA events) and the evaluate
    loop from the tree with 8 workers and with 1 and from a cache
-   ``build_cache`` makes of it (keyframes/s, and the device's busy share
-   from a torch.profiler pass);
+   ``build_cache`` makes of it (keyframes/s and the device's busy share
+   from one torch.profiler pass each, the host-paced loops from the tree
+   not timed again without it; the three passes' metrics equal);
 21. the point cloud: ``cli.create_pointcloud`` on a copy of
    ``configs/test/pointcloud_monorec.json`` with the mask on and off (one
    K1 cost-volume launch per frame; the PLY parses, its vertex count fills
@@ -267,7 +268,21 @@ checkout, then:
    otherwise, K2 and K3 as phases 18-19); and the card's probe of the four:
    10 steps each (CUDA events, the variants in turns), each one's peak
    memory over a step and busy share, printed side by side with the card's
-   name and power limit.
+   name and power limit;
+31. the TSDF export: ``write_jpeg``'s file of a pinned image must have the
+   SHA-256 of PIL's; then phase 20's tree through the forward on the card
+   from phase 19's checkpoint (the main path: one K1 cost-volume launch per
+   batch), every keyframe exported with ``save_frame_for_tsdf`` (the
+   KITTI point-cloud config's roi and ``min_d``, the evaluation's
+   ``max_distance``) and one also cropped as the KITTI depth evaluations
+   crop, with ``save_intrinsics_for_tsdf``; each file read back with the
+   port's ``read_png`` / ``read_jpeg``: the depth PNG equal to the host's
+   conversion of the card's inverse depth, the colour image within
+   ``TSDF_PSNR_DB`` of its keyframe, the pose and intrinsics exact;
+   ``dilate_mask`` (sizes 3, 4, 15), ``masked_where`` and
+   ``pose_distance_thresh`` on card tensors equal to the CPU's; logs the
+   host's time per keyframe of ``write_jpeg``, the 16-bit ``write_png`` and
+   the whole export.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -2263,6 +2278,16 @@ def busy_window(fn):
     return (t1 - t0) / 1e3, busy / 1e3
 
 
+def profiled_eval(evaluator) -> tuple:
+    """One pass of ``evaluator.eval()`` under ``busy_window``: (its result,
+    window ms, device busy ms). A loop over raw files is paced by the host's
+    decoders, so its keyframes/s is read off this window: an unprofiled pass
+    beside it would repeat the decoding."""
+    out = {}
+    window_ms, busy_ms = busy_window(lambda: out.setdefault("log", evaluator.eval()))
+    return out["log"], window_ms, busy_ms
+
+
 def phase_evaluate(dev, card: str, work, checkpoint) -> dict:
     """Phase 20: evaluation on the card through ``cli.evaluate`` on a
     KITTI-layout tree at KITTI's native size, from phase 19's checkpoint.
@@ -2368,14 +2393,16 @@ def phase_evaluate(dev, card: str, work, checkpoint) -> dict:
     for tag, loader in (("raw tree, 8 workers", raw), ("raw tree, 1 worker", raw_1),
                         ("cache", cached)):
         evaluator = Evaluator(model, metric_fns, config, loader, Path(work) / "timing")
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        logs[tag] = evaluator.eval()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        window_ms, busy_ms = busy_window(evaluator.eval)
+        logs[tag], window_ms, busy_ms = profiled_eval(evaluator)
+        wall, clock = window_ms / 1e3, "host clock, the profiled pass"
+        if loader is cached:  # paced by the device: timed without the profiler too
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            evaluator.eval()
+            torch.cuda.synchronize()
+            wall, clock = time.perf_counter() - t, "host clock"
         log(f"[20 evaluate] evaluate loop from the {tag}: {n_samples} keyframes in {wall:.3f} s = "
-            f"{n_samples / wall:.3f} keyframes/s (host clock); profiled pass: device busy "
+            f"{n_samples / wall:.3f} keyframes/s ({clock}); profiled pass: device busy "
             f"{busy_ms:.1f} of {window_ms:.1f} ms = {100 * busy_ms / window_ms:.1f}% on {card}")
     cached_m = np.asarray(logs["cache"]["metrics"])
     raw_m = np.asarray(logs["raw tree, 8 workers"]["metrics"])
@@ -3438,14 +3465,10 @@ def phase_robotcar(dev, card: str, work, checkpoint) -> dict:
         f"events, 10 calls) on {card}")
     evaluator = Evaluator(net, config_mod.build_metrics(config), config, loader,
                           Path(work) / "oxrc_timing")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    evaluator.eval()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    window_ms, busy_ms = busy_window(evaluator.eval)
+    _, window_ms, busy_ms = profiled_eval(evaluator)
+    wall = window_ms / 1e3
     log(f"{tag} evaluate loop from the tree: {n_samples} keyframes in {wall:.3f} s = "
-        f"{n_samples / wall:.3f} keyframes/s (host clock); profiled pass: device busy "
+        f"{n_samples / wall:.3f} keyframes/s (host clock, the profiled pass); device busy "
         f"{busy_ms:.1f} of {window_ms:.1f} ms = {100 * busy_ms / window_ms:.1f}% on {card}")
     record = k1_hold(dev, card, tag, batch, 2)
     del net, batch, evaluator
@@ -4392,15 +4415,11 @@ def phase_tum_depth(dev, card: str, work, checkpoint) -> dict:
         f"events, 10 calls) on {card}")
     evaluator = Evaluator(net, config_mod.build_metrics(config), config, loader,
                           Path(work) / "tum_depth_timing")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    evaluator.eval()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    window_ms, busy_ms = busy_window(evaluator.eval)
+    _, window_ms, busy_ms = profiled_eval(evaluator)
+    wall = window_ms / 1e3
     log(f"{tag} evaluate loop from the tree ({loader.num_workers} workers): {n_samples} "
-        f"keyframes in {wall:.3f} s = {n_samples / wall:.3f} keyframes/s (host clock); profiled "
-        f"pass: device busy {busy_ms:.1f} of {window_ms:.1f} ms = "
+        f"keyframes in {wall:.3f} s = {n_samples / wall:.3f} keyframes/s (host clock, the "
+        f"profiled pass); device busy {busy_ms:.1f} of {window_ms:.1f} ms = "
         f"{100 * busy_ms / window_ms:.1f}% on {card}")
     record = k1_hold(dev, card, tag, batch, 4)
     del net, batch, evaluator
@@ -5211,6 +5230,209 @@ def phase_joint_passes(dev, card: str, run_dir, checkpoints: dict) -> dict:
     return {"joint_k1": joint_k1, "probes": probes}
 
 
+# ---- phase 31: the TSDF export of the card's KITTI forward -------------------
+
+# The SHA-256 of the file PIL 12.1 (libjpeg-turbo 3.1.3) writes for
+# ``Image.fromarray(tsdf_pinned_rgb()).save(path)`` (tests/test_torch_utils.py
+# holds it to PIL's bytes): ``write_jpeg`` must write the same file here,
+# where there is no PIL.
+TSDF_JPEG_SHA256 = "7b24e8a76c1d9bb396ac4e361efa164e818ed548272e04e69652e59a3f271936"
+TSDF_PSNR_DB = 30.0  # the decoded colour images against their uint8 keyframes
+# The depth evaluation crop of Garg et al. (ECCV 2016) on KITTI, in shares of
+# the image's rows and columns: one keyframe is also exported cropped.
+GARG_CROP = (0.40810811, 0.99189189, 0.03594771, 0.96405229)
+DILATE_SIZES = (3, 4, 15)
+
+
+def tsdf_pinned_rgb():
+    """A seeded 256x512 RGB image in integer arithmetic only (the same array
+    from every numpy): diagonal ramps per channel plus an LCG's noise."""
+    import numpy as np
+
+    v, u = np.mgrid[0:256, 0:512].astype(np.int64)
+    c = np.arange(3)
+    i = (v * 512 + u)[..., None] * 3 + c
+    noise = (((i * 1103515245 + 12345 * 31) % 2**31) >> 16) % 41 - 20
+    ramps = np.abs(((u + 2 * v)[..., None] * (c + 2)) % 512 - 256) // 2 + 64
+    return (ramps + noise).astype(np.uint8)
+
+
+def tsdf_depth_cm(inv, min_distance, max_distance):
+    """The depth PNG's samples the JAX package writes for an (H, W) float32
+    inverse depth: centimetres, cut and cast to int32 in numpy, then
+    clipped to 16 bits as Pillow 12 saves mode "I"."""
+    import numpy as np
+
+    with np.errstate(divide="ignore"):
+        cm = np.where(inv > 0, 100.0 / inv, 0.0)
+    cm = np.where(cm < 0, 0, cm)
+    if min_distance is not None:
+        cm = np.where(cm < min_distance * 100, 0, cm)
+    if max_distance is not None:
+        cm = np.where(cm > max_distance * 100, 0, cm)
+    return np.clip(cm.astype(np.int32), 0, 65535).astype(np.uint16)
+
+
+def phase_tsdf_export(dev, card: str, work, checkpoint) -> int:
+    """Phase 31: phase 20's KITTI tree through the forward on the card from
+    phase 19's checkpoint (the main path: one K1 cost-volume launch per
+    batch), every keyframe exported with ``save_frame_for_tsdf`` and read
+    back with the port's decoders. Returns the K1 launches of its main path."""
+    import hashlib
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from monorec_tpu_torch import config as config_mod
+    from monorec_tpu_torch.data.jpeg import read_jpeg
+    from monorec_tpu_torch.data.jpeg_encoder import encode_jpeg, write_jpeg
+    from monorec_tpu_torch.data.png import read_png, write_png
+    from monorec_tpu_torch.models import MonoRec
+    from monorec_tpu_torch.train.checkpoints import load_stage_checkpoints
+    from monorec_tpu_torch.utils import (dilate_mask, masked_where, pose_distance_thresh,
+                                         save_frame_for_tsdf, save_intrinsics_for_tsdf)
+
+    tag = "[31 tsdf export]"
+    t0 = time.perf_counter()
+    digest = hashlib.sha256(encode_jpeg(tsdf_pinned_rgb())).hexdigest()
+    if digest != TSDF_JPEG_SHA256:
+        raise AssertionError(f"write_jpeg's file of the pinned image has SHA-256 {digest}, PIL's "
+                             f"{TSDF_JPEG_SHA256}")
+    log(f"{tag} write_jpeg of the pinned 256x512 image: SHA-256 {digest}, PIL's")
+
+    # The export's settings: the KITTI point-cloud config's roi (it has none)
+    # and min_d, the KITTI evaluation's max_distance.
+    with open("configs/test/pointcloud_monorec.json") as f:
+        pc_config = json.load(f)
+    crop, min_distance = pc_config.get("roi"), pc_config["min_d"]
+    n_samples = EVAL_FRAMES - 10
+    path, _ = eval_config(work, Path(work) / "kitti", checkpoint, "tsdf_eval", start=0,
+                          end=n_samples)
+    with open(path) as f:
+        config = json.load(f)
+    max_distance = config["evaluater"]["max_distance"]
+    model_cfg, locations = config_mod.build_models(config)[0]
+    model = MonoRec(model_cfg, dev)
+    load_stage_checkpoints(model, locations)
+    model.eval()
+    loader = config_mod.build_data_loader(config["data_loader"], dev)
+    out_dir = Path(work) / "tsdf"
+    out_dir.mkdir()
+    batches, export_s, index = [], [], 0
+    reset_counts()
+    for batch in loader:  # the main path
+        with torch.no_grad():
+            out = model(batch)
+        for b in range(len(batch["keyframe"])):
+            t = time.perf_counter()
+            save_frame_for_tsdf(out_dir, index, batch["keyframe"][b], out["result"][b],
+                                batch["keyframe_pose"][b], crop, min_distance, max_distance)
+            export_s.append(time.perf_counter() - t)
+            index += 1
+        batches.append((batch, out))
+    counts = launch_counts()
+    n_batches = len(batches)
+    if counts != only(plane_sweep_cost_volume=n_batches) or index != n_samples:
+        raise AssertionError(f"the exported forward launched {counts} over {index} keyframes, "
+                             f"expected plane_sweep_cost_volume once per batch ({n_batches})")
+    intrinsics = batches[0][0]["keyframe_intrinsics"][0]
+    save_intrinsics_for_tsdf(out_dir, intrinsics, crop)
+
+    # Every file read back with the port's decoders.
+    psnr, kept, jpeg_ms, png_ms, alone_ms, index = [], [], [], [], [], 0
+    for batch, out in batches:
+        for b in range(len(batch["keyframe"])):
+            name = str(out_dir / f"frame-{index:06d}")
+            kf = batch["keyframe"][b].cpu().numpy().transpose(1, 2, 0)
+            rgb = ((kf + 0.5) * 255).clip(0, 255).astype(np.uint8)
+            inv = out["result"][b, 0].cpu().numpy()
+            depth = tsdf_depth_cm(inv, min_distance, max_distance)
+            got = read_png(f"{name}.depth.png")
+            if got.dtype != np.uint16 or not np.array_equal(got, depth):
+                raise AssertionError(f"{name}.depth.png differs from the host's conversion of "
+                                     f"the card's inverse depth")
+            decoded = read_jpeg(f"{name}.color.jpg")
+            mse = np.mean((decoded.astype(np.float64) - rgb) ** 2)
+            psnr.append(10 * math.log10(255.0**2 / mse))
+            if decoded.shape != rgb.shape or psnr[-1] < TSDF_PSNR_DB:
+                raise AssertionError(f"{name}.color.jpg decodes {decoded.shape} at "
+                                     f"{psnr[-1]:.2f} dB PSNR")
+            pose = np.loadtxt(f"{name}.pose.txt")
+            if not np.array_equal(pose, np.linalg.inv(batch["keyframe_pose"][b].cpu().numpy())):
+                raise AssertionError(f"{name}.pose.txt is not the inverse keyframe pose")
+            kept.append(float((depth > 0).mean()))
+            # The host's times with the loader's threads done: each writer,
+            # and the whole export from the card's tensors again.
+            t = time.perf_counter()
+            write_jpeg(Path(work) / "timing.jpg", rgb)
+            jpeg_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            write_png(Path(work) / "timing.png", depth)
+            png_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            save_frame_for_tsdf(Path(work), 0, batch["keyframe"][b], out["result"][b],
+                                batch["keyframe_pose"][b], crop, min_distance, max_distance)
+            alone_ms.append((time.perf_counter() - t) * 1e3)
+            index += 1
+    k = np.loadtxt(out_dir / "camera-intrinsics.txt")
+    if not np.array_equal(k, intrinsics.cpu().numpy()[:3, :3]):
+        raise AssertionError("camera-intrinsics.txt is not the keyframe's intrinsics")
+
+    # One keyframe cropped as the KITTI depth evaluations crop.
+    batch, out = batches[0]
+    box = [int(GARG_CROP[0] * H), int(GARG_CROP[1] * H), int(GARG_CROP[2] * W),
+           int(GARG_CROP[3] * W)]
+    crop_dir = Path(work) / "tsdf_crop"
+    crop_dir.mkdir()
+    save_frame_for_tsdf(crop_dir, 0, batch["keyframe"][0], out["result"][0],
+                        batch["keyframe_pose"][0], box, min_distance, max_distance)
+    save_intrinsics_for_tsdf(crop_dir, intrinsics, box)
+    inv = out["result"][0, 0].cpu().numpy()[box[0] : box[1], box[2] : box[3]]
+    shifted = intrinsics.cpu().numpy()[:3, :3].copy()
+    shifted[0, 2] -= box[2]
+    shifted[1, 2] -= box[0]
+    if not (np.array_equal(read_png(crop_dir / "frame-000000.depth.png"),
+                           tsdf_depth_cm(inv, min_distance, max_distance))
+            and read_jpeg(crop_dir / "frame-000000.color.jpg").shape == inv.shape + (3,)
+            and np.array_equal(np.loadtxt(crop_dir / "camera-intrinsics.txt"), shifted)):
+        raise AssertionError(f"the export cropped to {box} is off")
+
+    # The other utilities on card tensors against the CPU.
+    for batch, out in batches:
+        cv_mask = out["cv_mask"]
+        for size in DILATE_SIZES:
+            if not torch.equal(dilate_mask(cv_mask, size).cpu(), dilate_mask(cv_mask.cpu(), size)):
+                raise AssertionError(f"dilate_mask(size={size}) on the card differs from the CPU")
+        invalid = cv_mask > 0.5
+        if not torch.equal(masked_where(invalid, out["result"]).cpu(),
+                           masked_where(invalid.cpu(), out["result"].cpu())):
+            raise AssertionError("masked_where on the card differs from the CPU")
+        for thresholds in ((0.6, 0.05), (2.0, 0.05)):
+            on_card = pose_distance_thresh(batch["keyframe_pose"], batch["poses"], *thresholds)
+            on_cpu = pose_distance_thresh(batch["keyframe_pose"].cpu(), batch["poses"].cpu(),
+                                          *thresholds)
+            if not torch.equal(on_card.cpu(), on_cpu):
+                raise AssertionError(f"pose_distance_thresh{thresholds} on the card differs "
+                                     f"from the CPU")
+    del model, batches, batch, out
+    log(f"{tag} {n_samples} keyframes at {H}x{W} from {n_batches} batches of 2, one K1 "
+        f"cost-volume launch each; exported with crop {crop}, min_distance {min_distance} m, "
+        f"max_distance {max_distance} m: every depth PNG equal to the host's conversion of the "
+        f"card's inverse depth (kept share {min(kept):.4f}-{max(kept):.4f}), colour PSNR "
+        f"{min(psnr):.2f}-{max(psnr):.2f} dB (gate {TSDF_PSNR_DB} dB), poses and intrinsics "
+        f"exact; cropped to {box}: depth, colour size and intrinsics exact; dilate_mask "
+        f"{DILATE_SIZES}, masked_where and pose_distance_thresh on the card equal the CPU's")
+    log(f"{tag} host per {H}x{W} keyframe (median of {n_samples}): write_jpeg "
+        f"{statistics.median(jpeg_ms):.3f} ms, write_png 16-bit {statistics.median(png_ms):.3f} "
+        f"ms, save_frame_for_tsdf (copy to the host, convert, write 3 files) "
+        f"{statistics.median(alone_ms):.3f} ms alone, {statistics.median(export_s) * 1e3:.3f} ms "
+        f"in the main path's loop (waiting for the forward, beside the loader's "
+        f"{loader.num_workers} decoding threads) (host clock, the host of {card})")
+    log(f"{tag} phase time {time.perf_counter() - t0:.1f} s")
+    return counts["plane_sweep_cost_volume"]
+
+
 def nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
@@ -5541,6 +5763,12 @@ def main() -> int:
         # The trainers run exact: no bf16 grouped launch is on a main path.
         records["plane_sweep_cost_volume_joint_bf16"]["launches"] = 0
         stamp("30")
+
+        # ---- 31. the TSDF export of the card's KITTI forward ----------------
+        records["plane_sweep_cost_volume"]["tsdf_export_launches"] = phase_tsdf_export(
+            dev, card, run_dir, stage4_checkpoint)
+        torch.cuda.empty_cache()
+        stamp("31")
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
     for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
@@ -5595,6 +5823,7 @@ def main() -> int:
                                       "variants_forward_launches", "variants_train_launches",
                                       "kitti_path_launches", "pointcloud_launches",
                                       "progressive_cmyk_launches", "data_parallel_launches",
+                                      "tsdf_export_launches",
                                       "separate_max_abs_diff", "separate_ms",
                                       "max_abs_err_vs_float64",
                                       "plain_max_abs_err_vs_float64", "planar_gather_ms",

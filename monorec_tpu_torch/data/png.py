@@ -1,7 +1,8 @@
 """A PNG reader in zlib and numpy, for the images and depth maps of the KITTI
 reader (the JAX package decodes them with PIL, which the port does not use),
 and ``write_png``, a writer of 8-bit greyscale and RGB images for the
-inference example's outputs.
+inference example's outputs and of 16-bit greyscale depth maps for the
+TSDF export.
 
 It reads what KITTI ships: greyscale (colour type 0) and RGB (colour type 2)
 images of 8 or 16 bits per sample, not interlaced, with any of the five row
@@ -148,19 +149,24 @@ def read_png(path) -> np.ndarray:
 
 
 def write_png(path, array) -> None:
-    """Write a ``uint8`` (H, W) greyscale or (H, W, 3) RGB array as a PNG:
-    every row unfiltered (filter 0), the image data in one IDAT chunk."""
+    """Write a ``uint8`` (H, W) greyscale or (H, W, 3) RGB array, or a
+    ``uint16`` (H, W) greyscale one (16 bits per sample, big-endian), as a
+    PNG: every row unfiltered (filter 0), the image data in one IDAT chunk."""
     a = np.asarray(array)
-    if a.dtype != np.uint8 or not (a.ndim == 2 or (a.ndim == 3 and a.shape[2] == 3)):
-        raise ValueError(f"write_png takes uint8 (H, W) or (H, W, 3), not {a.dtype} {a.shape}")
+    if not ((a.dtype == np.uint8 and (a.ndim == 2 or (a.ndim == 3 and a.shape[2] == 3)))
+            or (a.dtype == np.uint16 and a.ndim == 2)):
+        raise ValueError(f"write_png takes uint8 (H, W) or (H, W, 3), or uint16 (H, W), not "
+                         f"{a.dtype} {a.shape}")
     h, w = a.shape[:2]
     colour = 0 if a.ndim == 2 else 2
-    scan = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, -1)], axis=1)
+    depth = 8 * a.itemsize
+    rows = a.astype(">u2").view(np.uint8) if depth == 16 else a
+    scan = np.concatenate([np.zeros((h, 1), np.uint8), rows.reshape(h, -1)], axis=1)
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
     Path(path).write_bytes(
-        SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+        SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0))
         + chunk(b"IDAT", zlib.compress(scan.tobytes(), 6)) + chunk(b"IEND", b""))

@@ -38,10 +38,11 @@ def test_port_imports_every_module_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     # geometry, precision, convert, config, ops (8 + cuda/build), models (7: + pretrained),
-    # data (13: png, resize, color_jitter, kitti, cache, loader, synthetic, pose_interp, bayer,
-    # robotcar, jpeg, tum_mono_vo, tum_rgbd), utils, losses (2), metrics, eval, export (2),
-    # train (4: + loggers), cli (6: + common), tools (2), with their packages
-    assert int(proc.stdout.split()[-1]) >= 66
+    # data (14: png, resize, color_jitter, kitti, cache, loader, synthetic, pose_interp, bayer,
+    # robotcar, jpeg, jpeg_encoder, tum_mono_vo, tum_rgbd), utils (the TSDF export among
+    # them), losses (2), metrics, eval, export (2), train (4: + loggers), cli (6: + common),
+    # tools (2), with their packages
+    assert int(proc.stdout.split()[-1]) >= 67
 
 
 _READ_ONE_SAMPLE = """
@@ -80,6 +81,36 @@ def test_readers_read_without_pil_cv2_or_jax(reader, tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert "keyframe" in proc.stdout and "target" in proc.stdout
+
+
+_TSDF_EXPORT = """
+import sys
+for blocked in ("jax", "jaxlib", "flax", "PIL", "cv2", "monorec_tpu"):
+    sys.modules[blocked] = None
+import numpy as np, torch
+from monorec_tpu_torch.data.jpeg import read_jpeg
+from monorec_tpu_torch.data.png import read_png
+from monorec_tpu_torch.utils import save_frame_for_tsdf, save_intrinsics_for_tsdf
+out = sys.argv[1]
+keyframe = torch.linspace(-0.5, 0.5, 3 * 20 * 30).reshape(3, 20, 30)
+save_frame_for_tsdf(out, 3, keyframe, torch.full((1, 20, 30), 0.25), torch.eye(4))
+save_intrinsics_for_tsdf(out, torch.eye(4))
+print(read_jpeg(out + "/frame-000003.color.jpg").shape, read_png(out + "/frame-000003.depth.png").max())
+"""
+
+
+def test_tsdf_export_writes_without_pil_cv2_or_jax(tmp_path):
+    """The TSDF export writes its JPEG and 16-bit PNG in a process where PIL,
+    cv2, JAX and the JAX package cannot be imported."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _TSDF_EXPORT, str(tmp_path)], cwd=ROOT,
+        env=_env(PYTHONPATH=str(ROOT)), capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["(20,", "30,", "3)", "400"]
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "camera-intrinsics.txt", "frame-000003.color.jpg", "frame-000003.depth.png",
+        "frame-000003.pose.txt"]
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

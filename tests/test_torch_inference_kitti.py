@@ -176,5 +176,5 @@ def test_write_png_round_trips(tmp_path, shape):
     assert pil.mode == ("L" if len(shape) == 2 else "RGB")
     np.testing.assert_array_equal(np.asarray(pil), a)
     np.testing.assert_array_equal(read_png(tmp_path / "a.png"), a)
-    with pytest.raises(ValueError):
-        write_png(tmp_path / "b.png", a.astype(np.uint16))
+    with pytest.raises(ValueError):  # neither uint8 nor uint16
+        write_png(tmp_path / "b.png", a.astype(np.int32))
