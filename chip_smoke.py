@@ -162,8 +162,8 @@ checkout, then:
    validation pass; holds the encoder on the card bit for bit to the file
    after the build and after the steps, reads ``loss/train`` of every step
    and the ``*_module_time`` scalars of every log step from
-   ``tb/metrics.jsonl``, prints the module times, counts K1-K3 (K1 also
-   twice per log step for the timing) and holds every optimizer of
+   ``tb/metrics.jsonl`` (the log step's own spans), prints the module
+   times, counts K1-K3 (one K1 a step) and holds every optimizer of
    ``train/state.py`` on the card to the CPU over 5 steps;
 25. the model variants (``VARIANTS``), each built from its ``arch.args``
    through ``config.build_model_config``: ResNet-34, -50, -101 and -152,
@@ -175,9 +175,9 @@ checkout, then:
    (``cv_mask`` atol 2e-3, ``result`` rtol 1e-3 / atol 2e-4); then
    ``cli.train.main`` trains a ResNet-50 simple-mask model in pretrain
    mode 0 for 4 steps at B=4 with ``module_timing`` (finite losses, K1-K3
-   launched, module times logged for cv, resnet and depth only, as the JAX
-   trainer does for a simple mask), and times and splits its step and
-   reads its peak memory;
+   launched, module times logged for the cv, resnet, mask and depth that
+   the step runs; the JAX trainer leaves out a simple mask), and times and
+   splits its step and reads its peak memory;
 26. the KITTI user's path: writes a stereo KITTI tree (20 frames at
    370x1226), zips its annotated depth in KITTI's raw layout and prepares
    it through ``tools.preprocess_kitti`` (``extract-depth`` byte-equal,
@@ -3686,7 +3686,7 @@ def phase_stage1_cli(dev, card: str, run_dir) -> dict:
     after_steps = encoder_is_the_file(trainer.model)
     n_val = len(trainer.valid_data_loader)
     log_steps = list(range(0, TRAIN_STEPS, log_step))
-    expected = only(plane_sweep_cost_volume=TRAIN_STEPS + n_val + 2 * len(log_steps),
+    expected = only(plane_sweep_cost_volume=TRAIN_STEPS + n_val,
                     grid_warp=n_val, grid_warp_jac=TRAIN_STEPS,
                     photo_error_fwd=2 * (TRAIN_STEPS + n_val), photo_error_bwd=TRAIN_STEPS)
     scalars = read_scalars(trainer.run_dir / "tb" / "metrics.jsonl")
@@ -3706,10 +3706,9 @@ def phase_stage1_cli(dev, card: str, run_dir) -> dict:
         f"encoder bit-equal to the file after the build {after_build}, after the steps "
         f"{after_steps}; loss/train {', '.join(f'{x:.5f}' for x in losses)}; module times at "
         f"steps {timed_steps}; launches { {k: v for k, v in counts.items() if v} } (expected "
-        f"the same, every other kernel 0: K1 also twice per log step for the timing)")
-    log(f"{tag} module times at B={B}, {H}x{W}, D={D}, F={F} (the trainer's module_timing: host "
-        f"clock fenced by torch.cuda.synchronize, one run after an untimed one, at steps "
-        f"{log_steps}): " + "; ".join(
+        f"the same, every other kernel 0)")
+    log(f"{tag} module times at B={B}, {H}x{W}, D={D}, F={F} (the trainer's module_timing: the "
+        f"log step's own spans, CUDA events, at steps {log_steps}): " + "; ".join(
             f"{m} {', '.join(f'{t:.3f}' for t in v)} ms, median {statistics.median(v):.3f} ms"
             for m, v in times.items()) + f" on {card}")
     if not (after_build and after_steps and counts == expected
@@ -3883,7 +3882,10 @@ def variant_training(dev, card: str, run_dir) -> dict:
     losses = [scalars.get(s, {}).get("loss", math.nan) for s in range(VARIANT_STEPS)]
     timed = {s: sorted(k for k in scalars.get(s, {}) if k.endswith("_module_time"))
              for s in log_steps}
-    want_keys = ["cv_module_time", "depth_module_time", "resnet_module_time"]
+    # The step's layers, the simple mask's included (the JAX trainer's
+    # re-runs leave it out).
+    want_keys = ["cv_module_time", "depth_module_time", "mask_module_time",
+                 "resnet_module_time"]
 
     batches = [b for _, b in zip(range(2), trainer.data_loader)]
     alpha = trainer._alpha(1)

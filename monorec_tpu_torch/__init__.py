@@ -9,4 +9,7 @@ an obvious reference. Tensors are NCHW. The package imports ``torch`` and
 Kernel dispatch follows the device of the tensors: a kernel wrapper
 launches its CUDA kernel on CUDA tensors and runs the kernel's plain
 PyTorch version on CPU tensors. There is no other switch.
+
+``tracing`` has no counterpart in ``monorec_tpu``: spans at the forward's
+and the training step's layer boundaries, off unless a caller turns them on.
 """

@@ -4,9 +4,9 @@ the reference's ``example/test_monorec.py``).
 Builds ``MonoRec`` on an explicit device, with weights drawn from ``--seed``,
 carried from the JAX package (``--params``, an npz of '/'-joined flax
 paths) or read from a ``.pth`` of the port or the reference
-(``--checkpoint``, the same keys). On CUDA each latency is taken with CUDA
-events, after one untimed forward that builds the CUDA kernel and warms the
-allocator.
+(``--checkpoint``, the same keys). Each latency is the forward's own span
+(``tracing``): CUDA events on the card, the host clock on the CPU, after
+one untimed forward that builds the CUDA kernel and warms the allocator.
 
 Without ``--data`` it answers ``--requests`` synthetic requests of
 ``--batch`` keyframes each and prints the latency of each forward::
@@ -35,13 +35,13 @@ from __future__ import annotations
 import argparse
 import statistics
 import sys
-import time
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from monorec_tpu_torch import tracing
 from monorec_tpu_torch.convert import load_flax_npz, state_dict_from_flax
 from monorec_tpu_torch.data.kitti import KittiOdometryDataset
 from monorec_tpu_torch.data.loader import collate
@@ -130,24 +130,23 @@ def make_requests(n: int, batch_size: int, height: int, width: int, frames: int,
 
 def serve(model: MonoRec, requests: Sequence[Dict[str, torch.Tensor]]
           ) -> Tuple[List[Dict[str, torch.Tensor]], List[float]]:
-    """Answer each request with one forward; returns outputs and per-request ms."""
-    outputs, latencies = [], []
-    with torch.inference_mode():
+    """Answer each request with one forward, alone: on the card the host
+    waits for each answer before it issues the next request. Returns the
+    outputs and each request's milliseconds: its ``forward`` span, device
+    time on the card (from the moment the host starts to issue the request,
+    so a device waiting for the host counts) and host time on the CPU. The
+    latency covers the forward, not the copies of the request in or of its
+    answer out."""
+    if not requests:
+        return [], []
+    cuda = any(batch["keyframe"].is_cuda for batch in requests)
+    outputs = []
+    with torch.inference_mode(), tracing.capture(cuda) as recorder:
         for batch in requests:
-            if batch["keyframe"].is_cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = model(batch)
-                end.record()
-                end.synchronize()
-                latencies.append(start.elapsed_time(end))
-            else:
-                t0 = time.perf_counter()
-                out = model(batch)
-                latencies.append((time.perf_counter() - t0) * 1e3)
-            outputs.append(out)
-    return outputs, latencies
+            outputs.append(model(batch))
+            if cuda:
+                torch.cuda.synchronize()
+    return outputs, recorder.collect()["spans"]["forward"]["device_ms"]
 
 
 def main(argv=None) -> int:

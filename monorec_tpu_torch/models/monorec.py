@@ -12,7 +12,8 @@ ranks every draw is made for the global batch and a rank keeps its rows
 (``parallel.draw_rows``), so the generators of all ranks stay in step with
 one process's. The entry points ``features``,
 ``cost_volume``, ``mask`` and ``depth`` serve the stage 2-4 protocol
-(``train/monorec_trainer.py``); ``freeze_module`` ("att", "depth") stops
+(``train/monorec_trainer.py``); each of them and ``forward`` is a span of
+``tracing``. ``freeze_module`` ("att", "depth") stops
 the gradient at the output of ``mask`` / ``depth``. The mask augmentation
 (``augmentation: "mask"``) belongs to that trainer: the forward applies no
 augmentation for it, as in the JAX package.
@@ -70,6 +71,7 @@ from monorec_tpu_torch.ops.cost_volume import (
 )
 from monorec_tpu_torch.parallel import draw_rows
 from monorec_tpu_torch.precision import torch_dtype, use_exact_precision
+from monorec_tpu_torch.tracing import traced
 
 Tensor = torch.Tensor
 Batch = Dict[str, Any]
@@ -199,6 +201,7 @@ class MonoRec(nn.Module):
             raise ValueError(f"unknown augmentation {cfg.augmentation!r}")
         self.to(device)
 
+    @traced("cost_volume")
     def cost_volume(self, batch: Batch, return_coverage: bool = False,
                     use_mono: Optional[bool] = None, use_stereo: Optional[bool] = None):
         """Fused and per-frame cost volumes of the configured source frames,
@@ -218,6 +221,7 @@ class MonoRec(nn.Module):
             return_coverage=return_coverage,
         )
 
+    @traced("cost_volume")
     def cost_volume_pair(self, batch: Batch):
         """The mono and the stereo cost volumes of the batch's keyframes, from
         one grouped launch of K1 where the sweep path serves
@@ -234,6 +238,7 @@ class MonoRec(nn.Module):
             plain=cfg.plain_cost_volume,
         )
 
+    @traced("features")
     def features(self, keyframe: Tensor):
         """ResNet pyramid of keyframe + 0.5 (the reference feeds [0, 1])."""
         if self.config.freeze_resnet:
@@ -241,6 +246,7 @@ class MonoRec(nn.Module):
                 return self._feature_extractor(keyframe + 0.5)
         return self._feature_extractor(keyframe + 0.5)
 
+    @traced("mask")
     def mask(self, single_frame_cvs: Tensor, image_features, train: bool = False,
              generator: Optional[torch.Generator] = None, keyframe: Optional[Tensor] = None,
              predicted_inverse_depth: Optional[Tensor] = None) -> Tensor:
@@ -255,6 +261,7 @@ class MonoRec(nn.Module):
             out = self.att_module(single_frame_cvs, image_features, train, generator)
         return out.detach() if "att" in self.config.freeze_module else out
 
+    @traced("depth")
     def depth(self, cost_volume: Tensor, keyframe: Tensor, image_features):
         """4-scale inverse depth, affine-mapped to [inv_depth_min_max[1], [0]]."""
         lo, hi = self.config.inv_depth_min_max[1], self.config.inv_depth_min_max[0]
@@ -277,6 +284,7 @@ class MonoRec(nn.Module):
             return mask.repeat_interleave(8, 2).repeat_interleave(8, 3)
         return mask.expand(b, 1, h, w)
 
+    @traced("forward")
     def forward(self, batch: Batch, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 dropout_generator: Optional[torch.Generator] = None) -> Dict[str, Any]:

@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from monorec_tpu_torch.parallel.mesh import is_active, sharded, world_size
+from monorec_tpu_torch.tracing import traced
 
 Tensor = torch.Tensor
 
@@ -90,6 +91,7 @@ def gather_rows(data: Dict[str, Tensor], keys: Iterable[str]) -> Dict[str, Tenso
     return out
 
 
+@traced("grad_reduce")
 def reduce_gradients(params: Sequence[torch.nn.Parameter], was_sharded: bool) -> None:
     """The global gradient on every rank: the ranks' ``.grad`` summed when
     the batch was sharded, averaged when it was replicated. One all-reduce

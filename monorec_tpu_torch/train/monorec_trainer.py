@@ -49,6 +49,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from monorec_tpu_torch import tracing
 from monorec_tpu_torch.models.augmentation import (
     apply_mask_aug,
     apply_mask_aug_frames,
@@ -78,6 +79,7 @@ class MonoRecTrainer(Trainer):
         self.joint_depth_decode = tcfg.get("joint_depth_decode", False)
         self.joint_cv = tcfg.get("joint_cv", False)
 
+    @tracing.traced("feed")
     def _feed(self, batch: Dict, train: bool, alpha: float) -> Tuple[Dict, Dict]:
         batch = self._jitter(batch, train)
         model = self.model
@@ -203,4 +205,6 @@ class MonoRecTrainer(Trainer):
                 torch.cat([m, s], 0) for m, s in zip(mono_pred, stereo_pred)]
             data["result"] = data["predicted_inverse_depths"][0]
 
-        return self.loss_fn(data, alpha, self.roi, self.options), data
+        with tracing.span("loss"):
+            loss_dict = self.loss_fn(data, alpha, self.roi, self.options)
+        return loss_dict, data

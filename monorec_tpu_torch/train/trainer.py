@@ -29,23 +29,23 @@ and ``<run_dir>/tb/metrics.jsonl`` with ``loss`` and ``loss_<key>`` of every
 train step, the validation's ``loss`` and metrics, ``steps_per_sec``, and,
 with ``trainer.module_timing``, the cost volume's, encoder's, MaskModule's
 and DepthModule's times on log steps (``cv_module_time`` ...,
-milliseconds). TensorBoard event files (``trainer.tensorboard``, on by
-default) and their images of inputs, outputs and targets on log steps go
+milliseconds, from the log step's own spans). TensorBoard event files
+(``trainer.tensorboard``, on by default) and their images of inputs, outputs and targets on log steps go
 beside it where the ``tensorboard`` package is installed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
-import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from monorec_tpu_torch import parallel
+from monorec_tpu_torch import parallel, tracing
 from monorec_tpu_torch.metrics import METRIC_INPUTS
 from monorec_tpu_torch.models.augmentation import jitter_image_keys
 from monorec_tpu_torch.train import checkpoints
@@ -54,7 +54,12 @@ from monorec_tpu_torch.utils import ValueFader, operator_on_dict
 
 logger = logging.getLogger(__name__)
 
+# The spans a log step's module times read, by the key each is logged under.
+MODULE_TIME_SPANS = {"cost_volume": "cv_module_time", "features": "resnet_module_time",
+                     "mask": "mask_module_time", "depth": "depth_module_time"}
 
+
+@tracing.traced("optimizer")
 def apply_gradients_guarded(optimizer: torch.optim.Optimizer,
                             skip_nonfinite: bool) -> Optional[float]:
     """``optimizer.step()``, optionally skipped when a gradient is not finite.
@@ -71,7 +76,11 @@ def apply_gradients_guarded(optimizer: torch.optim.Optimizer,
         optimizer.step()
         return None
     grads = [p.grad for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
-    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all().item() if grads else True
+    finite = True
+    if grads:
+        flag = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        with tracing.span("sync.guard"):
+            finite = flag.item()
     if finite:
         optimizer.step()
     return 0.0 if finite else 1.0
@@ -150,14 +159,18 @@ class Trainer:
         with parallel.batch_scope(sharded):
             data = parallel.gather_rows(data, METRIC_INPUTS)
         values = torch.stack([m(data, self.roi, self.max_distance) for m in self.metric_fns])
-        return values.cpu().numpy().astype(np.float64)
+        with tracing.span("sync.metrics"):
+            values = values.cpu()
+        return values.numpy().astype(np.float64)
 
     @staticmethod
     def _to_floats(loss_dict: Dict) -> Dict[str, float]:
         keys = list(loss_dict)
         values = torch.stack([torch.as_tensor(loss_dict[k]).detach().float().reshape(())
                               .to(loss_dict["loss"].device) for k in keys])
-        return dict(zip(keys, values.tolist()))
+        with tracing.span("sync.losses"):
+            floats = values.tolist()
+        return dict(zip(keys, floats))
 
     def _jitter(self, batch: Dict, train: bool) -> Dict:
         """``batch`` with its images colour-jittered in training when
@@ -167,6 +180,7 @@ class Trainer:
             return jitter_image_keys(batch, self.generator)
         return batch
 
+    @tracing.traced("feed")
     def _feed(self, batch: Dict, train: bool, alpha: float) -> Tuple[Dict, Dict]:
         """The forward and the loss: (loss dict, data = batch + outputs)."""
         batch = self._jitter(batch, train)
@@ -176,7 +190,9 @@ class Trainer:
         else:
             out = self.model(batch)
         data = {**batch, **out}
-        return self.loss_fn(data, alpha, self.roi_train, self.options), data
+        with tracing.span("loss"):
+            loss_dict = self.loss_fn(data, alpha, self.roi_train, self.options)
+        return loss_dict, data
 
     @staticmethod
     def _viz(data: Dict) -> Dict:
@@ -184,6 +200,7 @@ class Trainer:
         mask = data.get("mask")
         return {"result": data["result"].detach(), "mask": None if mask is None else mask.detach()}
 
+    @tracing.traced("train_step")
     def train_step(self, batch: Dict, alpha: float,
                    sharded: bool = False) -> Tuple[Dict[str, float], np.ndarray, Dict]:
         """One optimizer step on ``batch``; returns the loss dict as floats,
@@ -196,7 +213,8 @@ class Trainer:
             if "cv_uncovered" in data:
                 loss_dict["cv_uncovered"] = parallel.global_sum(data["cv_uncovered"].sum())
         self.optimizer.zero_grad(set_to_none=True)
-        loss_dict["loss"].backward()
+        with tracing.span("backward"):
+            loss_dict["loss"].backward()
         parallel.reduce_gradients([p for g in self.optimizer.param_groups for p in g["params"]],
                                   sharded)
         skipped = apply_gradients_guarded(self.optimizer, self.skip_nonfinite_updates)
@@ -213,39 +231,15 @@ class Trainer:
             loss_dict, data = self._feed(batch, False, alpha)
         return self._to_floats(loss_dict), self._metrics(data, sharded), self._viz(data)
 
-    @torch.no_grad()
-    def _module_times(self, batch: Dict) -> Dict[str, float]:
+    @staticmethod
+    def _module_times(spans: Dict) -> Dict[str, float]:
         """Milliseconds of the cost volume, the ResNet encoder, the MaskModule
-        and the DepthModule (those the model has) on ``batch`` with the
-        current weights, each run once untimed first and then timed alone,
-        fenced by ``torch.cuda.synchronize`` on the card
-        (``monorec_tpu/train/trainer.py::_module_times``). As there, ``no_cv``
-        times none of the cost volume, mask and depth, and ``simple_mask``
-        no mask (it would need a depth prediction)."""
-        model = self.model
-        cfg = model.config
-        cuda = next(model.parameters()).is_cuda
-
-        def timed(fn, *args):
-            fn(*args)
-            if cuda:
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args)
-            if cuda:
-                torch.cuda.synchronize()
-            return out, (time.perf_counter() - t0) * 1000.0
-
-        times = {}
-        keyframe = batch["keyframe"]
-        if not cfg.no_cv:
-            (cv, sfcv), times["cv_module_time"] = timed(model.cost_volume, batch)
-        feats, times["resnet_module_time"] = timed(model.features, keyframe)
-        if cfg.has_mask_module and not cfg.simple_mask and not cfg.no_cv:
-            _, times["mask_module_time"] = timed(model.mask, sfcv, feats)
-        if cfg.has_depth_module and not cfg.no_cv:
-            _, times["depth_module_time"] = timed(model.depth, cv, keyframe, feats)
-        return times
+        and the DepthModule in ``spans``, what one step's ``tracing.capture``
+        collected, summed over
+        their calls in the step (device time on the card): those the step
+        ran, under the keys of ``monorec_tpu/train/trainer.py::_module_times``."""
+        return {key: sum(spans["spans"][name]["device_ms"])
+                for name, key in MODULE_TIME_SPANS.items() if name in spans["spans"]}
 
     def _log_images(self, batch: Dict, viz: Dict) -> None:
         """Inputs, outputs (inverse depth shown as depth, beside the mask) and
@@ -295,8 +289,11 @@ class Trainer:
                 it = iter(self.data_loader)
                 batch = next(it)
             batch, sharded = parallel.loader_batch(self.data_loader, batch)
-            loss_dict, metrics, viz = self.train_step(batch, alpha, sharded)
             step = (epoch - 1) * self.len_epoch + batch_idx
+            timed = self.module_timing and step % self.log_step == 0
+            cuda = next(self.model.parameters()).is_cuda
+            with tracing.capture(cuda) if timed else contextlib.nullcontext() as recorder:
+                loss_dict, metrics, viz = self.train_step(batch, alpha, sharded)
             self.writer.set_step(step)
             self.writer.add_scalar("loss", loss_dict["loss"])
             for k, v in loss_dict.items():
@@ -310,8 +307,8 @@ class Trainer:
             total_loss_dict = operator_on_dict(total_loss_dict, loss_dict, lambda a, b: a + b)
             if step % self.log_step == 0:
                 extra = ""
-                if self.module_timing:
-                    times = self._module_times(batch)
+                if timed:
+                    times = self._module_times(recorder.collect())
                     for k, v in times.items():
                         self.writer.add_scalar(k, v)
                     extra = " " + " ".join(f"{k.removesuffix('_module_time')}={v:.1f}ms"

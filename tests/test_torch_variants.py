@@ -37,6 +37,7 @@ from monorec_tpu.models.mask_module import SimpleMaskModule as JSimpleMask
 from monorec_tpu.models.resnet import ResNetEncoder as JResNet
 from monorec_tpu.train.trainer import Trainer as JTrainer
 from monorec_tpu_torch import config as config_mod
+from monorec_tpu_torch import tracing
 from monorec_tpu_torch.cli import train_monorec
 from monorec_tpu_torch.convert import state_dict_from_flax
 from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
@@ -388,12 +389,24 @@ def _jax_module_time_keys(**cfg):
                                  {"pretrain_mode": 2}, {"pretrain_mode": 3, "no_cv": True}],
                          ids=str)
 def test_module_time_keys_match_the_jax_trainer(cfg):
+    """The port times the layers its step runs, from the step's own spans;
+    the JAX trainer re-runs them alone and leaves out more: under ``no_cv``
+    the mask and depth that the step runs on zero cost volumes, under
+    ``simple_mask`` the mask (its re-run would need a depth prediction)."""
     assert "no_cv" in inspect.getsource(JTrainer._module_times)
-    model = MonoRec(MonoRecConfig(cv_depth_steps=D, **cfg),
-                    generator=torch.Generator().manual_seed(0))
-    keys = set(Trainer._module_times(types.SimpleNamespace(model=model),
-                                     batch_to_torch(_nb(), "cpu")))
-    assert keys == _jax_module_time_keys(**cfg)
+    config = MonoRecConfig(cv_depth_steps=D, **cfg)
+    model = MonoRec(config, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad(), tracing.capture(False) as recorder:
+        model(batch_to_torch(_nb(), "cpu"))
+    keys = set(Trainer._module_times(recorder.collect()))
+    jax_keys = _jax_module_time_keys(**cfg)
+    beyond_jax = set()
+    if config.no_cv:
+        beyond_jax |= {"mask_module_time"} if config.has_mask_module else set()
+        beyond_jax |= {"depth_module_time"} if config.has_depth_module else set()
+    if config.simple_mask and config.has_mask_module:
+        beyond_jax.add("mask_module_time")
+    assert jax_keys <= keys and keys - jax_keys == beyond_jax
     assert all(re.fullmatch(r"(cv|resnet|mask|depth)_module_time", k) for k in keys)
 
 
