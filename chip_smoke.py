@@ -9,8 +9,8 @@ checkout, then:
 
 1. device: name, versions, ``nvidia-smi`` name and power limit;
 2. build: compiles ``plane_sweep_sad.cu``, ``grid_warp.cu``,
-   ``photo_error.cu`` and ``warp_plane_sweep.cu`` (nvcc, sm_90a), one nvcc
-   each, all started together;
+   ``photo_error.cu``, ``warp_plane_sweep.cu`` and ``bias_act.cu`` (nvcc,
+   sm_90a), one nvcc each, all started together;
 3. kernel vs plain: ``plane_sweep_sad`` (K1's raw mode, the TPU kernel's
    contract) against ``plane_sweep_sad_reference`` on the same GPU tensors
    at B=8, F=2, 256x512, D=32, for every use_ssim mode and two motions; then
@@ -30,7 +30,9 @@ checkout, then:
    (kernel) against CPU (plain versions), at B=1;
 6. serving: the inference entry point answers requests of 8 keyframes, with
    the kernel and with the plain cost volume, timed with CUDA events; the
-   kernel's launch count over the kernel run must be one per request;
+   kernel's launch count over the kernel run must be one per request, and
+   the U-Nets' epilogue's (``bias_act``) one per ``SamePadConv`` and
+   ``Refine`` of a forward, 58;
 7. loss warp: ``grid_warp`` / ``grid_warp_jac`` / ``grid_warp_grad``
    against their plain versions at N = 4 scales x B=8 x F=2 = 64,
    3x256x512, at the coordinates of a real depth warp (inverse depths with
@@ -105,7 +107,8 @@ checkout, then:
    static and moving pixels both exist; checks a fixed MaskModule and
    encoder, a moved DepthModule, finite gradients on every step, a finite
    loss on at least one step with both kinds of pixel (and on every such
-   step), and the launch counts per step and at N=M=96; times and splits
+   step), and the launch counts per step and at N=M=96 (the epilogue's:
+   the mask and both decodes forward, the mono decode backward); times and splits
    the step as phase 18; then holds K2 ``_jac`` at N=96 and K3 at M=96
    (the stage-4 loss's first warp) to their plain versions at the trained
    model's warp of a batch, K3 as in phase 8, and times them;
@@ -282,7 +285,20 @@ checkout, then:
    ``dilate_mask`` (sizes 3, 4, 15), ``masked_where`` and
    ``pose_distance_thresh`` on card tensors equal to the CPU's; logs the
    host's time per keyframe of ``write_jpeg``, the 16-bit ``write_png`` and
-   the whole export.
+   the whole export;
+32. the U-Nets' convolution epilogue (``ops/bias_act.py``, the port's own
+   kernel): forward bit for bit against ``y + bias`` then ``leaky_relu``
+   at the largest U-Net output (16x32x256x512, the MaskModule's first
+   layers at B=8, F=2) in float32 and bf16, with slope 0.1 and 1, on
+   whole planes, a window of the whole plane and the window of an
+   implicitly padded k=2 ``Upconv``, with pre-activations of exactly 0
+   planted; its backward against autograd of
+   the plain operations (the gradient of y bit for bit, the bias gradient
+   within 1e-6 of the sum of |d| per channel in float32); both timed
+   against the plain operations and their byte bound; and the Mask and
+   Depth modules alone at B=8, 256x512: 58 forward launches and 46
+   implicit / 8 explicit same pads a forward, 58 backward launches a
+   backward.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -325,7 +341,7 @@ LOSS_RTOL = 5e-4  # PARITY.md row 9, full-chain reprojection
 TRAIN_STEPS = 6
 PROFILED_STEPS = 5
 CONV_STEPS = 10  # phase 16, per policy
-SOURCES = ("plane_sweep_sad", "grid_warp", "photo_error", "warp_plane_sweep")
+SOURCES = ("plane_sweep_sad", "grid_warp", "photo_error", "warp_plane_sweep", "bias_act")
 SERVING_CV_TOL = 5e-3  # bf16 sources vs the exact CV (tests/test_pallas_kernel.py:117)
 UNET_REL = 2e-2  # bf16 U-Nets vs float32, mean |diff| / mean |ref| (tests/test_models.py)
 # A per-frame CV with sfcv_mult_mask=False keeps a pixel by warped != 0, an
@@ -381,6 +397,13 @@ K3_FLOPS = {"photo_error_fwd": 44 + 10 + 27, "photo_error_bwd": 44 + 10 + 41 + 2
 # a01 y, a11 y, a21 y are hoisted: e 3, 1 + e 1, each of dx and dy mul,
 # add, add, mul, sub and div 6), footprint 12, taps and border indicator 28.
 K4_FLOPS = 16 + 12 + 28
+# The U-Nets' epilogue per element: the bias add, the sign test and the
+# slope's multiply.
+BIAS_ACT_FLOPS = 3
+# Its largest operand: the MaskModule's first layers, N = B * F = 16 frames
+# of D = 32 channels at 256x512.
+BIAS_ACT_SHAPE = (B * F, D, H, W)
+BIAS_ACT_GRAD_RTOL = 1e-6  # of the sum of |d| over a channel
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -886,12 +909,32 @@ def launch_counts() -> dict:
 
 
 def reset_counts() -> None:
+    from monorec_tpu_torch.ops.bias_act import bias_act
+
     for fn in _counted().values():
         fn.launches = 0
         if hasattr(fn, "launches_bf16"):
             fn.launches_bf16 = 0
         if hasattr(fn, "launches_by_batch"):
             fn.launches_by_batch.clear()
+    bias_act.launches = bias_act.launches_bwd = 0
+
+
+def epilogue_counts() -> dict:
+    """The U-Nets' epilogue's forward and backward launches since
+    ``reset_counts`` (apart from ``launch_counts``: every U-Net forward
+    launches it, so the other kernels' tables leave it out)."""
+    from monorec_tpu_torch.ops.bias_act import bias_act
+
+    return {"bias_act": bias_act.launches, "bias_act_bwd": bias_act.launches_bwd}
+
+
+def epilogue_layers(module) -> int:
+    """The epilogue's launches in one forward of ``module``: one for each
+    ``SamePadConv`` and ``Refine`` in it."""
+    from monorec_tpu_torch.models.layers import Refine, SamePadConv
+
+    return sum(isinstance(m, (SamePadConv, Refine)) for m in module.modules())
 
 
 def launches_by_batch() -> dict:
@@ -1838,13 +1881,16 @@ def refinement_split(trainer, batches, alpha, n_steps: int):
     return [statistics.median(c) for c in zip(*rows)]
 
 
-def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_step: dict):
+def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_step: dict,
+                         epilogue: dict = None):
     """An epoch (``trainer.len_epoch`` steps) and a validation pass through
     ``trainer.train()``, the main path, with the counts set to 0 just
     before. Checks that every tensor of
     the ``trained`` modules moved and none of the ``fixed`` ones did, and
     the launches: ``per_step`` per train step, and per validation batch the
-    same forwards with every K2 launch in values mode and no backward.
+    same forwards with every K2 launch in values mode and no backward;
+    where ``epilogue`` ({"forward": n, "backward": n} a step) is given, the
+    U-Nets' epilogue's too, counted as ``bias_act`` and ``bias_act_bwd``.
     Returns the counts, K2's and K3's counts by leading dim, the log lines
     and each step's moving share."""
     import torch
@@ -1864,7 +1910,7 @@ def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_st
     trainer.loss_fn = loss_fn
     reset_counts()
     log_ = trainer.train()  # the main path
-    counts, by_batch = launch_counts(), launches_by_batch()
+    counts, by_batch, epi = launch_counts(), launches_by_batch(), epilogue_counts()
     trainer.loss_fn = stage_loss
     k2_val = per_step.get("grid_warp", 0) + per_step.get("grid_warp_jac", 0)
     expected = only(**{k: v * steps for k, v in per_step.items()})
@@ -1886,10 +1932,18 @@ def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_st
         + ", ".join(f"{p[:-1]} {moved[p]} of {total[p]}" for p in trained + fixed)
         + f"; launches { {k: v for k, v in counts.items() if v} } (expected the same, every "
         f"other kernel 0)")
+    if epilogue is not None:
+        want = {"bias_act": epilogue["forward"] * (steps + n_val),
+                "bias_act_bwd": epilogue["backward"] * steps}
+        log(f"{tag} the U-Nets' epilogue on the main path: {epi} (expected {want})")
+        if epi != want:
+            raise AssertionError(f"{tag} launched the epilogue {epi}, expected {want}")
     if not (len(lines) == steps and counts == expected
             and all(moved[p] == total[p] > 0 for p in trained)
             and all(moved[p] == 0 for p in fixed)):
         raise AssertionError(f"{tag} training through the entry point failed its checks")
+    if epilogue is not None:
+        counts.update(epi)
     return counts, by_batch, lines, ratios[:steps]
 
 
@@ -2056,9 +2110,15 @@ def phase_stage4(dev, card: str, run_dir, stage1_checkpoint, stage3_checkpoint):
     shift = mixed_mask(trainer, next(iter(trainer.data_loader)))
     log(f"[19 stage 4] the stage-3 MaskModule's classifier bias lowered by {shift:.5f}, the "
         f"median of its logits on the first batch, so that about half its pixels are moving")
+    # A step's epilogue: the mask, whose output freeze_module "att" detaches,
+    # the stereo decode under no_grad and the mono decode, the one the
+    # backward reaches; a validation batch the same forwards.
+    depth = epilogue_layers(trainer.model.depth_module)
+    epilogue = {"forward": epilogue_layers(trainer.model.att_module) + 2 * depth,
+                "backward": depth}
     counts, by_batch, lines, ratios = refinement_main_path(
         "[19 stage 4]", trainer, ("depth_module.",), ("_feature_extractor.", "att_module."),
-        STAGE4_STEP)
+        STAGE4_STEP, epilogue)
     # skip_nonfinite_updates (on in the config) reads every step's gradients.
     skipped = [r["skipped_nonfinite"] for r in lines]
     bad = [i for i, (r, q) in enumerate(zip(lines, ratios))
@@ -5439,6 +5499,147 @@ def nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
+def _bits(t):
+    """The bit patterns of a float32 or bf16 tensor (-0.0 and NaNs apart)."""
+    import torch
+
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def bias_act_operands(dev, dtype, shape, window, seed: int):
+    """y, bias and a cotangent of the kept window; a 64th of the kept
+    window's pre-activations planted at exactly 0 (y = -bias there, exact
+    in both dtypes)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, c, hy, wy = shape
+    y = torch.randn(shape, generator=g, device=dev).to(dtype)
+    bias = torch.randn(c, generator=g, device=dev).to(dtype)
+    top, left, h, w = window or (0, 0, hy, wy)
+    kept = y[:, :, top:top + h, left:left + w]
+    zero = torch.rand(kept.shape, generator=g, device=dev) < 1 / 64
+    kept.copy_(torch.where(zero, -bias.view(1, -1, 1, 1).expand_as(kept), kept))
+    cot = torch.randn((n, c, h, w), generator=g, device=dev).to(dtype)
+    return y, bias, cot
+
+
+def unet_launches(dev, mask_module, depth_module, h: int, w: int) -> dict:
+    """Forward launches of the epilogue, the same pads by kind, and backward
+    launches, over one Mask + Depth forward at B, F, D and h x w (random
+    inputs), then one backward of its outputs' sum."""
+    import torch
+
+    from monorec_tpu_torch.models import layers
+    from monorec_tpu_torch.ops.bias_act import bias_act
+
+    g = torch.Generator(device=dev).manual_seed(32)
+    feats = [torch.randn(B, c, h // s, w // s, generator=g, device=dev)
+             for c, s in zip((64, 64, 128, 256), (2, 4, 8, 16))]
+    sfcv = torch.randn(B, F, D, h, w, generator=g, device=dev)
+    cv = torch.randn(B, D, h, w, generator=g, device=dev)
+    key = torch.randn(B, 3, h, w, generator=g, device=dev)
+    layers.pad_counts.clear()
+    fwd0, bwd0 = bias_act.launches, bias_act.launches_bwd
+    mask = mask_module(sfcv, feats)
+    preds = depth_module(cv, key, feats)
+    counts = {"forward": bias_act.launches - fwd0, **layers.pad_counts}
+    (mask.sum() + sum(p.sum() for p in preds)).backward()
+    torch.cuda.synchronize()
+    counts["backward"] = bias_act.launches_bwd - bwd0
+    return counts
+
+
+def phase_bias_act(dev, card: str) -> dict:
+    """Phase 32: the U-Nets' epilogue kernel (``ops/bias_act.py``) against
+    the plain operations, timed against them and its byte bound, and its
+    launches and the same pads of one Mask + Depth forward and backward.
+    Returns its kernel record."""
+    import torch
+
+    from monorec_tpu_torch.models.depth_module import DepthModule
+    from monorec_tpu_torch.models.mask_module import MaskModule
+    from monorec_tpu_torch.ops import bias_act as ba
+
+    tag = "[32 bias_act]"
+    n, c, h, w = BIAS_ACT_SHAPE
+    # (slope, y's planes, window): whole planes, given as no window and as
+    # one of the whole plane, and an implicitly padded k=2 conv's planes
+    # less their extra leading row and column.
+    cases = [(0.1, (h, w), None), (1.0, (h, w), None), (1.0, (h, w), (0, 0, h, w)),
+             (0.1, (h + 1, w + 1), (1, 1, h, w)), (1.0, (h + 1, w + 1), (1, 1, h, w))]
+    record = {}
+    worst_rel = max_abs = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for slope, (hy, wy), window in cases:
+            y, bias, cot = bias_act_operands(dev, dtype, (n, c, hy, wy), window, 32)
+            got = ba.bias_act_fwd(y, bias, slope, window)
+            want = ba.bias_act_reference(y, bias, slope, window)
+            fwd_equal = got.shape == want.shape and torch.equal(_bits(got), _bits(want))
+            if dtype == torch.float32:
+                max_abs = max(max_abs, (got - want).abs().max().item())
+            yk, bk = y.clone().requires_grad_(), bias.clone().requires_grad_()
+            yr, br = y.clone().requires_grad_(), bias.clone().requires_grad_()
+            gy, gb = torch.autograd.grad(ba.bias_act(yk, bk, slope, window), (yk, bk), cot)
+            ry, rb = torch.autograd.grad(ba.bias_act_reference(yr, br, slope, window),
+                                         (yr, br), cot)
+            # The bias gradient's sums run in another order: held to the sum
+            # of |d| over each channel, less (bf16) one bf16 unit of the
+            # result, to which both sides round.
+            d = ry.float().abs().sum((0, 2, 3))
+            ulp = 0.0 if dtype == torch.float32 else 2.0**-7
+            rel = (((gb.float() - rb.float()).abs() - ulp * rb.float().abs()).clamp_min(0)
+                   / d).max().item()
+            gy_equal = torch.equal(_bits(gy), _bits(ry))
+            log(f"{tag} {str(dtype)[6:]} slope {slope} y {tuple(y.shape)} window {window}: "
+                f"forward bit-equal {fwd_equal}; dL/dy bit-equal {gy_equal}; dL/dbias max "
+                f"|diff| / sum|d| {rel:.3e}")
+            if not (fwd_equal and gy_equal and rel <= BIAS_ACT_GRAD_RTOL):
+                raise AssertionError(f"bias_act disagrees with add + leaky_relu ({dtype}, "
+                                     f"slope {slope}, window {window})")
+            if dtype == torch.float32:
+                worst_rel = max(worst_rel, rel)
+            del y, bias, cot, got, want, yk, bk, yr, br, gy, gb, ry, rb
+        torch.cuda.empty_cache()
+
+        y, bias, cot = bias_act_operands(dev, dtype, BIAS_ACT_SHAPE, None, 33)
+        out = ba.bias_act_fwd(y, bias, 0.1)
+        k_ms, p_ms, _, turns, order = in_turns(
+            lambda: ba.bias_act_fwd(y, bias, 0.1), lambda: ba.bias_act_reference(y, bias, 0.1),
+            20, 20)
+        fwd_bound = bound(nbytes(y, out), BIAS_ACT_FLOPS * y.numel())
+        kb_ms, pb_ms, _, b_turns, _ = in_turns(
+            lambda: ba.bias_act_bwd(cot, out, 0.1, None, y.shape),
+            lambda: ba._bias_act_bwd_reference(cot, out, 0.1, None, y.shape), 20, 20)
+        bwd_bound = bound(3 * nbytes(y), BIAS_ACT_FLOPS * y.numel())
+        log(f"{tag} {str(dtype)[6:]} {BIAS_ACT_SHAPE}, slope 0.1 ({order}): forward "
+            f"{', '.join(f'{t:.3f}' for t in turns)} ms; kernel {k_ms:.3f} ms vs add + "
+            f"leaky_relu {p_ms:.3f} ms, bound {fwd_bound['bound_ms']:.3f} ms "
+            f"({fwd_bound['bound_by']}: {100 * fwd_bound['bound_ms'] / k_ms:.1f}%); backward "
+            f"{', '.join(f'{t:.3f}' for t in b_turns)} ms; kernel {kb_ms:.3f} ms vs plain "
+            f"{pb_ms:.3f} ms, bound {bwd_bound['bound_ms']:.3f} ms "
+            f"({100 * bwd_bound['bound_ms'] / kb_ms:.1f}%) on {card}")
+        if dtype == torch.float32:
+            record = {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                      "bwd_ms": kb_ms, "bwd_plain_ms": pb_ms,
+                      "bwd_bound_ms": bwd_bound["bound_ms"],
+                      "bias_grad_rel_err": worst_rel, **fwd_bound}
+        else:
+            record.update(bf16_ms=k_ms, bf16_plain_ms=p_ms, bf16_bound_ms=fwd_bound["bound_ms"])
+        del y, bias, cot, out
+        torch.cuda.empty_cache()
+
+    with torch.device(dev):
+        mask_module, depth_module = MaskModule(D), DepthModule(D)
+    counts = unet_launches(dev, mask_module, depth_module, H, W)
+    log(f"{tag} one Mask + Depth forward and backward at B={B}, F={F}, {H}x{W}: {counts}")
+    if counts != {"forward": 58, "implicit": 46, "explicit": 8, "backward": 58}:
+        raise AssertionError(f"the U-Nets launched the epilogue or padded otherwise: {counts}")
+    del mask_module, depth_module
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -5589,12 +5790,19 @@ def main() -> int:
     _, plain_1 = serve(model_plain, requests)
     reset_counts()
     outs, kern_1 = serve(model, requests)  # the main path
-    serve_counts = launch_counts()
+    serve_counts, serve_epilogue = launch_counts(), epilogue_counts()
     _, kern_2 = serve(model, requests)
     _, plain_2 = serve(model_plain, requests)
     if serve_counts != only(plane_sweep_cost_volume=n_req):
         raise AssertionError(f"the served forwards launched {serve_counts}, expected "
                              f"plane_sweep_cost_volume {n_req} times")
+    unet_layers = epilogue_layers(model.att_module) + epilogue_layers(model.depth_module)
+    want = {"bias_act": n_req * unet_layers, "bias_act_bwd": 0}
+    log(f"[6 serving] the U-Nets' epilogue on the main path: {serve_epilogue} (expected {want}: "
+        f"{unet_layers} a forward)")
+    if unet_layers != 58 or serve_epilogue != want:
+        raise AssertionError(f"the served forwards launched the epilogue {serve_epilogue}, "
+                             f"expected {want}")
     for out in outs:
         r = out["result"]
         if r.shape != (B, 1, H, W) or not torch.isfinite(r).all() or (r <= 0).any():
@@ -5771,6 +5979,11 @@ def main() -> int:
             dev, card, run_dir, stage4_checkpoint)
         torch.cuda.empty_cache()
         stamp("31")
+
+        # ---- 32. the U-Nets' convolution epilogue ---------------------------
+        records["bias_act"] = phase_bias_act(dev, card)
+        torch.cuda.empty_cache()
+        stamp("32")
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
     for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
@@ -5778,6 +5991,9 @@ def main() -> int:
         records[k]["stage3_launches"] = stage3_counts[k]
         records[k]["stage4_launches"] = stage4_counts[k]
     records.update(stage4_records)
+    records["bias_act"].update(launches=serve_epilogue["bias_act"],
+                               stage4_launches=stage4_counts["bias_act"],
+                               stage4_backward_launches=stage4_counts["bias_act_bwd"])
 
     replaced = {
         "plane_sweep_sad": ("plane_sweep_sad.cu", "monorec_tpu/ops/pallas/cv_kernel.py:600"),
@@ -5812,6 +6028,7 @@ def main() -> int:
         "warp_plane_sweep": ("warp_plane_sweep.cu", "monorec_tpu/ops/pallas/warp_kernel.py:291"),
         "warp_plane_sweep_bf16": ("warp_plane_sweep.cu",
                                   "monorec_tpu/ops/pallas/warp_kernel.py:291"),
+        "bias_act": ("bias_act.cu", None),
     }
     log(json.dumps({"kernels": [{
         "name": k,
@@ -5831,7 +6048,10 @@ def main() -> int:
                                       "plain_max_abs_err_vs_float64", "planar_gather_ms",
                                       "second_launch_m",
                                       "second_launch_ms", "second_launch_plain_ms",
-                                      "second_launch_bound_ms")
+                                      "second_launch_bound_ms", "stage4_backward_launches",
+                                      "bwd_ms",
+                                      "bwd_plain_ms", "bwd_bound_ms", "bias_grad_rel_err",
+                                      "bf16_ms", "bf16_plain_ms", "bf16_bound_ms")
            if f in records[k]},
         "ms": records[k]["ms"],
         "plain_ms": records[k]["plain_ms"],

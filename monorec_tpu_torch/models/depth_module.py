@@ -17,7 +17,7 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
-from monorec_tpu_torch.models.layers import Refine, SamePadConv, SeparableConvLReLU
+from monorec_tpu_torch.models.layers import LEAKY_SLOPE, Refine, SamePadConv, SeparableConvLReLU
 from monorec_tpu_torch.models.resnet import ENCODER_CHANNELS
 
 Tensor = torch.Tensor
@@ -56,8 +56,7 @@ class DepthModule(nn.Module):
                 nn.Sequential(
                     SeparableConvLReLU(e[0] + d[3], d[4], 3),
                     nn.Identity(),
-                    SamePadConv(d[4], d[5], 3),
-                    nn.LeakyReLU(0.1),
+                    SamePadConv(d[4], d[5], 3, slope=LEAKY_SLOPE),
                 ),
             ]
         )

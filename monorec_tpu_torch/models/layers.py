@@ -9,10 +9,24 @@ they cast weight and bias to it inside ``forward`` (flax's
 float32 under the bf16 policy and float32 inputs run unchanged. Attribute names (``conv``, ``conv_y``/``conv_x``,
 ``conv2d_t``) are the reference's, so ``state_dict`` keys coincide with
 reference checkpoints.
+
+On the card a convolution makes one pass of its output beyond its own
+work. Its same pad is the convolution's own zero padding wherever that pad
+is symmetric (stride 1 with an odd kernel, or any stride where the size
+makes it so), and at stride 1 with a pad one larger behind (the k=2
+``Upconv``), whose extra leading output row or column is dropped: no
+padded copy of the input is made. Only an asymmetric pad at a larger stride (the depth encoder's
+stride-2 convolutions) is padded explicitly. ``pad_counts`` counts the
+two ways by ``"implicit"`` and ``"explicit"``. ``Refine``'s crop is its
+transposed convolution's padding of 1. On the card the convolution runs
+without its bias, and ``ops/bias_act.py`` adds the bias and applies the
+LeakyReLU (or nothing) in one pass over the kept output
+(``conv_bias_act``).
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Tuple, Union
 
@@ -20,8 +34,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from monorec_tpu_torch.ops.bias_act import conv_bias_act
+
 Tensor = torch.Tensor
 IntPair = Union[int, Tuple[int, int]]
+LEAKY_SLOPE = 0.1
+IDENTITY = 1.0  # LeakyReLU(1.0) is the identity, bit for bit
+
+# SamePadConv calls by how their same pad was applied: "implicit" (the
+# convolution's own padding) or "explicit" (a padded copy of the input).
+pad_counts: collections.Counter = collections.Counter()
 
 
 def _pair(v: IntPair) -> Tuple[int, int]:
@@ -44,16 +66,30 @@ def pad_same(x: Tensor, kernel: IntPair, stride: IntPair = 1) -> Tensor:
 
 
 class SamePadConv(nn.Conv2d):
-    """TF-"same" pad followed by a VALID conv (no activation), computed in
-    the dtype of its input."""
+    """TF-"same" conv computed in the dtype of its input, followed by
+    LeakyReLU(``slope``); the default slope of 1.0 applies none."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair,
-                 stride: IntPair = 1):
+                 stride: IntPair = 1, slope: float = IDENTITY):
         super().__init__(in_channels, out_channels, kernel_size, stride)
+        self.slope = slope
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.conv2d(pad_same(x, self.kernel_size, self.stride), self.weight.to(x.dtype),
-                        self.bias.to(x.dtype), self.stride)
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        h, w = x.shape[-2:]
+        (top, bottom), (left, right) = same_pad_amounts(h, kh, sh), same_pad_amounts(w, kw, sw)
+        weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if min(top, left) >= 0 and (top == bottom or sh == 1) and (left == right or sw == 1):
+            # Pad the larger side on both: at stride 1, output j + (bottom -
+            # top) of that convolution is output j of the asymmetric one, so
+            # the extra leading output is dropped.
+            pad_counts["implicit"] += 1
+            return conv_bias_act(F.conv2d, x, weight, bias, self.slope,
+                                 (bottom - top, right - left), stride=self.stride,
+                                 padding=(bottom, right))
+        pad_counts["explicit"] += 1
+        return conv_bias_act(F.conv2d, pad_same(x, self.kernel_size, self.stride), weight, bias,
+                             self.slope, stride=self.stride)
 
 
 class ConvLReLU(nn.Module):
@@ -62,10 +98,10 @@ class ConvLReLU(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair,
                  stride: IntPair = 1):
         super().__init__()
-        self.conv = SamePadConv(in_channels, out_channels, kernel_size, stride)
+        self.conv = SamePadConv(in_channels, out_channels, kernel_size, stride, LEAKY_SLOPE)
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.leaky_relu(self.conv(x), 0.1)
+        return self.conv(x)
 
 
 class SeparableConvLReLU(nn.Module):
@@ -74,11 +110,13 @@ class SeparableConvLReLU(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1):
         super().__init__()
-        self.conv_y = SamePadConv(in_channels, out_channels, (kernel_size, 1), (stride, 1))
-        self.conv_x = SamePadConv(out_channels, out_channels, (1, kernel_size), (1, stride))
+        self.conv_y = SamePadConv(in_channels, out_channels, (kernel_size, 1), (stride, 1),
+                                  LEAKY_SLOPE)
+        self.conv_x = SamePadConv(out_channels, out_channels, (1, kernel_size), (1, stride),
+                                  LEAKY_SLOPE)
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.leaky_relu(self.conv_x(F.leaky_relu(self.conv_y(x), 0.1)), 0.1)
+        return self.conv_x(self.conv_y(x))
 
 
 def upsample_nearest_2x(x: Tensor) -> Tensor:
@@ -107,8 +145,16 @@ class Refine(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         t = self.conv2d_t
-        y = F.conv_transpose2d(x, t.weight.to(x.dtype), t.bias.to(x.dtype), t.stride)
-        return F.leaky_relu(y, 0.1)[:, :, 1:-1, 1:-1]
+        weight, bias = t.weight.to(x.dtype), t.bias.to(x.dtype)
+        if x.is_cuda:
+            # A transposed convolution's padding of 1 leaves out the border
+            # the crop drops, so the card computes only the kept output.
+            return conv_bias_act(F.conv_transpose2d, x, weight, bias, LEAKY_SLOPE,
+                                 stride=t.stride, padding=1)
+        # The CPU's convolution sums the padded case in another order: crop
+        # the whole output, as the plain layer does.
+        y = conv_bias_act(F.conv_transpose2d, x, weight, bias, LEAKY_SLOPE, stride=t.stride)
+        return y[:, :, 1:-1, 1:-1]
 
 
 def max_pool_2x2(x: Tensor) -> Tensor:

@@ -69,6 +69,7 @@ from monorec_tpu_torch.ops.cost_volume import (
     compute_cost_volume,
     compute_cost_volume_pair,
 )
+from monorec_tpu_torch.ops.cuda import build
 from monorec_tpu_torch.parallel import draw_rows
 from monorec_tpu_torch.precision import torch_dtype, use_exact_precision
 from monorec_tpu_torch.tracing import traced
@@ -199,6 +200,10 @@ class MonoRec(nn.Module):
             self._feature_extractor.requires_grad_(False)
         if cfg.augmentation not in (None, "depth", "mask"):
             raise ValueError(f"unknown augmentation {cfg.augmentation!r}")
+        if device is not None and torch.device(device).type == "cuda":
+            # The forward's kernels compile side by side while the weights
+            # load, not one after the other at their first launches.
+            build.start("bias_act", *(() if cfg.no_cv else ("plane_sweep_sad",)))
         self.to(device)
 
     @traced("cost_volume")

@@ -9,10 +9,14 @@ source and of the shared headers (``*.cuh``) beside it, so an edited
 kernel is never served from a stale build. Processes that load the same
 source at once (the ranks of a data-parallel run) take turns on a lock
 file beside it: the first builds, the others wait and load its library.
+``start`` begins builds in the background, so that sources a model will
+launch build side by side and not one after the other at their first
+launches.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import fcntl
 import functools
@@ -57,6 +61,19 @@ def load(name: str) -> ctypes.CDLL:
             if not lib.exists():  # built while this process waited
                 _compile(name, src, lib)
     return ctypes.CDLL(str(lib))
+
+
+@functools.lru_cache(maxsize=None)
+def _builders() -> concurrent.futures.ThreadPoolExecutor:
+    return concurrent.futures.ThreadPoolExecutor(len(list(_HERE.glob("*.cu"))))
+
+
+def start(*names: str) -> None:
+    """Begin ``load(name)`` of each source in a thread of its own and return.
+    A later ``load`` takes the library, or waits for the build (the lock)
+    and, where it failed, builds again and raises its error."""
+    for name in names:
+        _builders().submit(load, name)
 
 
 def _compile(name: str, src: Path, lib: Path) -> None:

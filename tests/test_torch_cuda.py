@@ -9,8 +9,11 @@ repository's conftest.py imports JAX, which that machine need not have).
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
+from monorec_tpu_torch.models import layers
+from monorec_tpu_torch.ops import bias_act as ba
 from monorec_tpu_torch.ops import grid_warp as gw
 from monorec_tpu_torch.ops import photo_error as pe
 from monorec_tpu_torch.ops import plane_sweep, warp_sweep
@@ -19,6 +22,7 @@ from monorec_tpu_torch.ops.cost_volume import (
     compute_cost_volume,
     plane_sweep_homographies,
 )
+from monorec_tpu_torch.precision import use_exact_precision
 
 pytestmark = pytest.mark.cuda
 SAD_TOL = 1.2e-4  # f32 kernel-vs-gather budget (README.md, Performance)
@@ -263,3 +267,82 @@ def test_photo_error_kernels_match_plain_version(cuda, m, c, h, w, shift):
     (pe.photo_error(xg, yg) * cot).sum().backward()
     torch.testing.assert_close(xg.grad, gx, rtol=0, atol=0)
     assert yg.grad is None
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("slope", [0.1, 1.0])
+@pytest.mark.parametrize("shape,window", [
+    ((2, 3, 5, 7), None),  # ragged: element by element
+    ((2, 5, 16, 32), None),  # 16-byte vectors
+    ((2, 5, 16, 32), (0, 0, 16, 32)),  # a window of the whole plane
+    ((3, 2, 70, 4100), None),  # several blocks a plane
+    ((1, 3, 9, 13), (1, 1, 8, 12)),  # an implicitly padded k=2 conv's window
+    ((2, 4, 66, 130), (1, 1, 64, 128)),  # Refine's crop
+])
+def test_bias_act_kernel_matches_plain_ops(cuda, dtype, slope, shape, window):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    y = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    bias = torch.randn(shape[1], generator=g, device=cuda).to(dtype)
+    y[:, :, 2, :] = -bias.view(1, -1, 1)  # pre-activations of exactly 0
+    out_shape = shape[:2] + (window[2:] if window else shape[2:])
+    cot = torch.randn(out_shape, generator=g, device=cuda).to(dtype)
+    before = (ba.bias_act.launches, ba.bias_act.launches_bwd)
+    yk, bk = y.clone().requires_grad_(), bias.clone().requires_grad_()
+    out = ba.bias_act(yk, bk, slope, window)
+    gy, gb = torch.autograd.grad(out, (yk, bk), cot)
+    torch.cuda.synchronize()
+    assert (ba.bias_act.launches, ba.bias_act.launches_bwd) == (before[0] + 1, before[1] + 1)
+    yr, br = y.clone().requires_grad_(), bias.clone().requires_grad_()
+    ref = ba.bias_act_reference(yr, br, slope, window)
+    ry, rb = torch.autograd.grad(ref, (yr, br), cot)
+    assert out.shape == ref.shape and torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(_bits(gy), _bits(ry))
+    # The bias gradient sums in another order: within 1e-6 of each channel's
+    # sum of |d|, plus (bf16) one bf16 unit of the result, to which both round.
+    ulp = 0.0 if dtype == torch.float32 else 2.0**-7
+    scale = ry.float().abs().sum((0, 2, 3))
+    assert ((gb.float() - rb.float()).abs() <= 1e-6 * scale + ulp * rb.float().abs()).all()
+
+
+def _grads(out, params, cot):
+    return torch.autograd.grad(out, params, cot)
+
+
+@pytest.mark.parametrize("size", [(16, 20), (15, 21)])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("kernel", [1, 2, 3, 7, (7, 1), (1, 7)])
+def test_same_pad_conv_on_the_card_matches_explicit_pad(cuda, kernel, stride, size):
+    use_exact_precision()
+    torch.manual_seed(0)
+    conv = layers.SamePadConv(8, 16, kernel, stride, layers.LEAKY_SLOPE).to(cuda)
+    x = torch.randn(2, 8, *size, device=cuda, requires_grad=True)
+    params = (x, conv.weight, conv.bias)
+    got = conv(x)
+    want = F.leaky_relu(F.conv2d(layers.pad_same(x, conv.kernel_size, conv.stride),
+                                 conv.weight, conv.bias, conv.stride), 0.1)
+    # cuDNN may sum an implicitly padded input in another order.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    cot = torch.randn_like(want)
+    for g, w in zip(_grads(got, params, cot), _grads(want, params, cot)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("size", [(8, 10), (7, 11)])
+def test_refine_on_the_card_matches_the_cropped_transposed_conv(cuda, size):
+    use_exact_precision()
+    torch.manual_seed(0)
+    m = layers.Refine(16, 8).to(cuda)
+    t = m.conv2d_t
+    x = torch.randn(2, 16, *size, device=cuda, requires_grad=True)
+    params = (x, t.weight, t.bias)
+    got = m(x)
+    want = F.leaky_relu(F.conv_transpose2d(x, t.weight, t.bias, t.stride), 0.1)[:, :, 1:-1, 1:-1]
+    assert got.shape == want.shape == (2, 8, 2 * size[0], 2 * size[1])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    cot = torch.randn_like(want)
+    for g, w in zip(_grads(got, params, cot), _grads(want, params, cot)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
