@@ -13,10 +13,11 @@ ranks every draw is made for the global batch and a rank keeps its rows
 one process's. The entry points ``features``,
 ``cost_volume``, ``mask`` and ``depth`` serve the stage 2-4 protocol
 (``train/monorec_trainer.py``); each of them and ``forward`` is a span of
-``tracing``. ``freeze_module`` ("att", "depth") stops
-the gradient at the output of ``mask`` / ``depth``. The mask augmentation
-(``augmentation: "mask"``) belongs to that trainer: the forward applies no
-augmentation for it, as in the JAX package.
+``tracing``, and under ``simple_mask`` the first depth pass is also the
+span ``depth_prepass`` (its ``depth`` span inside it). ``freeze_module``
+("att", "depth") stops the gradient at the output of ``mask`` / ``depth``.
+The mask augmentation (``augmentation: "mask"``) belongs to that trainer:
+the forward applies no augmentation for it, as in the JAX package.
 
 The variants of the JAX config:
 - ``resnet_layers`` 18, 34, 50, 101 or 152; both U-Nets take the
@@ -72,7 +73,7 @@ from monorec_tpu_torch.ops.cost_volume import (
 from monorec_tpu_torch.ops.cuda import build
 from monorec_tpu_torch.parallel import draw_rows
 from monorec_tpu_torch.precision import torch_dtype, use_exact_precision
-from monorec_tpu_torch.tracing import traced
+from monorec_tpu_torch.tracing import span, traced
 
 Tensor = torch.Tensor
 Batch = Dict[str, Any]
@@ -320,7 +321,7 @@ class MonoRec(nn.Module):
         if cfg.pretrain_mode in (0, 2) and cfg.simple_mask:
             # The mask takes this pass's finest prediction detached, so the
             # pass records no graph.
-            with torch.no_grad():
+            with torch.no_grad(), span("depth_prepass"):
                 pre_preds = self.depth(cv, keyframe, feats)
             cv_mask = self.mask(sfcv, feats, train, dropout_generator, keyframe, pre_preds[0])
         elif cfg.pretrain_mode in (0, 2):

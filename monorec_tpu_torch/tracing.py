@@ -28,6 +28,9 @@ The spans (``PERF.md`` names the metric that reads each):
 ``cost_volume``                ``MonoRec.cost_volume``, ``cost_volume_pair``
 ``features``, ``mask``,        ``MonoRec.features``, ``.mask``, ``.depth``
 ``depth``
+``depth_prepass``              under ``simple_mask``, the first, no-gradient
+                               depth pass of ``MonoRec.forward`` (its
+                               ``depth`` span inside it)
 ``train_step``                 ``Trainer.train_step``
 ``feed``                       ``Trainer._feed``, ``MonoRecTrainer._feed``
 ``loss``                       the trainers' call of ``loss_fn``

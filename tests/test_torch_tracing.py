@@ -167,6 +167,28 @@ def test_forward_gives_one_item_of_its_four_layers():
     assert _off()
 
 
+@pytest.mark.parametrize("layers", [18, 50])
+def test_simple_mask_forward_opens_depth_prepass_around_its_first_depth(layers):
+    """Under ``simple_mask`` the first, no-gradient depth pass is the span
+    ``depth_prepass`` with one ``depth`` inside it; the second ``depth`` is
+    the forward's own. The full MaskModule's forward opens none."""
+    model = MonoRec(MonoRecConfig(cv_depth_steps=D, resnet_layers=layers, simple_mask=True),
+                    generator=torch.Generator().manual_seed(0)).eval()
+    with torch.inference_mode(), tracing.capture(False) as recorder:
+        model(_batch())
+    spans = recorder.collect()["spans"]
+    assert spans["depth_prepass"]["calls"] == [1] and spans["depth"]["calls"] == [2]
+    assert _tree(recorder) == {"forward": ([], 1),
+                               **{name: (["forward"], 1) for name in FORWARD_SPANS - {"depth"}},
+                               "depth_prepass": (["forward"], 1),
+                               "depth": (["depth_prepass", "forward"], 2)}
+    assert 0 <= spans["depth_prepass"]["self_device_ms"][0] < spans["depth_prepass"][
+        "device_ms"][0]
+    with torch.inference_mode(), tracing.capture(False) as recorder:
+        _model()(_batch())
+    assert "depth_prepass" not in recorder.collect()["spans"]
+
+
 def test_stage4_train_step_gives_the_tree(tmp_path):
     trainer = _stage4_trainer(tmp_path)
     with tracing.capture(False) as recorder:
