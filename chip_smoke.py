@@ -9,8 +9,8 @@ checkout, then:
 
 1. device: name, versions, ``nvidia-smi`` name and power limit;
 2. build: compiles ``plane_sweep_sad.cu``, ``grid_warp.cu``,
-   ``photo_error.cu``, ``warp_plane_sweep.cu`` and ``bias_act.cu`` (nvcc,
-   sm_90a), one nvcc each, all started together;
+   ``photo_error.cu``, ``warp_plane_sweep.cu``, ``bias_act.cu`` and
+   ``same_conv.cu`` (nvcc, sm_90a), one nvcc each, all started together;
 3. kernel vs plain: ``plane_sweep_sad`` (K1's raw mode, the TPU kernel's
    contract) against ``plane_sweep_sad_reference`` on the same GPU tensors
    at B=8, F=2, 256x512, D=32, for every use_ssim mode and two motions; then
@@ -31,8 +31,9 @@ checkout, then:
 6. serving: the inference entry point answers requests of 8 keyframes, with
    the kernel and with the plain cost volume, timed with CUDA events; the
    kernel's launch count over the kernel run must be one per request, and
-   the U-Nets' epilogue's (``bias_act``) one per ``SamePadConv`` and
-   ``Refine`` of a forward, 58;
+   the U-Nets' epilogue's (``bias_act``) one per ``Refine`` and per
+   ``SamePadConv`` that ``same_conv.cu`` does not take, 38, and
+   ``same_conv.cu``'s one per other ``SamePadConv``, 20;
 7. loss warp: ``grid_warp`` / ``grid_warp_jac`` / ``grid_warp_grad``
    against their plain versions at N = 4 scales x B=8 x F=2 = 64,
    3x256x512, at the coordinates of a real depth warp (inverse depths with
@@ -296,9 +297,20 @@ checkout, then:
    the plain operations (the gradient of y bit for bit, the bias gradient
    within 1e-6 of the sum of |d| per channel in float32); both timed
    against the plain operations and their byte bound; and the Mask and
-   Depth modules alone at B=8, 256x512: 58 forward launches and 46
-   implicit / 8 explicit same pads a forward, 58 backward launches a
-   backward.
+   Depth modules alone at B=8, 256x512: 38 forward launches (20 more
+   layers run ``same_conv.cu``) and 46 implicit / 8 explicit same pads a
+   forward, 58 backward launches a backward;
+33. the U-Nets' stride-1 convolutions (``ops/same_conv.py``, the port's own
+   kernel): every stride-1 ``SamePadConv`` shape of the three benchmarked
+   configurations (ResNet-18 + MaskModule at 256x512, B=8, F=2; ResNet-50
+   + SimpleMaskModule there; ResNet-18 + MaskModule at 480x640, B=1, F=4)
+   timed at its batch as cuDNN's ``F.conv2d`` + ``bias_act`` (the library
+   path, ``library_ms``), the kernel in the configuration it picks and in
+   each of the others, and its plain version; each shape the kernel is
+   built for held to the plain version at its batch, in every
+   configuration, within a float32 summation bound (its max|diff| beside);
+   the FLOP-weighted rates of both paths over each configuration's
+   stride-1 layers.
 
 Every check that fails raises. The script prints a JSON line of kernel
 records (each with its launches on the main path, its error against its
@@ -341,7 +353,8 @@ LOSS_RTOL = 5e-4  # PARITY.md row 9, full-chain reprojection
 TRAIN_STEPS = 6
 PROFILED_STEPS = 5
 CONV_STEPS = 10  # phase 16, per policy
-SOURCES = ("plane_sweep_sad", "grid_warp", "photo_error", "warp_plane_sweep", "bias_act")
+SOURCES = ("plane_sweep_sad", "grid_warp", "photo_error", "warp_plane_sweep", "bias_act",
+           "same_conv")
 SERVING_CV_TOL = 5e-3  # bf16 sources vs the exact CV (tests/test_pallas_kernel.py:117)
 UNET_REL = 2e-2  # bf16 U-Nets vs float32, mean |diff| / mean |ref| (tests/test_models.py)
 # A per-frame CV with sfcv_mult_mask=False keeps a pixel by warped != 0, an
@@ -910,6 +923,7 @@ def launch_counts() -> dict:
 
 def reset_counts() -> None:
     from monorec_tpu_torch.ops.bias_act import bias_act
+    from monorec_tpu_torch.ops.same_conv import same_conv
 
     for fn in _counted().values():
         fn.launches = 0
@@ -918,20 +932,53 @@ def reset_counts() -> None:
         if hasattr(fn, "launches_by_batch"):
             fn.launches_by_batch.clear()
     bias_act.launches = bias_act.launches_bwd = 0
+    same_conv.launches = same_conv.routed_library = 0
+    same_conv.launches_by_shape.clear()
 
 
 def epilogue_counts() -> dict:
-    """The U-Nets' epilogue's forward and backward launches since
-    ``reset_counts`` (apart from ``launch_counts``: every U-Net forward
-    launches it, so the other kernels' tables leave it out)."""
+    """The U-Nets' epilogue's forward and backward launches and their
+    stride-1 convolution kernel's launches since ``reset_counts`` (apart
+    from ``launch_counts``: every U-Net forward launches them, so the other
+    kernels' tables leave them out)."""
     from monorec_tpu_torch.ops.bias_act import bias_act
+    from monorec_tpu_torch.ops.same_conv import same_conv
 
-    return {"bias_act": bias_act.launches, "bias_act_bwd": bias_act.launches_bwd}
+    return {"bias_act": bias_act.launches, "bias_act_bwd": bias_act.launches_bwd,
+            "same_conv": same_conv.launches}
+
+
+def _routed(m) -> bool:
+    """Whether the ``SamePadConv`` ``m`` runs ``same_conv.cu`` on a float32
+    card input."""
+    import torch
+
+    from monorec_tpu_torch.ops.same_conv import admits
+
+    return admits(torch.float32, m.stride, m.kernel_size, m.in_channels, m.out_channels)
 
 
 def epilogue_layers(module) -> int:
-    """The epilogue's launches in one forward of ``module``: one for each
-    ``SamePadConv`` and ``Refine`` in it."""
+    """The epilogue's forward launches in one float32 forward of ``module``:
+    one for each ``Refine`` and each ``SamePadConv`` that ``same_conv.cu``
+    does not take."""
+    from monorec_tpu_torch.models.layers import Refine, SamePadConv
+
+    return sum(isinstance(m, Refine) or (isinstance(m, SamePadConv) and not _routed(m))
+               for m in module.modules())
+
+
+def same_conv_layers(module) -> int:
+    """``same_conv.cu``'s launches in one float32 forward of ``module``."""
+    from monorec_tpu_torch.models.layers import SamePadConv
+
+    return sum(isinstance(m, SamePadConv) and _routed(m) for m in module.modules())
+
+
+def unet_layers(module) -> int:
+    """The epilogue's backward launches in one backward of ``module``: one
+    for each ``SamePadConv`` and ``Refine`` (the kernel's backward runs the
+    epilogue's too)."""
     from monorec_tpu_torch.models.layers import Refine, SamePadConv
 
     return sum(isinstance(m, (SamePadConv, Refine)) for m in module.modules())
@@ -1889,8 +1936,9 @@ def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_st
     the ``trained`` modules moved and none of the ``fixed`` ones did, and
     the launches: ``per_step`` per train step, and per validation batch the
     same forwards with every K2 launch in values mode and no backward;
-    where ``epilogue`` ({"forward": n, "backward": n} a step) is given, the
-    U-Nets' epilogue's too, counted as ``bias_act`` and ``bias_act_bwd``.
+    where ``epilogue`` ({"forward": n, "backward": n, "same_conv": n} a step)
+    is given, the U-Nets' epilogue's and stride-1 convolutions' too, counted
+    as ``bias_act``, ``bias_act_bwd`` and ``same_conv``.
     Returns the counts, K2's and K3's counts by leading dim, the log lines
     and each step's moving share."""
     import torch
@@ -1934,7 +1982,8 @@ def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_st
         f"other kernel 0)")
     if epilogue is not None:
         want = {"bias_act": epilogue["forward"] * (steps + n_val),
-                "bias_act_bwd": epilogue["backward"] * steps}
+                "bias_act_bwd": epilogue["backward"] * steps,
+                "same_conv": epilogue["same_conv"] * (steps + n_val)}
         log(f"{tag} the U-Nets' epilogue on the main path: {epi} (expected {want})")
         if epi != want:
             raise AssertionError(f"{tag} launched the epilogue {epi}, expected {want}")
@@ -2113,9 +2162,10 @@ def phase_stage4(dev, card: str, run_dir, stage1_checkpoint, stage3_checkpoint):
     # A step's epilogue: the mask, whose output freeze_module "att" detaches,
     # the stereo decode under no_grad and the mono decode, the one the
     # backward reaches; a validation batch the same forwards.
-    depth = epilogue_layers(trainer.model.depth_module)
-    epilogue = {"forward": epilogue_layers(trainer.model.att_module) + 2 * depth,
-                "backward": depth}
+    att, depth = trainer.model.att_module, trainer.model.depth_module
+    epilogue = {"forward": epilogue_layers(att) + 2 * epilogue_layers(depth),
+                "backward": unet_layers(depth),
+                "same_conv": same_conv_layers(att) + 2 * same_conv_layers(depth)}
     counts, by_batch, lines, ratios = refinement_main_path(
         "[19 stage 4]", trainer, ("depth_module.",), ("_feature_extractor.", "att_module."),
         STAGE4_STEP, epilogue)
@@ -5525,13 +5575,15 @@ def bias_act_operands(dev, dtype, shape, window, seed: int):
 
 
 def unet_launches(dev, mask_module, depth_module, h: int, w: int) -> dict:
-    """Forward launches of the epilogue, the same pads by kind, and backward
-    launches, over one Mask + Depth forward at B, F, D and h x w (random
-    inputs), then one backward of its outputs' sum."""
+    """Forward launches of the epilogue and of the stride-1 convolution
+    kernel, the same pads by kind, and backward launches of the epilogue,
+    over one Mask + Depth forward at B, F, D and h x w (random inputs),
+    then one backward of its outputs' sum."""
     import torch
 
     from monorec_tpu_torch.models import layers
     from monorec_tpu_torch.ops.bias_act import bias_act
+    from monorec_tpu_torch.ops.same_conv import same_conv
 
     g = torch.Generator(device=dev).manual_seed(32)
     feats = [torch.randn(B, c, h // s, w // s, generator=g, device=dev)
@@ -5540,10 +5592,11 @@ def unet_launches(dev, mask_module, depth_module, h: int, w: int) -> dict:
     cv = torch.randn(B, D, h, w, generator=g, device=dev)
     key = torch.randn(B, 3, h, w, generator=g, device=dev)
     layers.pad_counts.clear()
-    fwd0, bwd0 = bias_act.launches, bias_act.launches_bwd
+    fwd0, bwd0, sc0 = bias_act.launches, bias_act.launches_bwd, same_conv.launches
     mask = mask_module(sfcv, feats)
     preds = depth_module(cv, key, feats)
-    counts = {"forward": bias_act.launches - fwd0, **layers.pad_counts}
+    counts = {"forward": bias_act.launches - fwd0, "same_conv": same_conv.launches - sc0,
+              **layers.pad_counts}
     (mask.sum() + sum(p.sum() for p in preds)).backward()
     torch.cuda.synchronize()
     counts["backward"] = bias_act.launches_bwd - bwd0
@@ -5633,11 +5686,171 @@ def phase_bias_act(dev, card: str) -> dict:
         mask_module, depth_module = MaskModule(D), DepthModule(D)
     counts = unet_launches(dev, mask_module, depth_module, H, W)
     log(f"{tag} one Mask + Depth forward and backward at B={B}, F={F}, {H}x{W}: {counts}")
-    if counts != {"forward": 58, "implicit": 46, "explicit": 8, "backward": 58}:
+    # 20 of the 46 stride-1 convolutions run same_conv.cu (ops/same_conv.py::
+    # admits), so 38 forward epilogue passes are left: the other 26, the 8
+    # stride-2 convolutions and the 4 Refines. The kernel's backward runs the
+    # epilogue's, so every layer has one.
+    if counts != {"forward": 38, "same_conv": 20, "implicit": 46, "explicit": 8, "backward": 58}:
         raise AssertionError(f"the U-Nets launched the epilogue or padded otherwise: {counts}")
     del mask_module, depth_module
     torch.cuda.empty_cache()
     return record
+
+
+# The benchmarked configurations' U-Nets, for phase 33: (name, B, F, H, W,
+# ResNet layers, simple mask).
+SAME_CONV_CONFIGS = (("monorec-kitti", 8, 2, 256, 512, 18, False),
+                     ("monorec-r50-simple", 8, 2, 256, 512, 50, True),
+                     ("monorec-tmvo", 1, 4, 480, 640, 18, False))
+
+
+def unet_conv_shapes(b: int, f: int, h: int, w: int, resnet_layers: int,
+                     simple: bool) -> dict:
+    """The stride-1 ``SamePadConv`` calls of one inference forward's U-Nets
+    (the simple mask's two decodes included), counted by (N, C_in, H, W,
+    C_out, kh, kw, slope), from a forward on meta tensors."""
+    import torch
+
+    from monorec_tpu_torch.models import layers
+    from monorec_tpu_torch.models.depth_module import DepthModule
+    from monorec_tpu_torch.models.mask_module import MaskModule, SimpleMaskModule
+    from monorec_tpu_torch.models.resnet import encoder_channels
+
+    calls = {}
+    plain = layers.SamePadConv.forward
+
+    def record(conv, x):
+        if tuple(conv.stride) == (1, 1):
+            key = (x.shape[0], conv.in_channels, x.shape[2], x.shape[3], conv.out_channels,
+                   *conv.kernel_size, conv.slope)
+            calls[key] = calls.get(key, 0) + 1
+        return plain(conv, x)
+
+    feat = encoder_channels(resnet_layers)
+    layers.SamePadConv.forward = record
+    try:
+        with torch.device("meta"), torch.inference_mode():
+            depth = DepthModule(D, False, feat)
+            mask = SimpleMaskModule(D, feat) if simple else MaskModule(D, feature_channels=feat)
+            feats = [torch.empty(b, c, h // s, w // s) for c, s in zip(feat, (2, 4, 8, 16, 32))]
+            cv, key, sfcv = (torch.empty(b, D, h, w), torch.empty(b, 3, h, w),
+                             torch.empty(b, f, D, h, w))
+            if simple:
+                mask(sfcv, key, depth(cv, key, feats)[0], feats)
+            else:
+                mask(sfcv, feats)
+            depth(cv, key, feats)
+    finally:
+        layers.SamePadConv.forward = plain
+    return calls
+
+
+def phase_same_conv(dev, card: str) -> dict:
+    """Phase 33: every stride-1 ``SamePadConv`` shape of ``SAME_CONV_CONFIGS``
+    at its batch, timed as cuDNN's ``F.conv2d`` + ``bias_act`` (the
+    library path) and, where the kernel is built for its size, as
+    ``same_conv.cu`` in the configuration it picks and in each of the others
+    and as its plain version, each configuration held to the plain version
+    at the shape's batch. Logs a row a shape and each configuration's
+    FLOP-weighted rates with the kernel where the rule routes to it, and
+    returns the kernel's record at the largest shape it takes, with the
+    largest max|diff| and error over bound of the shapes it takes."""
+    import torch
+    import torch.nn.functional as F
+
+    from monorec_tpu_torch.ops import same_conv as sc
+    from monorec_tpu_torch.ops.bias_act import conv_bias_act
+
+    tag = "[33 same_conv]"
+    shapes = {}
+    for name, b, f, h, w, layers_, simple in SAME_CONV_CONFIGS:
+        for key, count in unet_conv_shapes(b, f, h, w, layers_, simple).items():
+            shapes.setdefault(key, {})[name] = count
+    g = torch.Generator(device=dev).manual_seed(33)
+    rows, worst, worst_abs = [], 0.0, 0.0
+    for key, per_config in shapes.items():
+        n, c_in, h, w, c_out, kh, kw, slope = key
+        top, left = sc.same_pads(kh, kw)
+        bottom, right = kh - 1 - top, kw - 1 - left
+        x = torch.randn(n, c_in, h, w, generator=g, device=dev)
+        # He-uniform weights, as the benchmark seeds them, and small biases.
+        limit = math.sqrt(6 / (c_in * kh * kw))
+        wt = (torch.rand(c_out, c_in, kh, kw, generator=g, device=dev) * 2 - 1) * limit
+        bias = 0.1 * torch.randn(c_out, generator=g, device=dev)
+        flops = 2 * n * h * w * c_out * c_in * kh * kw
+        reps = max(3, min(50, int(0.02 * 30e12 / flops)))
+        routed = sc.admits(torch.float32, (1, 1), (kh, kw), c_in, c_out)
+        row = {"shape": [n, c_in, h, w, c_out, kh, kw], "slope": slope, "calls": per_config,
+               "flops": flops, "routed": routed}
+        library = lambda: conv_bias_act(F.conv2d, x, wt, bias, slope,  # noqa: E731
+                                        (bottom - top, right - left), padding=(bottom, right))
+        if (kh, kw) not in sc.KERNELS:
+            row["library_ms"] = cuda_ms(library, reps)
+        else:
+            want = sc.same_conv_reference(x, wt, bias, slope, (top, left))
+            scale = sc.same_conv_reference(x.abs(), wt.abs(), bias.abs(), 1.0, (top, left))
+            # Two float32 sums of K = C_in kh kw + 1 terms each: within 2 K u
+            # of the sum of the terms' magnitudes.
+            tol = 2 * (c_in * kh * kw + 1) * 2.0**-24
+            errs, abs_errs = [], []
+            for i in range(len(sc.CONFIGS)):
+                got = sc.same_conv_fwd(x, wt, bias, slope, (top, left), config=i)
+                diff = (got - want).abs()
+                abs_errs.append(diff.max().item())
+                errs.append((diff / scale.clamp_min(1e-30)).max().item())
+                del got, diff
+            torch.cuda.synchronize()
+            row["max_abs_err"] = max(abs_errs)
+            row["max_err_over_bound"] = max(errs) / tol
+            if routed:
+                worst = max(worst, row["max_err_over_bound"])
+                worst_abs = max(worst_abs, row["max_abs_err"])
+            if not all(e <= tol for e in errs):
+                raise AssertionError(f"{tag} {key}: the kernel is off its plain version by "
+                                     f"{errs} of the terms' magnitudes (bound {tol:.3e})")
+            del want, scale
+            k_ms, p_ms, l_ms, _, _ = in_turns(
+                lambda: sc.same_conv_fwd(x, wt, bias, slope, (top, left)),
+                lambda: sc.same_conv_reference(x, wt, bias, slope, (top, left)), reps, 2,
+                library)
+            row.update(config=sc.plan(n, h, w, c_out, (kh, kw),
+                                      *sc._occupancy(dev.index, kh, kw)),
+                       ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                       config_ms=[cuda_ms(lambda: sc.same_conv_fwd(
+                           x, wt, bias, slope, (top, left), config=i), reps)
+                           for i in range(len(sc.CONFIGS))])
+        row["library_pct"] = 100 * flops / FP32_FLOPS_PER_S / (row["library_ms"] * 1e-3)
+        if "ms" in row:
+            row["pct"] = 100 * flops / FP32_FLOPS_PER_S / (row["ms"] * 1e-3)
+        rows.append(row)
+        log(f"{tag} {key[:7]} slope {slope} x{per_config}: {flops / 1e9:.2f} GFLOP; library "
+            f"{row['library_ms']:.4f} ms ({row['library_pct']:.1f}%)"
+            + (f"; kernel {row['ms']:.4f} ms ({row['pct']:.1f}%, config {row['config']}; "
+               f"configs {', '.join(f'{t:.4f}' for t in row['config_ms'])}); plain "
+               f"{row['plain_ms']:.3f} ms; max|diff| {row['max_abs_err']:.3e}, "
+               f"{row['max_err_over_bound']:.2e} of its bound"
+               if "ms" in row else "")
+            + ("" if routed else "; left to the library"))
+        del x, wt, bias
+    torch.cuda.empty_cache()
+
+    for name, *_ in SAME_CONV_CONFIGS:
+        mine = [(r, r["calls"][name]) for r in rows if name in r["calls"]]
+        flops = sum(r["flops"] * c for r, c in mine)
+        lib = sum(r["library_ms"] * c for r, c in mine)
+        new = sum((r["ms"] if r["routed"] else r["library_ms"]) * c for r, c in mine)
+        pct = lambda ms: 100 * flops / FP32_FLOPS_PER_S / (ms * 1e-3)  # noqa: E731
+        log(f"{tag} {name}: {sum(c for _, c in mine)} stride-1 calls a forward, "
+            f"{sum(c for r, c in mine if r['routed'])} to the kernel, {flops / 1e9:.1f} GFLOP; "
+            f"library path {lib:.3f} ms ({pct(lib):.1f}% of the f32 peak, FLOP-weighted), with "
+            f"the kernel {new:.3f} ms ({pct(new):.1f}%) on {card}")
+    big = max((r for r in rows if r["routed"]), key=lambda r: r["flops"])
+    n, c_in, h, w, c_out, kh, kw = big["shape"]
+    return {"max_abs_err": worst_abs, "max_err_over_bound": worst, "ms": big["ms"],
+            "plain_ms": big["plain_ms"], "library_ms": big["library_ms"],
+            "shape": big["shape"],
+            **bound(4 * (n * c_in * h * w + n * c_out * h * w + c_out * c_in * kh * kw + c_out),
+                    big["flops"])}
 
 
 def main() -> int:
@@ -5796,11 +6009,12 @@ def main() -> int:
     if serve_counts != only(plane_sweep_cost_volume=n_req):
         raise AssertionError(f"the served forwards launched {serve_counts}, expected "
                              f"plane_sweep_cost_volume {n_req} times")
-    unet_layers = epilogue_layers(model.att_module) + epilogue_layers(model.depth_module)
-    want = {"bias_act": n_req * unet_layers, "bias_act_bwd": 0}
-    log(f"[6 serving] the U-Nets' epilogue on the main path: {serve_epilogue} (expected {want}: "
-        f"{unet_layers} a forward)")
-    if unet_layers != 58 or serve_epilogue != want:
+    epi_layers = epilogue_layers(model.att_module) + epilogue_layers(model.depth_module)
+    conv_layers = same_conv_layers(model.att_module) + same_conv_layers(model.depth_module)
+    want = {"bias_act": n_req * epi_layers, "bias_act_bwd": 0, "same_conv": n_req * conv_layers}
+    log(f"[6 serving] the U-Nets' epilogue and stride-1 kernel on the main path: "
+        f"{serve_epilogue} (expected {want}: {epi_layers} and {conv_layers} a forward)")
+    if (epi_layers, conv_layers) != (38, 20) or serve_epilogue != want:
         raise AssertionError(f"the served forwards launched the epilogue {serve_epilogue}, "
                              f"expected {want}")
     for out in outs:
@@ -5984,6 +6198,11 @@ def main() -> int:
         records["bias_act"] = phase_bias_act(dev, card)
         torch.cuda.empty_cache()
         stamp("32")
+
+        # ---- 33. the U-Nets' stride-1 convolutions --------------------------
+        records["same_conv"] = phase_same_conv(dev, card)
+        torch.cuda.empty_cache()
+        stamp("33")
     records["grid_warp_crop_c32"]["launches"] = stage2_counts["grid_warp"]
     records["plane_sweep_cost_volume"]["stage2_launches"] = stage2_counts["plane_sweep_cost_volume"]
     for k in ("plane_sweep_cost_volume", "grid_warp", "grid_warp_jac", "photo_error_fwd",
@@ -5991,6 +6210,8 @@ def main() -> int:
         records[k]["stage3_launches"] = stage3_counts[k]
         records[k]["stage4_launches"] = stage4_counts[k]
     records.update(stage4_records)
+    records["same_conv"].update(launches=serve_epilogue["same_conv"],
+                                stage4_launches=stage4_counts["same_conv"])
     records["bias_act"].update(launches=serve_epilogue["bias_act"],
                                stage4_launches=stage4_counts["bias_act"],
                                stage4_backward_launches=stage4_counts["bias_act_bwd"])
@@ -6029,6 +6250,7 @@ def main() -> int:
         "warp_plane_sweep_bf16": ("warp_plane_sweep.cu",
                                   "monorec_tpu/ops/pallas/warp_kernel.py:291"),
         "bias_act": ("bias_act.cu", None),
+        "same_conv": ("same_conv.cu", None),
     }
     log(json.dumps({"kernels": [{
         "name": k,
@@ -6051,7 +6273,8 @@ def main() -> int:
                                       "second_launch_bound_ms", "stage4_backward_launches",
                                       "bwd_ms",
                                       "bwd_plain_ms", "bwd_bound_ms", "bias_grad_rel_err",
-                                      "bf16_ms", "bf16_plain_ms", "bf16_bound_ms")
+                                      "bf16_ms", "bf16_plain_ms", "bf16_bound_ms",
+                                      "max_err_over_bound", "shape")
            if f in records[k]},
         "ms": records[k]["ms"],
         "plain_ms": records[k]["plain_ms"],

@@ -10,18 +10,24 @@ float32 under the bf16 policy and float32 inputs run unchanged. Attribute names 
 ``conv2d_t``) are the reference's, so ``state_dict`` keys coincide with
 reference checkpoints.
 
-On the card a convolution makes one pass of its output beyond its own
-work. Its same pad is the convolution's own zero padding wherever that pad
-is symmetric (stride 1 with an odd kernel, or any stride where the size
-makes it so), and at stride 1 with a pad one larger behind (the k=2
-``Upconv``), whose extra leading output row or column is dropped: no
-padded copy of the input is made. Only an asymmetric pad at a larger stride (the depth encoder's
+On the card a float32 stride-1 ``SamePadConv`` whose kernel size and
+channels ``ops/same_conv.py::takes`` admits (the narrow ones: 20 of the
+46 stride-1 layers of a Mask + Depth forward) is one launch of the port's
+own convolution kernel, which reads its same pad as zeros, adds the bias
+and applies the LeakyReLU in its store. Every other convolution makes
+one pass of its output beyond its own work: its same pad is the
+convolution's own zero padding wherever that pad is symmetric (stride 1
+with an odd kernel, or any stride where the size makes it so), and at
+stride 1 with a pad one larger behind (the k=2 ``Upconv``), whose extra
+leading output row or column is dropped: no padded copy of the input is
+made. Only an asymmetric pad at a larger stride (the depth encoder's
 stride-2 convolutions) is padded explicitly. ``pad_counts`` counts the
-two ways by ``"implicit"`` and ``"explicit"``. ``Refine``'s crop is its
-transposed convolution's padding of 1. On the card the convolution runs
-without its bias, and ``ops/bias_act.py`` adds the bias and applies the
-LeakyReLU (or nothing) in one pass over the kept output
-(``conv_bias_act``).
+two ways by ``"implicit"`` (the kernel's pads among them) and
+``"explicit"``. ``Refine``'s crop is its transposed convolution's padding
+of 1. Those convolutions (cuDNN) run without their bias on the card, and
+``ops/bias_act.py`` adds the bias and applies the LeakyReLU (or nothing)
+in one pass over the kept output (``conv_bias_act``). bf16 inputs (the
+serving policy) take that path at every stride.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from monorec_tpu_torch.ops.bias_act import conv_bias_act
+from monorec_tpu_torch.ops.same_conv import same_conv, takes
 
 Tensor = torch.Tensor
 IntPair = Union[int, Tuple[int, int]]
@@ -79,6 +86,9 @@ class SamePadConv(nn.Conv2d):
         h, w = x.shape[-2:]
         (top, bottom), (left, right) = same_pad_amounts(h, kh, sh), same_pad_amounts(w, kw, sw)
         weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if takes(x, self):
+            pad_counts["implicit"] += 1
+            return same_conv(x, weight, bias, self.slope, (top, left))
         if min(top, left) >= 0 and (top == bottom or sh == 1) and (left == right or sw == 1):
             # Pad the larger side on both: at stride 1, output j + (bottom -
             # top) of that convolution is output j of the asymmetric one, so

@@ -204,7 +204,7 @@ class MonoRec(nn.Module):
         if device is not None and torch.device(device).type == "cuda":
             # The forward's kernels compile side by side while the weights
             # load, not one after the other at their first launches.
-            build.start("bias_act", *(() if cfg.no_cv else ("plane_sweep_sad",)))
+            build.start("same_conv", "bias_act", *(() if cfg.no_cv else ("plane_sweep_sad",)))
         self.to(device)
 
     @traced("cost_volume")

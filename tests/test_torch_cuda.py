@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
 from monorec_tpu_torch.models import layers
 from monorec_tpu_torch.ops import bias_act as ba
+from monorec_tpu_torch.ops import same_conv as sc
 from monorec_tpu_torch.ops import grid_warp as gw
 from monorec_tpu_torch.ops import photo_error as pe
 from monorec_tpu_torch.ops import plane_sweep, warp_sweep
@@ -346,3 +347,118 @@ def test_refine_on_the_card_matches_the_cropped_transposed_conv(cuda, size):
     cot = torch.randn_like(want)
     for g, w in zip(_grads(got, params, cot), _grads(want, params, cot)):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+# Every shape the stride-1 kernel takes in the three benchmarked
+# configurations, at full widths and one or two images: (N, C_in, H, W,
+# C_out, kh, kw, slope).
+SAME_CONV_ROUTED = [
+    (2, 32, 128, 256, 48, 3, 3, 0.1), (2, 32, 240, 320, 48, 3, 3, 0.1),
+    (1, 32, 256, 512, 24, 3, 3, 0.1), (1, 32, 256, 512, 32, 1, 3, 0.1),
+    (1, 32, 256, 512, 32, 3, 3, 0.1), (1, 32, 480, 640, 24, 3, 3, 0.1),
+    (1, 32, 480, 640, 32, 1, 3, 0.1), (1, 32, 480, 640, 32, 3, 3, 0.1),
+    (1, 35, 256, 512, 48, 7, 1, 0.1), (1, 35, 480, 640, 48, 7, 1, 0.1),
+    (2, 36, 128, 256, 48, 3, 3, 0.1), (1, 36, 256, 512, 36, 3, 3, 0.1),
+    (2, 48, 64, 128, 64, 3, 3, 0.1), (2, 48, 120, 160, 64, 3, 3, 0.1),
+    (2, 48, 128, 256, 48, 3, 3, 0.1), (2, 48, 240, 320, 48, 3, 3, 0.1),
+    (1, 48, 256, 512, 48, 1, 3, 0.1), (1, 48, 256, 512, 48, 1, 7, 0.1),
+    (1, 48, 256, 512, 48, 3, 1, 0.1), (1, 48, 256, 512, 48, 3, 3, 0.1),
+    (1, 48, 480, 640, 48, 1, 3, 0.1), (1, 48, 480, 640, 48, 1, 7, 0.1),
+    (1, 48, 480, 640, 48, 3, 1, 0.1), (1, 48, 480, 640, 48, 3, 3, 0.1),
+    (1, 64, 256, 512, 64, 2, 2, 1.0), (1, 64, 480, 640, 64, 2, 2, 1.0),
+    (2, 96, 64, 128, 96, 2, 2, 1.0), (2, 96, 120, 160, 96, 2, 2, 1.0),
+    (2, 96, 128, 256, 96, 2, 2, 1.0), (2, 96, 240, 320, 96, 2, 2, 1.0),
+    (1, 96, 256, 512, 32, 3, 1, 0.1), (1, 96, 256, 512, 48, 3, 3, 0.1),
+    (1, 96, 480, 640, 32, 3, 1, 0.1), (1, 96, 480, 640, 48, 3, 3, 0.1),
+    (1, 100, 256, 512, 48, 3, 3, 0.1), (1, 24, 256, 512, 1, 3, 3, 1.0),
+    (2, 64, 128, 256, 1, 3, 3, 1.0), (2, 128, 64, 128, 1, 3, 3, 1.0),
+    (1, 24, 480, 640, 1, 3, 3, 1.0), (2, 64, 240, 320, 1, 3, 3, 1.0),
+    (2, 128, 120, 160, 1, 3, 3, 1.0),
+]
+
+
+def _same_conv_operands(device, n, c_in, h, w, c_out, kh, kw, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, c_in, h, w, generator=g, device=device)
+    wt = (torch.rand(c_out, c_in, kh, kw, generator=g, device=device) * 2 - 1) * (
+        6 / (c_in * kh * kw)) ** 0.5
+    return x, wt, 0.1 * torch.randn(c_out, generator=g, device=device)
+
+
+def _assert_within_summation_bound(got, x, wt, bias, slope, pad):
+    # Two float32 sums of K = C_in kh kw + 1 terms in other orders: within
+    # 2 K u of the sum of the terms' magnitudes.
+    want = sc.same_conv_reference(x, wt, bias, slope, pad)
+    scale = sc.same_conv_reference(x.abs(), wt.abs(), bias.abs(), 1.0, pad)
+    k = wt[0].numel() + 1
+    assert got.shape == want.shape
+    assert ((got - want).abs() <= 2 * k * 2.0**-24 * scale).all()
+
+
+@pytest.mark.parametrize("shape", SAME_CONV_ROUTED, ids=str)
+def test_same_conv_kernel_matches_plain_version_at_the_routed_shapes(cuda, shape):
+    n, c_in, h, w, c_out, kh, kw, slope = shape
+    assert sc.admits(torch.float32, (1, 1), (kh, kw), c_in, c_out)
+    x, wt, bias = _same_conv_operands(cuda, n, c_in, h, w, c_out, kh, kw)
+    pad = sc.same_pads(kh, kw)
+    before = sc.same_conv.launches
+    got = sc.same_conv_fwd(x, wt, bias, slope, pad)
+    torch.cuda.synchronize()
+    assert sc.same_conv.launches == before + 1
+    _assert_within_summation_bound(got, x, wt, bias, slope, pad)
+
+
+@pytest.mark.parametrize("config", range(len(sc.CONFIGS)))
+@pytest.mark.parametrize("size", [(21, 45), (3, 70), (33, 31)])  # ragged tiles
+@pytest.mark.parametrize("kernel", sc.KERNELS, ids=str)
+def test_same_conv_kernel_on_ragged_planes_and_channels(cuda, kernel, size, config):
+    # 13 input channels (a ragged last chunk), 36 output channels (a ragged
+    # channel block in every configuration).
+    kh, kw = kernel
+    x, wt, bias = _same_conv_operands(cuda, 2, 13, *size, 36, kh, kw, seed=1)
+    x[:, :, 1, :] = 0.0  # whole rows of zeros: pre-activations of exactly the bias
+    pad = sc.same_pads(kh, kw)
+    for slope in (0.1, 1.0):
+        got = sc.same_conv_fwd(x, wt, bias, slope, pad, config=config)
+        torch.cuda.synchronize()
+        _assert_within_summation_bound(got, x, wt, bias, slope, pad)
+
+
+@pytest.mark.parametrize("slope", [0.1, 1.0])
+@pytest.mark.parametrize("kernel", [(3, 3), (2, 2), (7, 1), (1, 7), (1, 3)], ids=str)
+def test_same_conv_function_gradients_match_the_cudnn_path(cuda, kernel, slope):
+    use_exact_precision()
+    kh, kw = kernel
+    x, wt, bias = _same_conv_operands(cuda, 2, 24, 33, 70, 48, kh, kw, seed=2)
+    top, left = sc.same_pads(kh, kw)
+    bottom, right = kh - 1 - top, kw - 1 - left
+    params_k = [t.clone().requires_grad_() for t in (x, wt, bias)]
+    params_l = [t.clone().requires_grad_() for t in (x, wt, bias)]
+    before = (sc.same_conv.launches, ba.bias_act.launches_bwd)
+    got = sc.same_conv(*params_k, slope, (top, left))
+    # Today's cuDNN path: the convolution padded (bottom, right) on both
+    # sides without its bias, then bias_act over the kept window.
+    want = ba.conv_bias_act(F.conv2d, *params_l, slope, (bottom - top, right - left),
+                            padding=(bottom, right))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    cot = torch.randn_like(want)
+    for a, b in zip(torch.autograd.grad(got, params_k, cot),
+                    torch.autograd.grad(want, params_l, cot)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    torch.cuda.synchronize()
+    assert (sc.same_conv.launches, ba.bias_act.launches_bwd) == (before[0] + 1, before[1] + 2)
+
+
+def test_same_pad_conv_on_the_card_routes_by_the_rule(cuda):
+    use_exact_precision()
+    torch.manual_seed(0)
+    x = torch.randn(2, 64, 16, 20, device=cuda)
+    routed = layers.SamePadConv(64, 48, 3, 1, layers.LEAKY_SLOPE).to(cuda)
+    wide = layers.SamePadConv(64, 64, 3, 1, layers.LEAKY_SLOPE).to(cuda)
+    before = (sc.same_conv.launches, sc.same_conv.routed_library, ba.bias_act.launches)
+    with torch.no_grad():
+        routed(x), wide(x), wide(x.bfloat16()), routed(x.bfloat16())
+    torch.cuda.synchronize()
+    # One kernel launch; one float32 call left to cuDNN; three epilogues.
+    assert (sc.same_conv.launches, sc.same_conv.routed_library, ba.bias_act.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 3)
