@@ -28,9 +28,9 @@ checkout, then:
    into K1's launches, the other kernels and the device's idle rest;
 5. forward parity: the whole MonoRec forward with seeded weights, GPU
    (kernel) against CPU (plain versions), at B=1;
-6. serving: the inference entry point answers requests of 8 keyframes, with
-   the kernel and with the plain cost volume, timed with CUDA events; the
-   kernel's launch count over the kernel run must be one per request, and
+6. serving: the inference entry point answers requests of 8 keyframes
+   with finite positive depth; the kernel's launch count must be one per
+   request, and
    the U-Nets' epilogue's (``bias_act``) one per ``Refine`` and per
    ``SamePadConv`` that ``same_conv.cu`` does not take, 38, and
    ``same_conv.cu``'s one per other ``SamePadConv``, 20;
@@ -898,54 +898,27 @@ def phase_loss(dev, card: str) -> None:
         raise AssertionError("depth_loss with the kernels disagrees with its plain versions")
 
 
-def _counted() -> dict:
-    """Each kernel wrapper by name; each counts its launches on float32
-    sources in ``.launches`` and, where it takes bf16, in ``.launches_bf16``."""
-    from monorec_tpu_torch.ops import grid_warp, photo_error, plane_sweep, warp_sweep
-
-    return {"plane_sweep_sad": plane_sweep.plane_sweep_sad,
-            "plane_sweep_cost_volume": plane_sweep.plane_sweep_cost_volume,
-            "grid_warp": grid_warp.grid_warp,
-            "grid_warp_jac": grid_warp.grid_warp_jac, "grid_warp_grad": grid_warp.grid_warp_grad,
-            "warp_plane_sweep": warp_sweep.warp_plane_sweep,
-            "photo_error_fwd": photo_error.photo_error_fwd,
-            "photo_error_bwd": photo_error.photo_error_bwd}
+# The U-Nets' ops: every U-Net forward launches them, so the other kernels'
+# tables (``launch_counts``) leave them out.
+UNET_OPS = ("bias_act.", "same_conv.")
 
 
 def launch_counts() -> dict:
-    counts = {}
-    for name, fn in _counted().items():
-        counts[name] = fn.launches
-        if hasattr(fn, "launches_bf16"):
-            counts[name + "_bf16"] = fn.launches_bf16
-    return counts
+    """Every other kernel op's launches since ``launch.reset()``: ``<op>`` on
+    float32 sources, ``<op>_bf16`` on bf16 ones."""
+    from monorec_tpu_torch.ops.cuda import launch
 
-
-def reset_counts() -> None:
-    from monorec_tpu_torch.ops.bias_act import bias_act
-    from monorec_tpu_torch.ops.same_conv import same_conv
-
-    for fn in _counted().values():
-        fn.launches = 0
-        if hasattr(fn, "launches_bf16"):
-            fn.launches_bf16 = 0
-        if hasattr(fn, "launches_by_batch"):
-            fn.launches_by_batch.clear()
-    bias_act.launches = bias_act.launches_bwd = 0
-    same_conv.launches = same_conv.routed_library = 0
-    same_conv.launches_by_shape.clear()
+    return {name.replace(".launches", ""): n for name, n in launch.counts().items()
+            if name.endswith((".launches", ".launches_bf16")) and not name.startswith(UNET_OPS)}
 
 
 def epilogue_counts() -> dict:
     """The U-Nets' epilogue's forward and backward launches and their
-    stride-1 convolution kernel's launches since ``reset_counts`` (apart
-    from ``launch_counts``: every U-Net forward launches them, so the other
-    kernels' tables leave them out)."""
-    from monorec_tpu_torch.ops.bias_act import bias_act
-    from monorec_tpu_torch.ops.same_conv import same_conv
+    stride-1 convolution kernel's launches since ``launch.reset()``."""
+    from monorec_tpu_torch.ops.cuda import launch
 
-    return {"bias_act": bias_act.launches, "bias_act_bwd": bias_act.launches_bwd,
-            "same_conv": same_conv.launches}
+    return {name.replace(".launches", ""): n for name, n in launch.counts().items()
+            if name.endswith((".launches", ".launches_bwd")) and name.startswith(UNET_OPS)}
 
 
 def _routed(m) -> bool:
@@ -986,8 +959,10 @@ def unet_layers(module) -> int:
 
 def launches_by_batch() -> dict:
     """K2's and K3's float32 launches by their leading dim (N or M)."""
-    return {name: dict(fn.launches_by_batch) for name, fn in _counted().items()
-            if hasattr(fn, "launches_by_batch")}
+    from monorec_tpu_torch.ops.cuda import launch
+
+    return {name.removesuffix(".launches_by_batch"): n for name, n in launch.counts().items()
+            if name.endswith(".launches_by_batch")}
 
 
 def only(**nonzero) -> dict:
@@ -1033,11 +1008,13 @@ def train_main_path(trainer, tag: str, bf: str) -> dict:
     names the kernels of the policy's dtype. Returns the launch counts."""
     import torch
 
+    from monorec_tpu_torch.ops.cuda import launch
+
     model = trainer.model
     depth0 = {k: p.detach().clone() for k, p in model.depth_module.named_parameters()}
     enc0 = {k: p.detach().clone() for k, p in model._feature_extractor.named_parameters()}
     n_val = len(trainer.valid_data_loader)
-    reset_counts()
+    launch.reset()
     log_ = trainer.train()  # the main path
     counts = launch_counts()
     expected = only(**{"plane_sweep_cost_volume" + bf: TRAIN_STEPS + n_val,
@@ -1274,11 +1251,10 @@ def phase_sweep_bf16(dev, card: str) -> dict:
         images, keyframes, homs = sweep_batch(dev, tz)
         src = images.to(torch.bfloat16)
         for mode in MODES:
-            sad, wmask, cov = plane_sweep.plane_sweep_sad(src, keyframes, homs, 2, F, mode)
-            sad32, wmask32, _ = plane_sweep.plane_sweep_sad(src.float(), keyframes, homs, 2, F,
-                                                             mode)
+            sad, wmask = plane_sweep.plane_sweep_sad(src, keyframes, homs, 2, F, mode)
+            sad32, wmask32 = plane_sweep.plane_sweep_sad(src.float(), keyframes, homs, 2, F, mode)
             torch.cuda.synchronize()
-            rsad, rwmask, _ = plane_sweep.plane_sweep_sad_reference(src, keyframes, homs, 2, F,
+            rsad, rwmask = plane_sweep.plane_sweep_sad_reference(src, keyframes, homs, 2, F,
                                                                     mode)
             err = (sad - rsad).abs().max().item()
             vs_f32 = max((sad - sad32).abs().max().item(), (wmask - wmask32).abs().max().item())
@@ -1286,8 +1262,7 @@ def phase_sweep_bf16(dev, card: str) -> dict:
             log(f"[11 kernel, bf16 sources] tz={tz} use_ssim={mode}: max|sad diff| vs plain "
                 f"{err:.3e}; vs the float32 kernel on the same values {vs_f32:.3e}; wmask!=0 "
                 f"mismatches {mism}")
-            if not (torch.isfinite(sad).all() and err <= SAD_TOL and mism == 0
-                    and (cov == 0).all()):
+            if not (torch.isfinite(sad).all() and err <= SAD_TOL and mism == 0):
                 raise AssertionError(f"plane_sweep_sad on bf16 sources disagrees with its plain "
                                      f"version (tz={tz}, use_ssim={mode})")
             max_err, max_vs_f32 = max(max_err, err), max(max_vs_f32, vs_f32)
@@ -1309,11 +1284,11 @@ def phase_sweep_bf16(dev, card: str) -> dict:
 
 
 def k1_raw_bound(images, keyframes, homs) -> dict:
-    """K1's raw mode: sources, keyframes and homographies in; sad, wmask
-    (N, D, H, W) and coverage (N, D) out."""
+    """K1's raw mode: sources, keyframes and homographies in; sad and wmask
+    (N, D, H, W) out."""
     n, _, h, w = images.shape
     d = homs.shape[1]
-    return bound(nbytes(images, keyframes, homs) + (2 * h * w + 1) * n * d * 4,
+    return bound(nbytes(images, keyframes, homs) + 2 * h * w * n * d * 4,
                  K1_FLOPS * n * d * h * w)
 
 
@@ -1428,11 +1403,9 @@ def warp_sweep_planar(src, homs):
     d = homs.shape[1]
     warped = torch.empty(n, d, c, h, w, dtype=src.dtype, device=src.device)
     wmask = torch.empty(n, d, h, w, dtype=torch.float32, device=src.device)
-    code = warp_sweep._library().warp_plane_sweep_launch(
-        src.data_ptr(), homs.data_ptr(), None, warped.data_ptr(), wmask.data_ptr(), n, c, d, h, w,
-        2, int(src.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"warp_plane_sweep (planar) launch failed ({code})")
+    warp_sweep._LAUNCH.launch("warp_plane_sweep (planar)", src.device, src.data_ptr(),
+                              homs.data_ptr(), None, warped.data_ptr(), wmask.data_ptr(), n, c, d,
+                              h, w, 2, int(src.dtype == torch.bfloat16))
     return warped, wmask
 
 
@@ -1445,14 +1418,15 @@ def phase_warp_sweep(dev, card: str) -> dict:
     from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
     from monorec_tpu_torch.ops import plane_sweep, warp_sweep
     from monorec_tpu_torch.ops.cost_volume import CostVolumeConfig, compute_cost_volume
+    from monorec_tpu_torch.ops.cuda import launch
 
     images, _, homs = sweep_batch(dev, 0.5)
     records = {}
     for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         src = images.to(dtype)
-        warped, wmask, cov = warp_sweep.warp_plane_sweep(src, homs, 2)
+        warped, wmask = warp_sweep.warp_plane_sweep(src, homs, 2)
         torch.cuda.synchronize()
-        rwarped, rwmask, _ = warp_sweep.warp_plane_sweep_reference(src, homs, 2)
+        rwarped, rwmask = warp_sweep.warp_plane_sweep_reference(src, homs, 2)
         err = (warped.float() - rwarped.float()).abs().max().item()
         unequal = (warped != rwarped).sum().item()
         zeros = ((warped == 0) != (rwarped == 0)).sum().item()
@@ -1467,8 +1441,7 @@ def phase_warp_sweep(dev, card: str) -> dict:
             f"max|diff| {m_err:.3e}, wmask!=0 mismatches {mism}; planar gathers equal to the "
             f"packed texels' {layouts_equal}")
         if not (warped.dtype == dtype and torch.isfinite(warped).all() and unequal == 0
-                and m_err == 0 and zeros == 0 and mism == 0 and layouts_equal
-                and (cov == 0).all()):
+                and m_err == 0 and zeros == 0 and mism == 0 and layouts_equal):
             raise AssertionError(f"warp_plane_sweep ({name}) disagrees with its plain version")
         del warped, wmask, rwarped, rwmask, pwarped, pwmask
         # The two gather layouts at C = 3, in turns: the wrapper's packed
@@ -1515,7 +1488,7 @@ def phase_warp_sweep(dev, card: str) -> dict:
                             "frames", "intrinsics", "poses")]
     for name in ("float32", "bfloat16"):
         cfg = CostVolumeConfig(depth_steps=D, sfcv_mult_mask=False, warp_dtype=name)
-        reset_counts()
+        launch.reset()
         fused, sfcv = compute_cost_volume(*args, 0.0025, 0.33, cfg)  # the K4 path
         counts = launch_counts()
         bf = "_bf16" if name == "bfloat16" else ""
@@ -1604,6 +1577,7 @@ def phase_serving_forward(dev, card: str, requests) -> dict:
     import torch
 
     from monorec_tpu_torch.cli.inference_example import build_model, model_config, serve
+    from monorec_tpu_torch.ops.cuda import launch
     from monorec_tpu_torch.precision import set_precision
 
     set_precision("exact", expect_rebuild=True)
@@ -1614,7 +1588,7 @@ def phase_serving_forward(dev, card: str, requests) -> dict:
         raise AssertionError(f"--precision serving built {model.config}")
     serve(model, requests[:1])
     serve(exact, requests[:1])
-    reset_counts()
+    launch.reset()
     outs, s1 = serve(model, requests)  # the main path
     counts = launch_counts()
     ref, e1 = serve(exact, requests)
@@ -1693,8 +1667,7 @@ def stage2_split(trainer, batches, alpha, n_steps: int):
         torch.cuda.synchronize()
         ev[0].record()
         with torch.no_grad():
-            cv, sfcv, _ = model.cost_volume(batch, return_coverage=True, use_mono=True,
-                                            use_stereo=False)
+            cv, sfcv = model.cost_volume(batch, use_mono=True, use_stereo=False)
         ev[1].record()
         params = sample_mask_aug_params(trainer.generator, B, H, W).to(cv.device)
         crop = {k: apply_mask_aug(batch[k], params) for k in ("keyframe", "stereoframe",
@@ -1778,6 +1751,7 @@ def phase_stage2(dev, card: str, run_dir, stage1_checkpoint):
 
     from monorec_tpu_torch import config as config_mod
     from monorec_tpu_torch.models import MonoRec
+    from monorec_tpu_torch.ops.cuda import launch
     from monorec_tpu_torch.train.checkpoints import load_checkpoint, load_stage_checkpoints
 
     trainer = stage2_trainer(dev, run_dir)
@@ -1785,7 +1759,7 @@ def phase_stage2(dev, card: str, run_dir, stage1_checkpoint):
     att0 = {k: p.detach().clone() for k, p in model.att_module.named_parameters()}
     enc0 = {k: p.detach().clone() for k, p in model._feature_extractor.named_parameters()}
     n_val = len(trainer.valid_data_loader)
-    reset_counts()
+    launch.reset()
     log_ = trainer.train()  # the main path
     counts = launch_counts()
     expected = only(plane_sweep_cost_volume=TRAIN_STEPS + n_val,
@@ -1943,6 +1917,8 @@ def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_st
     and each step's moving share."""
     import torch
 
+    from monorec_tpu_torch.ops.cuda import launch
+
     model = trainer.model
     steps = trainer.len_epoch
     start = {k: p.detach().clone() for k, p in model.named_parameters()}
@@ -1956,7 +1932,7 @@ def refinement_main_path(tag: str, trainer, trained: tuple, fixed: tuple, per_st
         return stage_loss(data, *args)
 
     trainer.loss_fn = loss_fn
-    reset_counts()
+    launch.reset()
     log_ = trainer.train()  # the main path
     counts, by_batch, epi = launch_counts(), launches_by_batch(), epilogue_counts()
     trainer.loss_fn = stage_loss
@@ -2416,6 +2392,7 @@ def phase_evaluate(dev, card: str, work, checkpoint) -> dict:
     from monorec_tpu_torch.data.resize import crop_resize_bilinear
     from monorec_tpu_torch.eval import Evaluator
     from monorec_tpu_torch.models import MonoRec
+    from monorec_tpu_torch.ops.cuda import launch
     from monorec_tpu_torch.train.checkpoints import load_stage_checkpoints
 
     tree = Path(work) / "kitti"
@@ -2446,7 +2423,7 @@ def phase_evaluate(dev, card: str, work, checkpoint) -> dict:
     n_samples = EVAL_FRAMES - 10
     n_batches = n_samples // 2
     path, run_dir = eval_config(work, tree, checkpoint, "eval_card")
-    reset_counts()
+    launch.reset()
     evaluate.main(["-c", path, "--device", str(dev)])
     counts = launch_counts()
     if counts != only(plane_sweep_cost_volume=n_batches):
@@ -2556,6 +2533,7 @@ def phase_pointcloud(dev, card: str, work, checkpoint) -> dict:
 
     from monorec_tpu_torch.cli import create_pointcloud
     from monorec_tpu_torch.export import pointcloud_masks
+    from monorec_tpu_torch.ops.cuda import launch
 
     n_frames = EVAL_FRAMES - 10
     points, launches = {}, 0
@@ -2571,7 +2549,7 @@ def phase_pointcloud(dev, card: str, work, checkpoint) -> dict:
         config.update(output_dir=str(Path(work) / "pointclouds"), use_mask=use_mask, max_d=400)
         config["file_name"] = f"seq07_mask_{use_mask}.ply"
         path = write_config(Path(work) / f"pointcloud_{use_mask}.json", config)
-        reset_counts()
+        launch.reset()
         t = time.perf_counter()
         create_pointcloud.main(["-c", path, "--device", str(dev)])
         wall = time.perf_counter() - t
@@ -3450,10 +3428,11 @@ def export_run(dev, card: str, tag: str, path: str, n_frames: int) -> dict:
     import numpy as np
 
     from monorec_tpu_torch.cli import create_pointcloud
+    from monorec_tpu_torch.ops.cuda import launch
 
     with open(path) as f:
         config = json.load(f)
-    reset_counts()
+    launch.reset()
     t = time.perf_counter()
     create_pointcloud.main(["-c", path, "--device", str(dev)])
     wall = time.perf_counter() - t
@@ -3487,6 +3466,7 @@ def phase_robotcar(dev, card: str, work, checkpoint) -> dict:
     from monorec_tpu_torch.data.robotcar import CameraModel
     from monorec_tpu_torch.eval import Evaluator
     from monorec_tpu_torch.models import MonoRec
+    from monorec_tpu_torch.ops.cuda import launch
     from monorec_tpu_torch.train.checkpoints import load_stage_checkpoints
 
     tag = "[22 robotcar]"
@@ -3530,7 +3510,7 @@ def phase_robotcar(dev, card: str, work, checkpoint) -> dict:
         return path, Path(work) / name / "log" / "Eval_monorec_oxrc" / "00"
 
     path, run_dir = eval_copy("oxrc_card")
-    reset_counts()
+    launch.reset()
     evaluate.main(["-c", path, "--device", str(dev)])
     counts = launch_counts()
     if counts != only(plane_sweep_cost_volume=n_batches):
@@ -3754,6 +3734,7 @@ def phase_stage1_cli(dev, card: str, run_dir) -> dict:
     import torch
 
     from monorec_tpu_torch.cli import train as train_cli
+    from monorec_tpu_torch.ops.cuda import launch
     from monorec_tpu_torch.precision import set_precision
     from monorec_tpu_torch.train import Trainer
     from monorec_tpu_torch.train.loggers import read_scalars
@@ -3789,7 +3770,7 @@ def phase_stage1_cli(dev, card: str, run_dir) -> dict:
             built.append((self, encoder_is_the_file(self.model)))
 
     set_precision("exact", expect_rebuild=True)
-    reset_counts()
+    launch.reset()
     train_cli.main(["-c", path, "--device", str(dev)], trainer_cls=Recorded)  # the main path
     counts = launch_counts()
     (trainer, after_build), = built
@@ -3901,6 +3882,7 @@ def variant_forwards(dev, card: str) -> int:
     from monorec_tpu_torch.cli.inference_example import build_model, make_requests, serve
     from monorec_tpu_torch.config import build_model_config
     from monorec_tpu_torch.data.synthetic import batch_to_torch, make_batch
+    from monorec_tpu_torch.ops.cuda import launch
 
     tag = "[25 variants]"
     requests = make_requests(VARIANT_TIMINGS, B, H, W, F, dev, seed=250)
@@ -3909,7 +3891,7 @@ def variant_forwards(dev, card: str) -> int:
         cfg = build_model_config(dict(args, cv_depth_steps=D))
         model = build_model(cfg, dev, seed=0)
         serve(model, requests[:1])
-        reset_counts()
+        launch.reset()
         _, times = serve(model, requests)  # the main path
         counts = launch_counts()
         per_forward = 0 if cfg.no_cv else 1
@@ -3960,6 +3942,7 @@ def variant_training(dev, card: str, run_dir) -> dict:
     import torch
 
     from monorec_tpu_torch.cli import train as train_cli
+    from monorec_tpu_torch.ops.cuda import launch
     from monorec_tpu_torch.precision import set_precision
     from monorec_tpu_torch.train import Trainer
     from monorec_tpu_torch.train.loggers import read_scalars
@@ -3982,7 +3965,7 @@ def variant_training(dev, card: str, run_dir) -> dict:
 
     set_precision("exact", expect_rebuild=True)
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_counts()
+    launch.reset()
     train_cli.main(["-c", path, "--device", str(dev)], trainer_cls=Recorded)  # the main path
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -4162,6 +4145,7 @@ def kitti_stage2(dev, card: str, work, tree, stage1_checkpoint, num_workers: int
     import torch
 
     from monorec_tpu_torch.cli.train_monorec import build_trainer
+    from monorec_tpu_torch.ops.cuda import launch
     from monorec_tpu_torch.precision import set_precision
 
     tag = f"[26 KITTI path, {num_workers} worker{'s' if num_workers > 1 else ''}]"
@@ -4195,7 +4179,7 @@ def kitti_stage2(dev, card: str, work, tree, stage1_checkpoint, num_workers: int
         return out
 
     trainer.train_step = timed_step
-    reset_counts()
+    launch.reset()
     t = time.perf_counter()
     trainer.train()
     wall = time.perf_counter() - t
@@ -4282,6 +4266,7 @@ def phase_golden_sample(dev, card: str, work, tree, checkpoint) -> int:
     from monorec_tpu_torch.cli import inference_example as ie
     from monorec_tpu_torch.data.png import read_png
     from monorec_tpu_torch.data.synthetic import batch_to_torch
+    from monorec_tpu_torch.ops.cuda import launch
 
     copies = reference_copies(checkpoint, work)
     own = ie.build_model(ie.model_config(D), "cpu", checkpoint=checkpoint).state_dict()
@@ -4302,7 +4287,7 @@ def phase_golden_sample(dev, card: str, work, tree, checkpoint) -> int:
     for name, path in (("port", checkpoint), ("reference", copies["reference"])):
         out_dir = Path(work) / f"example_{name}"
         printed = io.StringIO()
-        reset_counts()
+        launch.reset()
         with contextlib.redirect_stdout(printed):
             ie.main(["--device", str(dev), "--data", str(tree), "--index", str(GOLDEN_INDEX),
                      "--checkpoint", str(path), "--out", str(out_dir), "--height", str(H),
@@ -4442,6 +4427,7 @@ def phase_tum_depth(dev, card: str, work, checkpoint) -> dict:
     from monorec_tpu_torch.data.jpeg import read_jpeg
     from monorec_tpu_torch.eval import Evaluator
     from monorec_tpu_torch.models import MonoRec
+    from monorec_tpu_torch.ops.cuda import launch
     from monorec_tpu_torch.train.checkpoints import load_stage_checkpoints
 
     tag = "[27 tum colour + depth]"
@@ -4499,7 +4485,7 @@ def phase_tum_depth(dev, card: str, work, checkpoint) -> dict:
         return tum_evaluate(tag, work, tree, checkpoint, name, device, batches, **extra)
 
     # The main path, on the card.
-    reset_counts()
+    launch.reset()
     path, _, _ = run("tum_depth_card", str(dev), n_batches)
     counts = launch_counts()
     if counts != only(plane_sweep_cost_volume=n_batches):
@@ -4588,6 +4574,7 @@ def phase_progressive_tum(dev, card: str, work, checkpoint) -> int:
     import numpy as np
 
     from monorec_tpu_torch.data.jpeg import read_jpeg
+    from monorec_tpu_torch.ops.cuda import launch
 
     tag = "[28 progressive + CMYK tum]"
     t0 = time.perf_counter()
@@ -4632,7 +4619,7 @@ def phase_progressive_tum(dev, card: str, work, checkpoint) -> int:
         result["card"] = tum_evaluate(tag, work, tree, checkpoint, "tum_progressive_card",
                                       str(dev), 1)
 
-    reset_counts()
+    launch.reset()
     window_ms, busy_ms = busy_window(main_path)
     counts = launch_counts()
     if counts != only(plane_sweep_cost_volume=1):
@@ -4699,13 +4686,14 @@ def dp_run(work, tag: str, config: str, device: str, world_size=None, group=Fals
 
     from monorec_tpu_torch.cli import train as train_cli
     from monorec_tpu_torch.cli import train_monorec
+    from monorec_tpu_torch.ops.cuda import launch
     from monorec_tpu_torch.train.checkpoints import load_checkpoint, state_dict
     from monorec_tpu_torch.train.loggers import read_scalars
 
     argv = ["-c", config, "--device", device]
     if world_size is not None:
         argv += ["--world-size", str(world_size)]
-    reset_counts()
+    launch.reset()
     t0 = time.perf_counter()
     if stage2:
         train_monorec.main(argv, group=group)
@@ -4838,10 +4826,11 @@ def dp_evaluate(work, tree, checkpoint, tag: str, argv, group=False) -> tuple:
     """``cli.evaluate`` over the first ``DP_EVAL_BATCHES`` batches of 2 of
     phase 20's tree: (its results' metrics, the launch counts)."""
     from monorec_tpu_torch.cli import evaluate
+    from monorec_tpu_torch.ops.cuda import launch
 
     path, run_dir = eval_config(work, tree, checkpoint, tag, start=0,
                                 end=2 * DP_EVAL_BATCHES)
-    reset_counts()
+    launch.reset()
     evaluate.main(["-c", path, *argv], group=group)
     counts = launch_counts()
     return json.loads((run_dir / "results_0.json").read_text())["metrics"], counts
@@ -5038,10 +5027,10 @@ def cost_volume_turns(card: str, bt, warp_dtype: str) -> None:
     args = [bt[k] for k in PAIR_KEYS]
 
     def separate():
-        mono = compute_cost_volume(*args[:6], 0.0025, 0.33, cfg, return_coverage=True)
+        mono = compute_cost_volume(*args[:6], 0.0025, 0.33, cfg)
         stereo = compute_cost_volume(*args[:3], *(a[:, None] for a in args[6:]), 0.0025, 0.33,
-                                     cfg, return_coverage=True)
-        return mono[0], mono[1], stereo[0], stereo[1], mono[2] + stereo[2]
+                                     cfg)
+        return (*mono, *stereo)
 
     fns = {"pair": lambda: compute_cost_volume_pair(*args, 0.0025, 0.33, cfg),
            "separate": separate}
@@ -5401,6 +5390,7 @@ def phase_tsdf_export(dev, card: str, work, checkpoint) -> int:
     from monorec_tpu_torch.data.jpeg_encoder import encode_jpeg, write_jpeg
     from monorec_tpu_torch.data.png import read_png, write_png
     from monorec_tpu_torch.models import MonoRec
+    from monorec_tpu_torch.ops.cuda import launch
     from monorec_tpu_torch.train.checkpoints import load_stage_checkpoints
     from monorec_tpu_torch.utils import (dilate_mask, masked_where, pose_distance_thresh,
                                          save_frame_for_tsdf, save_intrinsics_for_tsdf)
@@ -5432,7 +5422,7 @@ def phase_tsdf_export(dev, card: str, work, checkpoint) -> int:
     out_dir = Path(work) / "tsdf"
     out_dir.mkdir()
     batches, export_s, index = [], [], 0
-    reset_counts()
+    launch.reset()
     for batch in loader:  # the main path
         with torch.no_grad():
             out = model(batch)
@@ -5581,9 +5571,7 @@ def unet_launches(dev, mask_module, depth_module, h: int, w: int) -> dict:
     then one backward of its outputs' sum."""
     import torch
 
-    from monorec_tpu_torch.models import layers
-    from monorec_tpu_torch.ops.bias_act import bias_act
-    from monorec_tpu_torch.ops.same_conv import same_conv
+    from monorec_tpu_torch.ops.cuda import launch
 
     g = torch.Generator(device=dev).manual_seed(32)
     feats = [torch.randn(B, c, h // s, w // s, generator=g, device=dev)
@@ -5591,15 +5579,15 @@ def unet_launches(dev, mask_module, depth_module, h: int, w: int) -> dict:
     sfcv = torch.randn(B, F, D, h, w, generator=g, device=dev)
     cv = torch.randn(B, D, h, w, generator=g, device=dev)
     key = torch.randn(B, 3, h, w, generator=g, device=dev)
-    layers.pad_counts.clear()
-    fwd0, bwd0, sc0 = bias_act.launches, bias_act.launches_bwd, same_conv.launches
+    launch.reset()
     mask = mask_module(sfcv, feats)
     preds = depth_module(cv, key, feats)
-    counts = {"forward": bias_act.launches - fwd0, "same_conv": same_conv.launches - sc0,
-              **layers.pad_counts}
+    held = launch.counts()
+    counts = {"forward": held["bias_act.launches"], "same_conv": held["same_conv.launches"],
+              **held["layers.pad_counts"]}
     (mask.sum() + sum(p.sum() for p in preds)).backward()
     torch.cuda.synchronize()
-    counts["backward"] = bias_act.launches_bwd - bwd0
+    counts["backward"] = launch.counts()["bias_act.launches_bwd"]
     return counts
 
 
@@ -5856,6 +5844,8 @@ def phase_same_conv(dev, card: str) -> dict:
 def main() -> int:
     import torch
 
+    from monorec_tpu_torch.ops.cuda import launch
+
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible; the port has no CPU fallback")
@@ -5908,17 +5898,16 @@ def main() -> int:
     for tz in MOTIONS:
         images, keyframes, homs = sweep_batch(dev, tz)
         for mode in MODES:
-            sad, wmask, cov = plane_sweep.plane_sweep_sad(images, keyframes, homs, 2, F, mode)
+            sad, wmask = plane_sweep.plane_sweep_sad(images, keyframes, homs, 2, F, mode)
             torch.cuda.synchronize()
-            rsad, rwmask, _ = plane_sweep.plane_sweep_sad_reference(
+            rsad, rwmask = plane_sweep.plane_sweep_sad_reference(
                 images, keyframes, homs, 2, F, mode)
             err = (sad - rsad).abs()
             err_all, err_in = err.max().item(), err[..., 2:-2, 2:-2].max().item()
             mism = ((wmask != 0) != (rwmask != 0)).sum().item()
             log(f"[3 kernel] tz={tz} use_ssim={mode}: max|sad diff| interior {err_in:.3e}, "
                 f"whole image {err_all:.3e}; wmask!=0 mismatches {mism}")
-            if not (torch.isfinite(sad).all() and err_all <= SAD_TOL and mism == 0
-                    and (cov == 0).all()):
+            if not (torch.isfinite(sad).all() and err_all <= SAD_TOL and mism == 0):
                 raise AssertionError(f"plane_sweep_sad disagrees with its plain version "
                                      f"(tz={tz}, use_ssim={mode})")
             max_err = max(max_err, err_all)
@@ -5996,16 +5985,11 @@ def main() -> int:
     # ---- 6. serving through the entry point -----------------------------
     n_req = 6
     model = build_model(cfg, dev, seed=0)
-    model_plain = build_model(MonoRecConfig(cv_depth_steps=D, plain_cost_volume=True), dev, seed=0)
     requests = make_requests(n_req, B, H, W, F, dev, seed=100)
     serve(model, requests[:1])
-    serve(model_plain, requests[:1])
-    _, plain_1 = serve(model_plain, requests)
-    reset_counts()
-    outs, kern_1 = serve(model, requests)  # the main path
+    launch.reset()
+    outs, _ = serve(model, requests)  # the main path
     serve_counts, serve_epilogue = launch_counts(), epilogue_counts()
-    _, kern_2 = serve(model, requests)
-    _, plain_2 = serve(model_plain, requests)
     if serve_counts != only(plane_sweep_cost_volume=n_req):
         raise AssertionError(f"the served forwards launched {serve_counts}, expected "
                              f"plane_sweep_cost_volume {n_req} times")
@@ -6021,16 +6005,8 @@ def main() -> int:
         r = out["result"]
         if r.shape != (B, 1, H, W) or not torch.isfinite(r).all() or (r <= 0).any():
             raise AssertionError("served inverse depth is not finite and positive")
-    med_k = statistics.median(kern_1 + kern_2)
-    med_p = statistics.median(plain_1 + plain_2)
-    log(f"[6 serving] {n_req} requests x {B} keyframes, {H}x{W}, D={D}, F={F}, f32 exact; "
-        f"median forward (CUDA events) kernel {med_k:.3f} ms = {B * 1e3 / med_k:.2f} keyframes/s, "
-        f"plain cost volume {med_p:.3f} ms = {B * 1e3 / med_p:.2f} keyframes/s on {card}")
-    log(f"    per-request ms, plain: {', '.join(f'{t:.3f}' for t in plain_1)}; kernel: "
-        f"{', '.join(f'{t:.3f}' for t in kern_1)}; kernel: {', '.join(f'{t:.3f}' for t in kern_2)}; "
-        f"plain: {', '.join(f'{t:.3f}' for t in plain_2)}")
 
-    del model, model_plain, outs
+    del model, outs
     torch.cuda.empty_cache()
 
     stamp("6")

@@ -30,7 +30,7 @@ from monorec_tpu_torch import parallel
 from monorec_tpu_torch.models.monorec import MonoRecConfig
 from monorec_tpu_torch.precision import apply_to_model_kwargs, set_precision
 
-_MODEL_KEYS = {f.name for f in dataclasses.fields(MonoRecConfig)} - {"plain_cost_volume"}
+_MODEL_KEYS = {f.name for f in dataclasses.fields(MonoRecConfig)}
 _LOADER_KEYS = {"batch_size", "shuffle", "validation_split", "num_workers", "drop_last",
                 "start", "end", "every_nth"}
 

@@ -17,7 +17,7 @@ warp (into [1, 2]), so only a sample with no tap inside the image is 0.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
@@ -25,7 +25,7 @@ from monorec_tpu_torch import geometry
 from monorec_tpu_torch.ops.cost_volume import border_mask
 from monorec_tpu_torch.ops.photo_error import photo_error, photo_error_reference
 from monorec_tpu_torch.ops.sampling import grid_sample_planar
-from monorec_tpu_torch.parallel import batch_mean, draw_rows, global_sum
+from monorec_tpu_torch.parallel import batch_mean, draw_rows
 from monorec_tpu_torch.precision import loss_warp_dtype
 from monorec_tpu_torch.utils import mask_mean
 
@@ -83,17 +83,17 @@ def loss_warp_grids(depth: Tensor, poses: Tensor, intrinsics: Tensor,
 
 def _warp_by_depth_planar(depth: Tensor, frames: Tensor, poses: Tensor, intrinsics: Tensor,
                           keyframe_pose: Tensor, keyframe_intrinsics: Tensor,
-                          add: float) -> Tuple[Tensor, Tensor]:
-    """Warp each source frame (+add offset) onto the keyframe: (B, F, C, H, W),
-    and the summed uncovered-pixel count. All (sample, frame) pairs go
-    through ONE batched call of the loss-warp kernel over the (B*F) stack."""
+                          add: float) -> Tensor:
+    """Warp each source frame (+add offset) onto the keyframe: (B, F, C, H, W).
+    All (sample, frame) pairs go through ONE batched call of the loss-warp
+    kernel over the (B*F) stack."""
     b, f, c, h, w = frames.shape
     grids = loss_warp_grids(depth, poses, intrinsics, keyframe_pose, keyframe_intrinsics)
-    warped, cov = grid_sample_planar(
+    warped = grid_sample_planar(
         (frames + add).reshape(b * f, c, h, w), grids.reshape(b * f, h, w, 2),
-        return_coverage=True, kernel_dtype=loss_warp_dtype(),
+        kernel_dtype=loss_warp_dtype(),
     )
-    return warped.reshape(b, f, c, h, w), cov.sum()
+    return warped.reshape(b, f, c, h, w)
 
 
 def reprojection_loss(
@@ -107,16 +107,12 @@ def reprojection_loss(
     mono_auto: bool = False,
     border: int = 0,
     generator: Optional[torch.Generator] = None,
-    with_coverage: bool = False,
     automask_errors: Optional[Tensor] = None,
 ):
     """Multi-frame photometric reprojection loss.
 
     Returns a scalar if ``reduce`` else a (B, H, W) error map in which
-    invalid pixels carry +inf. ``with_coverage`` also returns the loss
-    warp's uncovered-pixel count (always 0; the global batch's, as the
-    scalar is). ``automask_errors``
-    optionally supplies the identity-reprojection errors (B, F, H, W),
+    invalid pixels carry +inf. ``automask_errors`` optionally supplies the identity-reprojection errors (B, F, H, W),
     which depend only on the input frames, so multi-scale callers compute
     them once. ``combine_frames="rnd"`` draws each sample's frame from
     ``generator`` (a CPU ``torch.Generator``).
@@ -127,7 +123,7 @@ def reprojection_loss(
     f = frames.shape[1]
 
     depth = 1.0 / inv_depth[:, 0]
-    reproj, warp_cov = _warp_by_depth_planar(
+    reproj = _warp_by_depth_planar(
         depth, frames, poses, intrinsics, data["keyframe_pose"], data["keyframe_intrinsics"],
         add=1.5,
     )
@@ -142,7 +138,7 @@ def reprojection_loss(
             warped_bm = _warp_by_depth_planar(
                 depth, bm_f, poses, intrinsics, data["keyframe_pose"],
                 data["keyframe_intrinsics"], add=0.0,
-            )[0][:, :, 0]
+            )[:, :, 0]
         invalid = ~(warped_bm > 0.5)
 
     key = (keyframe + 0.5)[:, None].expand(b, f, c, h, w)
@@ -185,10 +181,7 @@ def reprojection_loss(
     else:
         raise ValueError("combine_frames must be 'min', 'avg' or 'rnd'")
 
-    out = mask_mean(torch.where(invalid, 0.0, errors), invalid) if reduce else errors
-    if with_coverage:
-        return out, global_sum(warp_cov)
-    return out
+    return mask_mean(torch.where(invalid, 0.0, errors), invalid) if reduce else errors
 
 
 def identity_reprojection_errors(data: Dict, use_mono: bool = True,
@@ -253,19 +246,14 @@ def sparse_depth_loss(pred: Tensor, gt: Tensor, l2: bool = False, reduce: bool =
 
 def selfsup_loss(inv_depth: Tensor, data: Dict, scale: int = 0, automasking: bool = True,
                  use_mono: bool = True, use_stereo: bool = False, combine_frames: str = "min",
-                 mask_border: int = 0, with_coverage: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 mask_border: int = 0, generator: Optional[torch.Generator] = None):
     """Reprojection + edge-aware smoothness (scaled 1e-3 / 2^scale)."""
-    r, cov = reprojection_loss(
+    r = reprojection_loss(
         inv_depth, data, automasking=automasking, use_mono=use_mono, use_stereo=use_stereo,
-        reduce=True, combine_frames=combine_frames, border=mask_border,
-        generator=generator, with_coverage=True,
+        reduce=True, combine_frames=combine_frames, border=mask_border, generator=generator,
     )
     s = _nan_to_zero(edge_aware_smoothness_loss(inv_depth, data["keyframe"]))
-    out = _nan_to_zero(r) + s * 1e-3 / (2**scale)
-    if with_coverage:
-        return out, cov
-    return out
+    return _nan_to_zero(r) + s * 1e-3 / (2**scale)
 
 
 def upsample_nearest_to(x: Tensor, height: int, width: int) -> Tensor:

@@ -35,6 +35,13 @@ from monorec_tpu_torch.utils import mask_mean
 Tensor = torch.Tensor
 
 
+def _warp_uncovered(like: Tensor) -> Tensor:
+    """The loss dicts' ``warp_uncovered``, which the JAX package's log schema
+    holds: the in-image pixels its TPU loss warp could not reach. Always 0
+    here: the port's loss warp is a gather, with full reach."""
+    return like.new_zeros(())
+
+
 def depth_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[str, Tensor]:
     """Stage-1 depth bootstrap loss (reference ``monorec_loss.py:9-47``).
 
@@ -62,10 +69,10 @@ def depth_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[str, Tensor
         loss_dict[f"sdl_{i}"] = sdl
 
     am = identity_reprojection_errors(data, use_mono=True, use_stereo=use_stereo)
-    r_map, cov_sum = reprojection_loss(
+    r_map = reprojection_loss(
         torch.cat(preds, 0), tile_batch_for_scales(data, s), automasking=True, use_mono=True,
         use_stereo=use_stereo, reduce=False, combine_frames="min",
-        automask_errors=am.repeat(s, 1, 1, 1), with_coverage=True,
+        automask_errors=am.repeat(s, 1, 1, 1),
     )
     invalid = torch.isinf(r_map).reshape(s, b, h, w)
     r_map = torch.where(invalid.reshape(r_map.shape), 0.0, r_map).reshape(s, b, h, w)
@@ -81,9 +88,7 @@ def depth_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[str, Tensor
         loss_dict[f"md2l_{i}"] = md2l
 
     loss_dict["loss"] = 2 * alpha * 4 * sdl_sum + 2 * (1 - alpha) * md2l_sum
-    # Loss-warp observability: in-image pixels the warp could not reach.
-    # Always 0 for a gather kernel; kept for the JAX package's log schema.
-    loss_dict["warp_uncovered"] = cov_sum
+    loss_dict["warp_uncovered"] = _warp_uncovered(gt)
     return loss_dict
 
 
@@ -178,12 +183,12 @@ def mask_refinement_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[s
     stereo_preds = [upsample_nearest_to(p, h, w) for p in data["stereo_pred"]]
     s = len(mono_preds)
     tiled = tile_batch_for_scales(data, s)
-    mono_all, cov_m = reprojection_loss(
+    mono_all = reprojection_loss(
         torch.cat(mono_preds, 0), tiled, use_mono=True, use_stereo=False, automasking=False,
-        reduce=False, combine_frames="min", with_coverage=True)
-    stereo_all, cov_s = reprojection_loss(
+        reduce=False, combine_frames="min")
+    stereo_all = reprojection_loss(
         torch.cat(stereo_preds, 0), tiled, use_mono=False, use_stereo=True, automasking=False,
-        reduce=False, combine_frames="min", border=3, with_coverage=True)
+        reduce=False, combine_frames="min", border=3)
     mono_all, stereo_all = mono_all.reshape(s, b, 1, h, w), stereo_all.reshape(s, b, 1, h, w)
 
     weight_data = data
@@ -225,7 +230,7 @@ def mask_refinement_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[s
         loss_dict["mask_loss"] = mask_loss_value * 4
 
     loss_dict["loss"] = 2 * alpha * 4 * sdl_sum + 2 * (1 - alpha) * md2l_sum + mask_loss_value
-    loss_dict["warp_uncovered"] = cov_m + cov_s
+    loss_dict["warp_uncovered"] = _warp_uncovered(gt)
     return loss_dict
 
 
@@ -261,16 +266,15 @@ def depth_refinement_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[
     stacked = torch.cat(mono_preds, 0)
     tiled = tile_batch_for_scales(data, s)
     am = identity_reprojection_errors(data, use_mono=True, use_stereo=use_stereo)
-    mono_all, cov_sum = reprojection_loss(
+    mono_all = reprojection_loss(
         stacked, tiled, use_mono=True, use_stereo=use_stereo, automasking=True, reduce=False,
-        combine_frames="min", automask_errors=am.repeat(s, 1, 1, 1), with_coverage=True)
+        combine_frames="min", automask_errors=am.repeat(s, 1, 1, 1))
     mono_all = mono_all.reshape(s, b, 1, h, w)
     if use_stereo_reprl:
-        st_all, cov_s = reprojection_loss(
+        st_all = reprojection_loss(
             stacked, tiled, use_mono=False, use_stereo=True, automasking=False, reduce=False,
-            combine_frames="min", border=3, with_coverage=True)
+            combine_frames="min", border=3)
         st_all = st_all.reshape(s, b, 1, h, w)
-        cov_sum = cov_sum + cov_s
 
     loss_dict: Dict[str, Tensor] = {}
     sdl_sum = md2l_sum = 0.0
@@ -307,7 +311,7 @@ def depth_refinement_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[
         md2l_sum = md2l_sum + md2l
 
     loss_dict["loss"] = 2 * alpha * 4 * sdl_sum + 2 * (1 - alpha) * md2l_sum
-    loss_dict["warp_uncovered"] = cov_sum
+    loss_dict["warp_uncovered"] = _warp_uncovered(gt)
     return loss_dict
 
 
@@ -322,7 +326,7 @@ def depth_aux_mask_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[st
     moving = data["cv_mask"].detach() > 0.5
 
     loss_dict: Dict[str, Tensor] = {}
-    sdl_sum = md2l_sum = cov_sum = 0.0
+    sdl_sum = md2l_sum = 0.0
     for scale, mono_pred in enumerate(data["mono_pred"]):
         mono_pred = upsample_nearest_to(mono_pred, h, w)
         sdl_map, sdl_inv = sparse_depth_loss(mono_pred, gt, reduce=False)
@@ -332,11 +336,9 @@ def depth_aux_mask_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[st
 
         smoothness = mask_mean(
             edge_aware_smoothness_loss(mono_pred, data["keyframe"], reduce=False), moving)
-        mono_repr, cov_m = reprojection_loss(
+        mono_repr = reprojection_loss(
             mono_pred, data, use_mono=True, use_stereo=False, automasking=False, reduce=False,
-            combine_frames="min", with_coverage=True)
-        mono_repr = mono_repr[:, None]
-        cov_sum = cov_sum + cov_m
+            combine_frames="min")[:, None]
         mono_inf = torch.isinf(mono_repr)
         mono_repr = torch.where(mono_inf, 0.0, mono_repr)
         loss_dict[f"static_md2l_{scale}"] = mask_mean(mono_repr, mono_inf)
@@ -345,7 +347,7 @@ def depth_aux_mask_loss(data: Dict, alpha=None, roi=None, options=()) -> Dict[st
         md2l_sum = md2l_sum + md2l
 
     loss_dict["loss"] = 2 * alpha * 4 * sdl_sum + 2 * (1 - alpha) * md2l_sum
-    loss_dict["warp_uncovered"] = cov_sum
+    loss_dict["warp_uncovered"] = _warp_uncovered(gt)
     return loss_dict
 
 

@@ -32,7 +32,6 @@ serving policy) take that path at every stride.
 
 from __future__ import annotations
 
-import collections
 import math
 from typing import Tuple, Union
 
@@ -41,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from monorec_tpu_torch.ops.bias_act import conv_bias_act
+from monorec_tpu_torch.ops.cuda import launch
 from monorec_tpu_torch.ops.same_conv import same_conv, takes
 
 Tensor = torch.Tensor
@@ -50,7 +50,7 @@ IDENTITY = 1.0  # LeakyReLU(1.0) is the identity, bit for bit
 
 # SamePadConv calls by how their same pad was applied: "implicit" (the
 # convolution's own padding) or "explicit" (a padded copy of the input).
-pad_counts: collections.Counter = collections.Counter()
+pad_counts = launch.tally("layers.pad_counts")
 
 
 def _pair(v: IntPair) -> Tuple[int, int]:

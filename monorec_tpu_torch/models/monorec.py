@@ -81,8 +81,7 @@ Batch = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class MonoRecConfig:
-    """Static model configuration: the JAX config's knobs and the port's
-    ``plain_cost_volume``."""
+    """Static model configuration: the JAX config's knobs."""
 
     inv_depth_min_max: Tuple[float, float] = (0.33, 0.0025)
     cv_depth_steps: int = 32
@@ -115,14 +114,11 @@ class MonoRecConfig:
     no_cv: bool = False
     # "float32" (exact) or "bfloat16": the dtype of the source frames that
     # the cost-volume kernels read (K1, K4; the keyframe stays float32).
-    # The plain path (``cv_depths``, ``plain_cost_volume``) ignores it.
+    # The plain path (``cv_depths``) ignores it.
     cv_warp_dtype: str = "float32"
     # Convolution dtype of the Mask and Depth U-Nets; parameters and their
     # gradients stay float32, and so do the ResNet, losses and metrics.
     compute_dtype: str = "float32"
-    # Compute the cost volume on its plain path (projection + grid_sample)
-    # instead of the fused sweep: the A/B baseline for the CUDA kernel.
-    plain_cost_volume: bool = False
 
     def cv_config(self) -> CostVolumeConfig:
         return CostVolumeConfig(
@@ -208,8 +204,8 @@ class MonoRec(nn.Module):
         self.to(device)
 
     @traced("cost_volume")
-    def cost_volume(self, batch: Batch, return_coverage: bool = False,
-                    use_mono: Optional[bool] = None, use_stereo: Optional[bool] = None):
+    def cost_volume(self, batch: Batch, use_mono: Optional[bool] = None,
+                    use_stereo: Optional[bool] = None):
         """Fused and per-frame cost volumes of the configured source frames,
         or of those ``use_mono`` / ``use_stereo`` select."""
         cfg = self.config
@@ -223,8 +219,6 @@ class MonoRec(nn.Module):
             cfg.inv_depth_min_max[1], cfg.inv_depth_min_max[0],
             cfg.cv_config(),
             cv_depths=batch.get("cv_depths"),
-            plain=cfg.plain_cost_volume,
-            return_coverage=return_coverage,
         )
 
     @traced("cost_volume")
@@ -232,7 +226,7 @@ class MonoRec(nn.Module):
         """The mono and the stereo cost volumes of the batch's keyframes, from
         one grouped launch of K1 where the sweep path serves
         (``compute_cost_volume_pair``); returns (cv_mono, sfcv_mono,
-        cv_stereo, sfcv_stereo, coverage)."""
+        cv_stereo, sfcv_stereo)."""
         cfg = self.config
         return compute_cost_volume_pair(
             batch["keyframe"], batch["keyframe_intrinsics"], batch["keyframe_pose"],
@@ -241,7 +235,6 @@ class MonoRec(nn.Module):
             cfg.inv_depth_min_max[1], cfg.inv_depth_min_max[0],
             cfg.cv_config(),
             cv_depths=batch.get("cv_depths"),
-            plain=cfg.plain_cost_volume,
         )
 
     @traced("features")
@@ -306,7 +299,11 @@ class MonoRec(nn.Module):
             sfcv = keyframe.new_zeros(b, n_frames, cfg.cv_depth_steps, h, w)
             cv = keyframe.new_zeros(b, cfg.cv_depth_steps, h, w)
         else:
-            cv, sfcv, out["cv_uncovered"] = self.cost_volume(batch, return_coverage=True)
+            cv, sfcv = self.cost_volume(batch)
+            # The JAX package's output schema: the pixels its TPU sweep could
+            # not reach. Always 0 here: the port's sweep is a gather, with
+            # full reach.
+            out["cv_uncovered"] = torch.zeros(b, device=keyframe.device)
 
         flip = None
         if cfg.augmentation == "depth" and train:

@@ -25,11 +25,12 @@ and its activation, through this kernel on the card.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from monorec_tpu_torch.ops.cuda import launch
 
 Tensor = torch.Tensor
 Window = Optional[Tuple[int, int, int, int]]
@@ -60,23 +61,14 @@ def _bias_act_bwd_reference(g: Tensor, out: Optional[Tensor], slope: float, wind
     return grad_y, grad_bias
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from monorec_tpu_torch.ops.cuda import build
-
-    lib = build.load("bias_act")
-    ints = [ctypes.c_int] * 6
-    lib.bias_act_fwd_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + ints + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    lib.bias_act_fwd_launch.restype = ctypes.c_int
-    lib.bias_act_bwd_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + ints + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.bias_act_bwd_launch.restype = ctypes.c_int
-    lib.bias_act_chunk_elems.argtypes = []
-    lib.bias_act_chunk_elems.restype = ctypes.c_int
-    lib.bias_act_error_string.argtypes = [ctypes.c_int]
-    lib.bias_act_error_string.restype = ctypes.c_char_p
-    return lib
+_WINDOW = [ctypes.c_int] * 6
+_FWD = launch.Entry("bias_act", "bias_act_fwd_launch",
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + _WINDOW
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_BWD = launch.Entry("bias_act", "bias_act_bwd_launch",
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + _WINDOW
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_CHUNK_ELEMS = launch.Entry("bias_act", "bias_act_chunk_elems", [])
 
 
 def _kept(shape, window: Window) -> Window:
@@ -108,12 +100,6 @@ def _check(y: Tensor, window: Window) -> None:
         raise ValueError("bias_act takes contiguous tensors")
 
 
-def _raise_on(code: int, what: str) -> None:
-    if code != 0:
-        msg = _library().bias_act_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({code})")
-
-
 def bias_act_fwd(y: Tensor, bias: Tensor, slope: float = 1.0, window: Window = None) -> Tensor:
     """``act(y[window] + bias[c])``; CUDA tensors launch the kernel, CPU
     tensors run the plain version."""
@@ -127,12 +113,8 @@ def bias_act_fwd(y: Tensor, bias: Tensor, slope: float = 1.0, window: Window = N
     dims = _dims(y, window)
     n, c, *_, h, w = dims
     out = torch.empty(n, c, h, w, dtype=y.dtype, device=y.device)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = _library().bias_act_fwd_launch(y.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                                              *dims, slope, int(y.dtype == torch.bfloat16),
-                                              stream)
-    _raise_on(code, "bias_act forward")
+    _FWD.launch("bias_act_fwd", y.device, y.data_ptr(), bias.data_ptr(), out.data_ptr(), *dims,
+                slope, int(y.dtype == torch.bfloat16))
     bias_act.launches += 1
     return out
 
@@ -154,17 +136,13 @@ def bias_act_bwd(g: Tensor, out: Optional[Tensor], slope: float, window: Window,
     for name, t in (("g", g), ("out", out if act else g)):
         if t.shape != (n, c, h, w) or t.dtype != g.dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous ({n}, {c}, {h}, {w}) {g.dtype}")
-    lib = _library()
     elems = hy * wy if window is not None else h * w
-    chunks = -(-elems // lib.bias_act_chunk_elems())
+    chunks = -(-elems // _CHUNK_ELEMS())
     partial = torch.empty(n * c * chunks, dtype=torch.float32, device=g.device)
     grad_bias = torch.empty(c, dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.bias_act_bwd_launch(
-            g.data_ptr(), out.data_ptr() if act else None, y_like.data_ptr(), partial.data_ptr(),
-            grad_bias.data_ptr(), *dims, slope, int(act), int(g.dtype == torch.bfloat16), stream)
-    _raise_on(code, "bias_act backward")
+    _BWD.launch("bias_act_bwd", g.device, g.data_ptr(), out.data_ptr() if act else None,
+                y_like.data_ptr(), partial.data_ptr(), grad_bias.data_ptr(), *dims, slope,
+                int(act), int(g.dtype == torch.bfloat16))
     bias_act.launches_bwd += 1
     return y_like, grad_bias
 
@@ -186,16 +164,13 @@ class _BiasAct(torch.autograd.Function):
         return grad_y, grad_bias.to(g.dtype), None, None
 
 
+@launch.counted("launches", "launches_bwd")
 def bias_act(y: Tensor, bias: Tensor, slope: float = 1.0, window: Window = None) -> Tensor:
     """``act(y[window] + bias[c])`` as a new contiguous tensor, differentiable
     in y and bias."""
     if torch.is_grad_enabled() and (y.requires_grad or bias.requires_grad):
         return _BiasAct.apply(y, bias, slope, window)
     return bias_act_fwd(y, bias, slope, window)
-
-
-bias_act.launches = 0
-bias_act.launches_bwd = 0
 
 
 def conv_bias_act(conv, x: Tensor, weight: Tensor, bias: Tensor, slope: float = 1.0,

@@ -157,14 +157,14 @@ def _sweep_sources(keyframe, keyframe_intrinsics, keyframe_pose, frames, frame_i
 def _cost_volume_sweep(keyframe, keyframe_intrinsics, keyframe_pose, frames,
                        frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min, cfg,
                        groups=None):
-    """K1 over every frame; with ``groups``, ``[(fused, sfcv) per group]``
-    from the one launch and the coverage, else (fused, sfcv, coverage)."""
-    b, f = frames.shape[:2]
+    """K1 over every frame: (fused, sfcv), or with ``groups``
+    ``[(fused, sfcv) per group]`` from the one launch."""
+    f = frames.shape[1]
     images, homs = _sweep_sources(keyframe, keyframe_intrinsics, keyframe_pose, frames,
                                   frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min,
                                   cfg)
     cw = tuple(float(x) / cfg.patch_size**2 for x in cfg.channel_weights)
-    out = plane_sweep_cost_volume(
+    return plane_sweep_cost_volume(
         images,
         keyframe.contiguous(),
         homs,
@@ -176,8 +176,6 @@ def _cost_volume_sweep(keyframe, keyframe_intrinsics, keyframe_pose, frames,
         not_center_cv=cfg.not_center_cv,
         groups=groups,
     )
-    coverage = torch.zeros(b, device=keyframe.device)
-    return (out, coverage) if groups is not None else (*out, coverage)
 
 
 def _score_warped(warped, keyframe, valid, cfg):
@@ -218,11 +216,10 @@ def _cost_volume_warp(keyframe, keyframe_intrinsics, keyframe_pose, frames,
     images, homs = _sweep_sources(keyframe, keyframe_intrinsics, keyframe_pose, frames,
                                   frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min,
                                   cfg)
-    warped, wmask, cov = warp_plane_sweep(images, homs, cfg.border_radius)
+    warped, wmask = warp_plane_sweep(images, homs, cfg.border_radius)
     warped = warped.to(keyframe.dtype).reshape(b, f, d, c, h, w)
     valid = valid_pixels(wmask, cfg.border_radius).to(keyframe.dtype)  # (N, H, W)
-    fused, sfcv = _score_warped(warped, keyframe, valid.reshape(b, f, h, w), cfg)
-    return fused, sfcv, cov.reshape(b, f * d).sum(dim=-1)
+    return _score_warped(warped, keyframe, valid.reshape(b, f, h, w), cfg)
 
 
 def _cost_volume_plain(keyframe, keyframe_intrinsics, keyframe_pose, frames,
@@ -247,8 +244,7 @@ def _cost_volume_plain(keyframe, keyframe_intrinsics, keyframe_pose, frames,
     # A pixel is valid only if its reprojection hits the interior at ALL
     # hypotheses (reference ``monorec_model.py:219``).
     valid = bmask * (warped_b != 0).to(bmask.dtype).amin(dim=2)  # (B, F, H, W)
-    fused, sfcv = _score_warped(warped, keyframe, valid, cfg)
-    return fused, sfcv, torch.zeros(b, dtype=keyframe.dtype, device=keyframe.device)
+    return _score_warped(warped, keyframe, valid, cfg)
 
 
 def compute_cost_volume(
@@ -263,7 +259,6 @@ def compute_cost_volume(
     cfg: CostVolumeConfig = CostVolumeConfig(),
     cv_depths: Optional[Tensor] = None,
     plain: bool = False,
-    return_coverage: bool = False,
 ):
     """Batched plane-sweep cost volume.
 
@@ -276,12 +271,9 @@ def compute_cost_volume(
       cv_depths: optional (B, D, H, W) per-pixel depth override (the plain
         path serves it).
       plain: force the plain path.
-      return_coverage: also return per-sample uncovered-pixel counts (B,),
-        always 0 here: every path has full reach.
 
     Returns:
-      fused (B, D, H, W) and per-frame (B, F, D, H, W) cost volumes, plus
-      coverage if requested.
+      fused (B, D, H, W) and per-frame (B, F, D, H, W) cost volumes.
     """
     with torch.no_grad():
         if plain or cv_depths is not None:
@@ -293,17 +285,16 @@ def compute_cost_volume(
                 )[None, :, None, None].expand(b, -1, h, w)
             else:
                 depths = cv_depths
-            out = _cost_volume_plain(
+            return _cost_volume_plain(
                 keyframe, keyframe_intrinsics, keyframe_pose, frames,
                 frame_intrinsics, frame_poses, depths, cfg,
             )
         else:
             path = _cost_volume_sweep if _sweep_path_ok(keyframe, cfg) else _cost_volume_warp
-            out = path(
+            return path(
                 keyframe, keyframe_intrinsics, keyframe_pose, frames,
                 frame_intrinsics, frame_poses, inv_depth_max, inv_depth_min, cfg,
             )
-    return out if return_coverage else out[:2]
 
 
 def compute_cost_volume_pair(
@@ -338,22 +329,19 @@ def compute_cost_volume_pair(
 
     Returns:
       (mono fused (B, D, H, W), mono per-frame (B, F, D, H, W), stereo fused,
-      stereo per-frame (B, 1, D, H, W), coverage (B,) summed over the mono and
-      the stereo frames), computed without a gradient.
+      stereo per-frame (B, 1, D, H, W)), computed without a gradient.
     """
     stereo = (stereo_frame[:, None], stereo_intrinsics[:, None], stereo_pose[:, None])
     if plain or cv_depths is not None or not _sweep_path_ok(keyframe, cfg):
-        common = (inv_depth_max, inv_depth_min, cfg, cv_depths, plain, True)
-        m_fused, m_sfcv, m_cov = compute_cost_volume(
-            keyframe, keyframe_intrinsics, keyframe_pose, mono_frames, mono_intrinsics,
-            mono_poses, *common)
-        s_fused, s_sfcv, s_cov = compute_cost_volume(
-            keyframe, keyframe_intrinsics, keyframe_pose, *stereo, *common)
-        return m_fused, m_sfcv, s_fused, s_sfcv, m_cov + s_cov
+        common = (inv_depth_max, inv_depth_min, cfg, cv_depths, plain)
+        return (*compute_cost_volume(keyframe, keyframe_intrinsics, keyframe_pose, mono_frames,
+                                     mono_intrinsics, mono_poses, *common),
+                *compute_cost_volume(keyframe, keyframe_intrinsics, keyframe_pose, *stereo,
+                                     *common))
     with torch.no_grad():
         frames, intr, poses = (torch.cat([m, s], 1) for m, s in zip(
             (mono_frames, mono_intrinsics, mono_poses), stereo))
-        ((m_fused, m_sfcv), (s_fused, s_sfcv)), coverage = _cost_volume_sweep(
+        (m_fused, m_sfcv), (s_fused, s_sfcv) = _cost_volume_sweep(
             keyframe, keyframe_intrinsics, keyframe_pose, frames, intr, poses, inv_depth_max,
             inv_depth_min, cfg, groups=(mono_frames.shape[1], 1))
-    return m_fused, m_sfcv, s_fused, s_sfcv, coverage
+    return m_fused, m_sfcv, s_fused, s_sfcv

@@ -7,7 +7,7 @@
 // KY / R_MAX tap windows and the per-block bounds exist because the TPU has
 // no vector gather. Hopper has one, so every output pixel gathers its four
 // taps directly from global memory through the read-only cache, with
-// unlimited reach: coverage is always zero (written by the Python wrapper).
+// unlimited reach, and no pixel is left uncovered: nothing counts coverage.
 //
 // Per output pixel (n, y, x) with sample position (X, Y) = (xs, ys)[n, y, x]:
 // taps at x0 = floor(X), x0 + 1 and y0 = floor(Y), y0 + 1 with weights

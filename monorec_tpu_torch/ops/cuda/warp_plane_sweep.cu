@@ -6,8 +6,8 @@
 // its machinery: the band DMA, the one-hot permutation matmuls, the KY / KX
 // tap windows and the depth chunks exist because the TPU has no vector
 // gather. Hopper has one, so each output pixel gathers its four taps
-// directly, with unlimited reach: coverage is always zero (written by the
-// Python wrapper). It serves the cost volumes that the fused scoring K1
+// directly, with unlimited reach, and no pixel is left uncovered: nothing
+// counts coverage. It serves the cost volumes that the fused scoring K1
 // cannot (sfcv_mult_mask=False, another patch size or channel count), whose
 // scoring needs the warped values themselves.
 //

@@ -13,8 +13,7 @@ padding: taps at floor(x), floor(x) + 1 (and in y) with weights
 zero, so a sample whose four taps are all outside is exactly 0.0. The
 Jacobian follows the reference subgradient (``grid_warp.py::_hat_grad``):
 at an integer fraction d out/dx = I[x0 + 1] - I[x0]. Unlike the TPU
-kernel's, these return no coverage: a gather has full reach, so
-``ops/sampling.py::grid_sample_planar`` reports zeros for it.
+kernel's, these return no coverage: a gather has full reach.
 
 The images may be float32 or bfloat16 (the serving policy's loss-warp
 dtype); the kernel converts bf16 on load and the plain versions run on
@@ -32,13 +31,12 @@ gradient.
 
 from __future__ import annotations
 
-import collections
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
+from monorec_tpu_torch.ops.cuda import launch
 from monorec_tpu_torch.ops.plane_sweep import upcast_bf16
 
 Tensor = torch.Tensor
@@ -101,16 +99,8 @@ def grid_warp_grad_reference(images: Tensor, xs: Tensor, ys: Tensor, cot: Tensor
     return gx, gy
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from monorec_tpu_torch.ops.cuda import build
-
-    lib = build.load("grid_warp")
-    lib.grid_warp_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.grid_warp_launch.restype = ctypes.c_int
-    lib.grid_warp_error_string.argtypes = [ctypes.c_int]
-    lib.grid_warp_error_string.restype = ctypes.c_char_p
-    return lib
+_LAUNCH = launch.Entry("grid_warp", "grid_warp_launch",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _check(images: Tensor, xs: Tensor, ys: Tensor, cot=None) -> None:
@@ -141,15 +131,9 @@ def _launch(entry, mode: int, images: Tensor, xs: Tensor, ys: Tensor, cot, out, 
     """Launch mode ``mode`` and count it on ``entry``, the public wrapper."""
     n, c, h, w = images.shape
     bf16 = images.dtype == torch.bfloat16
-    lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.grid_warp_launch(ptr(images), ptr(xs), ptr(ys), ptr(cot), ptr(out), ptr(jx),
-                                    ptr(jy), n, c, h, w, mode, int(bf16), stream)
-    if code != 0:
-        msg = lib.grid_warp_error_string(code).decode()
-        raise RuntimeError(f"grid_warp launch (mode {mode}) failed: {msg} ({code})")
+    _LAUNCH.launch(entry.__name__, images.device, ptr(images), ptr(xs), ptr(ys), ptr(cot),
+                   ptr(out), ptr(jx), ptr(jy), n, c, h, w, mode, int(bf16))
     if bf16:
         entry.launches_bf16 += 1
     else:
@@ -161,6 +145,7 @@ def _empty_f32(images: Tensor) -> Tensor:
     return torch.empty(images.shape, dtype=torch.float32, device=images.device)
 
 
+@launch.counted("launches", "launches_bf16", "launches_by_batch")
 def grid_warp(images: Tensor, xs: Tensor, ys: Tensor) -> Tensor:
     """Warped images (N, C, H, W), float32. CUDA tensors launch the kernel,
     CPU tensors run the plain version; ``grid_warp.launches`` /
@@ -173,6 +158,7 @@ def grid_warp(images: Tensor, xs: Tensor, ys: Tensor) -> Tensor:
     return out
 
 
+@launch.counted("launches", "launches_bf16", "launches_by_batch")
 def grid_warp_jac(images: Tensor, xs: Tensor, ys: Tensor
                   ) -> Tuple[Tensor, Tensor, Tensor]:
     """(out, d out/d xs, d out/d ys), each (N, C, H, W) float32, from one
@@ -186,6 +172,7 @@ def grid_warp_jac(images: Tensor, xs: Tensor, ys: Tensor
     return out, jx, jy
 
 
+@launch.counted("launches", "launches_bf16", "launches_by_batch")
 def grid_warp_grad(images: Tensor, xs: Tensor, ys: Tensor, cot: Tensor
                    ) -> Tuple[Tensor, Tensor]:
     """Coordinate gradient (d/d xs, d/d ys), each (N, H, W), of
@@ -198,12 +185,6 @@ def grid_warp_grad(images: Tensor, xs: Tensor, ys: Tensor, cot: Tensor
     g = torch.empty(n, 2, h, w, dtype=torch.float32, device=images.device)
     _launch(grid_warp_grad, _GRADIENT, images, xs, ys, cot, g, None, None)
     return g[:, 0], g[:, 1]
-
-
-for _entry in (grid_warp, grid_warp_jac, grid_warp_grad):
-    _entry.launches = 0
-    _entry.launches_bf16 = 0
-    _entry.launches_by_batch = collections.Counter()
 
 
 class _WarpPixels(torch.autograd.Function):

@@ -22,12 +22,11 @@ backward kernel and gives y no gradient, on every device.
 
 from __future__ import annotations
 
-import collections
 import ctypes
-import functools
 
 import torch
 
+from monorec_tpu_torch.ops.cuda import launch
 from monorec_tpu_torch.ops.ssim import ssim
 
 Tensor = torch.Tensor
@@ -50,20 +49,10 @@ def _photo_error_bwd_reference(x: Tensor, y: Tensor, cot: Tensor) -> Tensor:
     return gx
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from monorec_tpu_torch.ops.cuda import build
-
-    lib = build.load("photo_error")
-    lib.photo_error_fwd_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    lib.photo_error_fwd_launch.restype = ctypes.c_int
-    lib.photo_error_bwd_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    lib.photo_error_bwd_launch.restype = ctypes.c_int
-    lib.photo_error_error_string.argtypes = [ctypes.c_int]
-    lib.photo_error_error_string.restype = ctypes.c_char_p
-    return lib
+_FWD = launch.Entry("photo_error", "photo_error_fwd_launch",
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_BWD = launch.Entry("photo_error", "photo_error_bwd_launch",
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _check(x: Tensor, y: Tensor, cot=None) -> None:
@@ -88,12 +77,7 @@ def _check(x: Tensor, y: Tensor, cot=None) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(code: int, lib: ctypes.CDLL, what: str) -> None:
-    if code != 0:
-        msg = lib.photo_error_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({code})")
-
-
+@launch.counted("launches", "launches_by_batch")
 def photo_error_fwd(x: Tensor, y: Tensor) -> Tensor:
     """Error map (M, H, W). CUDA tensors launch the kernel, CPU tensors run
     the plain version; ``photo_error_fwd.launches`` counts kernel launches,
@@ -103,17 +87,14 @@ def photo_error_fwd(x: Tensor, y: Tensor) -> Tensor:
     _check(x, y)
     m, c, h, w = x.shape
     out = torch.empty(m, h, w, dtype=torch.float32, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.photo_error_fwd_launch(x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                                          m, c, h, w, stream)
-    _raise_on(code, lib, "photo_error_fwd")
+    _FWD.launch("photo_error_fwd", x.device, x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                m, c, h, w)
     photo_error_fwd.launches += 1
     photo_error_fwd.launches_by_batch[m] += 1
     return out
 
 
+@launch.counted("launches", "launches_by_batch")
 def photo_error_bwd(x: Tensor, y: Tensor, cot: Tensor) -> Tensor:
     """d sum(photo_error_fwd(x, y) * cot) / dx, (M, C, H, W).
     ``photo_error_bwd.launches`` counts kernel launches, and
@@ -123,20 +104,11 @@ def photo_error_bwd(x: Tensor, y: Tensor, cot: Tensor) -> Tensor:
     _check(x, y, cot)
     m, c, h, w = x.shape
     gx = torch.empty_like(x)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.photo_error_bwd_launch(x.data_ptr(), y.data_ptr(), cot.data_ptr(),
-                                          gx.data_ptr(), m, c, h, w, stream)
-    _raise_on(code, lib, "photo_error_bwd")
+    _BWD.launch("photo_error_bwd", x.device, x.data_ptr(), y.data_ptr(), cot.data_ptr(),
+                gx.data_ptr(), m, c, h, w)
     photo_error_bwd.launches += 1
     photo_error_bwd.launches_by_batch[m] += 1
     return gx
-
-
-for _entry in (photo_error_fwd, photo_error_bwd):
-    _entry.launches = 0
-    _entry.launches_by_batch = collections.Counter()
 
 
 class _PhotoError(torch.autograd.Function):

@@ -15,9 +15,9 @@ warped source against keyframe ``n // frames_per_image`` by ``use_ssim``
 (1 SSIM 3x3 uniform window with reflect pad, 2 0.85*SSIM + 0.15*L1, 0 L1,
 -1 3x3 zero-padded avg-pooled L1), weight the channels by
 ``channel_weights`` (already divided by patch_size**2) and take the
-zero-padded 3x3 box sum. Returns sad (N, D, H, W), wmask (N, D, H, W) and
-coverage (N, D), all float32; coverage is 0 because a gather kernel has
-full reach.
+zero-padded 3x3 box sum. Returns sad (N, D, H, W) and wmask (N, D, H, W),
+both float32. The TPU kernel's coverage count has no counterpart: a gather
+has full reach.
 
 The sources may be float32 or bfloat16 (the serving policy's
 ``cv_warp_dtype``); the kernel converts bf16 to float32 on load, and the
@@ -44,12 +44,12 @@ launch over its frames alone.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from monorec_tpu_torch.ops.cuda import launch
 from monorec_tpu_torch.ops.ssim import ssim
 
 Tensor = torch.Tensor
@@ -146,7 +146,7 @@ def plane_sweep_sad_reference(
     frames_per_image: int = 2,
     use_ssim: int = 1,
     channel_weights: Tuple[float, ...] = DEFAULT_CHANNEL_WEIGHTS,
-) -> Tuple[Tensor, Tensor, Tensor]:
+) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of the kernel, on any device (see module doc)."""
     images = upcast_bf16(images)
     n, c, h, w = images.shape
@@ -161,7 +161,7 @@ def plane_sweep_sad_reference(
     for ci in range(1, c):
         e = e + channel_weights[ci] * diff[:, ci]
     sad = box_sum_3x3(e).reshape(n, d, h, w)
-    return sad, wmask, torch.zeros(n, d, device=images.device)
+    return sad, wmask
 
 
 def valid_pixels(wmask: Tensor, border_radius: int) -> Tensor:
@@ -224,8 +224,8 @@ def plane_sweep_cost_volume_reference(
     the keyframes' dtype (float64 keyframes and sources give the exact
     scoring of the kernel's float32 displacements)."""
     slices = _group_slices(groups, frames_per_image)
-    sad, wmask, _ = plane_sweep_sad_reference(images, keyframes, homographies, border_radius,
-                                              frames_per_image, use_ssim, channel_weights)
+    sad, wmask = plane_sweep_sad_reference(images, keyframes, homographies, border_radius,
+                                           frames_per_image, use_ssim, channel_weights)
     n, d, h, w = sad.shape
     b, f = n // frames_per_image, frames_per_image
     valid = valid_pixels(wmask, border_radius).to(sad.dtype).reshape(b, f, h, w)
@@ -237,24 +237,14 @@ def plane_sweep_cost_volume_reference(
     return outs[0] if groups is None else outs
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from monorec_tpu_torch.ops.cuda import build
-
-    lib = build.load("plane_sweep_sad")
-    lib.plane_sweep_sad_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-    )
-    lib.plane_sweep_sad_launch.restype = ctypes.c_int
-    lib.plane_sweep_cost_volume_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
-        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int] + [ctypes.c_float] * 3
-        + [ctypes.c_void_p]
-    )
-    lib.plane_sweep_cost_volume_launch.restype = ctypes.c_int
-    lib.plane_sweep_sad_error_string.argtypes = [ctypes.c_int]
-    lib.plane_sweep_sad_error_string.restype = ctypes.c_char_p
-    return lib
+_SAD = launch.Entry(
+    "plane_sweep_sad", "plane_sweep_sad_launch",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+_COST_VOLUME = launch.Entry(
+    "plane_sweep_sad", "plane_sweep_cost_volume_launch",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int] + [ctypes.c_float] * 3
+    + [ctypes.c_void_p])
 
 
 def _check_kernel_inputs(images, keyframes, homographies, frames_per_image, use_ssim,
@@ -286,17 +276,6 @@ def _check_kernel_inputs(images, keyframes, homographies, frames_per_image, use_
         raise ValueError(f"{len(channel_weights)} channel weights for {c} channels")
 
 
-def _count(entry, lib: ctypes.CDLL, code: int, bf16: bool) -> None:
-    """Raise if a launch returned an error, else count it on ``entry``."""
-    if code != 0:
-        msg = lib.plane_sweep_sad_error_string(code).decode()
-        raise RuntimeError(f"{entry.__name__} launch failed: {msg} ({code})")
-    if bf16:
-        entry.launches_bf16 += 1
-    else:
-        entry.launches += 1
-
-
 def _texels(images: Tensor) -> Tensor:
     """The kernel's scratch for the sources interleaved per pixel: (N, H, W,
     4) in the sources' dtype, one 16-byte (float32) or 8-byte (bf16) word."""
@@ -304,6 +283,7 @@ def _texels(images: Tensor) -> Tensor:
     return torch.empty(n, h, w, 4, dtype=images.dtype, device=images.device)
 
 
+@launch.counted("launches", "launches_bf16")
 def plane_sweep_sad(
     images: Tensor,  # (N, C, H, W) float32 or bfloat16 in [-0.5, 0.5]
     keyframes: Tensor,  # (B, C, H, W) float32, N == B * frames_per_image
@@ -312,8 +292,8 @@ def plane_sweep_sad(
     frames_per_image: int = 2,
     use_ssim: int = 1,
     channel_weights: Tuple[float, ...] = DEFAULT_CHANNEL_WEIGHTS,
-) -> Tuple[Tensor, Tensor, Tensor]:
-    """Fused plane-sweep scoring; returns (sad, wmask, coverage).
+) -> Tuple[Tensor, Tensor]:
+    """Fused plane-sweep scoring; returns (sad, wmask).
 
     CUDA tensors launch the kernel, CPU tensors run the plain version.
     ``plane_sweep_sad.launches`` / ``.launches_bf16`` count kernel launches
@@ -331,25 +311,23 @@ def plane_sweep_sad(
     n, _, h, w = images.shape
     d = homographies.shape[1]
     bf16 = images.dtype == torch.bfloat16
-    lib = _library()
     sad = torch.empty(n, d, h, w, dtype=torch.float32, device=images.device)
     wmask = torch.empty_like(sad)
     texels = _texels(images)
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.plane_sweep_sad_launch(
-            images.data_ptr(), keyframes.data_ptr(), homographies.data_ptr(),
-            texels.data_ptr(), sad.data_ptr(), wmask.data_ptr(), n, d, h, w, frames_per_image,
-            border_radius, use_ssim, int(bf16), *(float(x) for x in channel_weights), stream,
-        )
-    _count(plane_sweep_sad, lib, code, bf16)
-    return sad, wmask, torch.zeros(n, d, device=images.device)
+    _SAD.launch(
+        "plane_sweep_sad", images.device, images.data_ptr(), keyframes.data_ptr(),
+        homographies.data_ptr(), texels.data_ptr(), sad.data_ptr(), wmask.data_ptr(), n, d, h, w,
+        frames_per_image, border_radius, use_ssim, int(bf16),
+        *(float(x) for x in channel_weights),
+    )
+    if bf16:
+        plane_sweep_sad.launches_bf16 += 1
+    else:
+        plane_sweep_sad.launches += 1
+    return sad, wmask
 
 
-plane_sweep_sad.launches = 0
-plane_sweep_sad.launches_bf16 = 0
-
-
+@launch.counted("launches", "launches_bf16")
 def plane_sweep_cost_volume(
     images: Tensor,  # (N, C, H, W) float32 or bfloat16 in [-0.5, 0.5]
     keyframes: Tensor,  # (B, C, H, W) float32, N == B * frames_per_image
@@ -388,24 +366,21 @@ def plane_sweep_cost_volume(
     d = homographies.shape[1]
     b = n // frames_per_image
     bf16 = images.dtype == torch.bfloat16
-    lib = _library()
     sfcv = torch.empty(b, frames_per_image, d, h, w, dtype=torch.float32, device=images.device)
     weight = torch.empty(n, h, w, dtype=torch.float32, device=images.device)
     fused = torch.empty(len(slices), b, d, h, w, dtype=torch.float32, device=images.device)
     texels = _texels(images)
     sizes = (ctypes.c_int * len(slices))(*(g.stop - g.start for g in slices))
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.plane_sweep_cost_volume_launch(
-            images.data_ptr(), keyframes.data_ptr(), homographies.data_ptr(),
-            texels.data_ptr(), sfcv.data_ptr(), weight.data_ptr(), fused.data_ptr(),
-            n, d, h, w, frames_per_image, len(slices), sizes, border_radius, use_ssim, int(bf16),
-            float(alpha), int(not not_center_cv), *(float(x) for x in channel_weights), stream,
-        )
-    _count(plane_sweep_cost_volume, lib, code, bf16)
+    _COST_VOLUME.launch(
+        "plane_sweep_cost_volume", images.device, images.data_ptr(), keyframes.data_ptr(),
+        homographies.data_ptr(), texels.data_ptr(), sfcv.data_ptr(), weight.data_ptr(),
+        fused.data_ptr(), n, d, h, w, frames_per_image, len(slices), sizes, border_radius,
+        use_ssim, int(bf16), float(alpha), int(not not_center_cv),
+        *(float(x) for x in channel_weights),
+    )
+    if bf16:
+        plane_sweep_cost_volume.launches_bf16 += 1
+    else:
+        plane_sweep_cost_volume.launches += 1
     outs = [(fused[i], sfcv[:, g]) for i, g in enumerate(slices)]
     return outs[0] if groups is None else outs
-
-
-plane_sweep_cost_volume.launches = 0
-plane_sweep_cost_volume.launches_bf16 = 0

@@ -32,8 +32,8 @@ def residual_image(data: Dict, inv_depth: Tensor, use_mono: bool = True,
     b, c, h, w = keyframe.shape
     frames, poses, intrinsics = _gather_frames(data, use_mono, use_stereo)
     f = frames.shape[1]
-    warped, _ = _warp_by_depth_planar(1.0 / inv_depth[:, 0], frames, poses, intrinsics,
-                                      data["keyframe_pose"], data["keyframe_intrinsics"], add=1.0)
+    warped = _warp_by_depth_planar(1.0 / inv_depth[:, 0], frames, poses, intrinsics,
+                                   data["keyframe_pose"], data["keyframe_intrinsics"], add=1.0)
     invalid = (warped == 0).any(2)  # (B, F, H, W)
     warped = warped - 0.5
     key = (keyframe + 0.5)[:, None].expand_as(warped)

@@ -31,7 +31,6 @@ where that finishes sooner (small planes, channel counts of neither).
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import math
@@ -41,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from monorec_tpu_torch.ops.bias_act import bias_act_bwd
+from monorec_tpu_torch.ops.cuda import launch
 
 Tensor = torch.Tensor
 
@@ -112,19 +112,10 @@ def same_conv_reference(x: Tensor, weight: Tensor, bias: Tensor, slope: float = 
     return v if slope == 1.0 else F.leaky_relu(v, slope)
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from monorec_tpu_torch.ops.cuda import build
-
-    lib = build.load("same_conv")
-    lib.same_conv_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    lib.same_conv_launch.restype = ctypes.c_int
-    lib.same_conv_blocks_per_sm.argtypes = [ctypes.c_int] * 3
-    lib.same_conv_blocks_per_sm.restype = ctypes.c_int
-    lib.same_conv_error_string.argtypes = [ctypes.c_int]
-    lib.same_conv_error_string.restype = ctypes.c_char_p
-    return lib
+_LAUNCH = launch.Entry("same_conv", "same_conv_launch",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_BLOCKS_PER_SM = launch.Entry("same_conv", "same_conv_blocks_per_sm", [ctypes.c_int] * 3)
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,8 +123,7 @@ def _occupancy(device_index: int, kh: int, kw: int) -> Tuple[int, Tuple[int, ...
     """The card's SMs, and the blocks of each configuration an SM holds."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     with torch.cuda.device(device_index):
-        return sms, tuple(_library().same_conv_blocks_per_sm(kh, kw, i)
-                          for i in range(len(CONFIGS)))
+        return sms, tuple(_BLOCKS_PER_SM(kh, kw, i) for i in range(len(CONFIGS)))
 
 
 def tiles(n: int, h: int, w: int, c_out: int, kernel: Sequence[int], config: int) -> int:
@@ -205,14 +195,8 @@ def same_conv_fwd(x: Tensor, weight: Tensor, bias: Tensor, slope: float = 1.0,
     if config is None:
         config = _planned(x.device.index, n, h, w, c_out, kh, kw)
     out = torch.empty(n, c_out, h, w, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = _library().same_conv_launch(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c_in, h, w,
-            c_out, kh, kw, pad[0], pad[1], slope, config, stream)
-    if code != 0:
-        msg = _library().same_conv_error_string(code).decode()
-        raise RuntimeError(f"same_conv launch failed: {msg} ({code})")
+    _LAUNCH.launch("same_conv", x.device, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                   out.data_ptr(), n, c_in, h, w, c_out, kh, kw, pad[0], pad[1], slope, config)
     same_conv.launches += 1
     same_conv.launches_by_shape[(n, c_in, h, w, c_out, kh, kw)] += 1
     return out
@@ -246,6 +230,7 @@ class _SameConv(torch.autograd.Function):
         return grad_x, grad_w, grad_bias.to(g.dtype), None, None
 
 
+@launch.counted("launches", "launches_by_shape", "routed_library")
 def same_conv(x: Tensor, weight: Tensor, bias: Tensor, slope: float = 1.0,
               pad: Tuple[int, int] = (0, 0)) -> Tensor:
     """``act(conv(x, weight) + bias)`` at stride 1 with the same pad ``pad`` =
@@ -255,8 +240,3 @@ def same_conv(x: Tensor, weight: Tensor, bias: Tensor, slope: float = 1.0,
                                     or bias.requires_grad):
         return _SameConv.apply(x, weight, bias, slope, tuple(pad))
     return same_conv_fwd(x, weight, bias, slope, tuple(pad))
-
-
-same_conv.launches = 0
-same_conv.launches_by_shape = collections.Counter()
-same_conv.routed_library = 0

@@ -51,8 +51,8 @@ def pixel_coordinates(grids: Tensor, height: int, width: int):
     return xs.contiguous(), ys.contiguous()
 
 
-def grid_sample_planar(images: Tensor, grids: Tensor, return_coverage: bool = False,
-                       kernel_dtype: Optional[torch.dtype] = None):
+def grid_sample_planar(images: Tensor, grids: Tensor,
+                       kernel_dtype: Optional[torch.dtype] = None) -> Tensor:
     """Batched sampler in planar layout: images (N, C, H, W), grids
     (N, H, W, 2) -> (N, C, H, W) (``monorec_tpu/ops/sampling.py::
     grid_sample_planar`` on its kernel path). Samples through the loss-warp
@@ -60,14 +60,10 @@ def grid_sample_planar(images: Tensor, grids: Tensor, return_coverage: bool = Fa
     the images get no gradient. ``kernel_dtype`` (None = float32, or
     ``torch.bfloat16``: the serving policy) quantizes the source values
     before K2; the warp accumulates in float32 and returns in the images'
-    dtype. ``return_coverage`` also returns the per-image uncovered-pixel
-    counts (N,), always 0: a gather has full reach."""
+    dtype."""
     n, _, h, w = images.shape
     if grids.shape != (n, h, w, 2):
         raise ValueError(f"grids must be {(n, h, w, 2)}, got {tuple(grids.shape)}")
     kdtype = torch.float32 if kernel_dtype is None else kernel_dtype
     xs, ys = pixel_coordinates(grids.to(torch.float32), h, w)
-    out = warp_pixels(images.to(kdtype), xs, ys).to(images.dtype)
-    if return_coverage:
-        return out, torch.zeros(n, dtype=torch.float32, device=images.device)
-    return out
+    return warp_pixels(images.to(kdtype), xs, ys).to(images.dtype)

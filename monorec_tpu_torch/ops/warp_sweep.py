@@ -12,49 +12,39 @@ each of its D pixel-unit homographies ``homs[n, d]`` ((N, D, 3, 3) float64,
 zero padding, a sample with no tap inside the image exactly 0.0. Also warp
 the border indicator (``border_radius <= p < size - border_radius``) the
 same way. Returns warped (N, D, C, H, W) in the images' dtype (bf16
-rounded from float32 sums), wmask (N, D, H, W) float32 and coverage (N, D)
-float32, always 0: a gather has full reach. The kernel shares its
-coordinates and footprint with K1 (``cuda/sweep_common.cuh``);
-``warp_plane_sweep.launches`` counts launches on float32 sources and
-``warp_plane_sweep.launches_bf16`` those on bf16 sources.
+rounded from float32 sums) and wmask (N, D, H, W) float32; the TPU
+kernel's coverage count has no counterpart, since a gather has full reach.
+The kernel shares its coordinates and footprint with K1
+(``cuda/sweep_common.cuh``); ``warp_plane_sweep.launches`` counts launches
+on float32 sources and ``warp_plane_sweep.launches_bf16`` those on bf16
+sources.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
+from monorec_tpu_torch.ops.cuda import launch
 from monorec_tpu_torch.ops.plane_sweep import _displacements, _gather_bilinear, upcast_bf16
 
 Tensor = torch.Tensor
 
 
 def warp_plane_sweep_reference(images: Tensor, homographies: Tensor, border_radius: int = 2
-                               ) -> Tuple[Tensor, Tensor, Tensor]:
+                               ) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of the kernel, on any device (see module doc):
     the sweep's gather on the upcast images, cast to the images' dtype."""
-    n, _, h, w = images.shape
+    h, w = images.shape[-2:]
     warped, wmask = _gather_bilinear(upcast_bf16(images), *_displacements(homographies, h, w),
                                      border_radius)
-    d = homographies.shape[1]
-    return warped.to(images.dtype), wmask, torch.zeros(n, d, device=images.device)
+    return warped.to(images.dtype), wmask
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from monorec_tpu_torch.ops.cuda import build
-
-    lib = build.load("warp_plane_sweep")
-    lib.warp_plane_sweep_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    )
-    lib.warp_plane_sweep_launch.restype = ctypes.c_int
-    lib.warp_plane_sweep_error_string.argtypes = [ctypes.c_int]
-    lib.warp_plane_sweep_error_string.restype = ctypes.c_char_p
-    return lib
+_LAUNCH = launch.Entry("warp_plane_sweep", "warp_plane_sweep_launch",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def _check_kernel_inputs(images: Tensor, homographies: Tensor) -> None:
@@ -74,9 +64,10 @@ def _check_kernel_inputs(images: Tensor, homographies: Tensor) -> None:
         raise ValueError(f"homographies must be (N, D, 3, 3), got {tuple(homographies.shape)}")
 
 
+@launch.counted("launches", "launches_bf16")
 def warp_plane_sweep(images: Tensor, homographies: Tensor, border_radius: int = 2
-                     ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Warped stack, border mask and coverage (see module doc).
+                     ) -> Tuple[Tensor, Tensor]:
+    """Warped stack and border mask (see module doc).
 
     CUDA tensors launch the kernel, CPU tensors run the plain version.
     """
@@ -88,29 +79,19 @@ def warp_plane_sweep(images: Tensor, homographies: Tensor, border_radius: int = 
     n, c, h, w = images.shape
     d = homographies.shape[1]
     bf16 = images.dtype == torch.bfloat16
-    lib = _library()
     warped = torch.empty(n, d, c, h, w, dtype=images.dtype, device=images.device)
     wmask = torch.empty(n, d, h, w, dtype=torch.float32, device=images.device)
     # Three channels are packed into one texel per pixel first (a tap is one
     # load); other channel counts are gathered from their planes.
     texels = (torch.empty(n, h, w, 4, dtype=images.dtype, device=images.device)
               if c == 3 else None)
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.warp_plane_sweep_launch(
-            images.data_ptr(), homographies.data_ptr(),
-            None if texels is None else texels.data_ptr(), warped.data_ptr(), wmask.data_ptr(),
-            n, c, d, h, w, border_radius, int(bf16), stream,
-        )
-    if code != 0:
-        msg = lib.warp_plane_sweep_error_string(code).decode()
-        raise RuntimeError(f"warp_plane_sweep launch failed: {msg} ({code})")
+    _LAUNCH.launch(
+        "warp_plane_sweep", images.device, images.data_ptr(), homographies.data_ptr(),
+        None if texels is None else texels.data_ptr(), warped.data_ptr(), wmask.data_ptr(),
+        n, c, d, h, w, border_radius, int(bf16),
+    )
     if bf16:
         warp_plane_sweep.launches_bf16 += 1
     else:
         warp_plane_sweep.launches += 1
-    return warped, wmask, torch.zeros(n, d, device=images.device)
-
-
-warp_plane_sweep.launches = 0
-warp_plane_sweep.launches_bf16 = 0
+    return warped, wmask

@@ -13,10 +13,8 @@ One ``_feed``, in the JAX package's order:
   B) the ResNet features of the augmented keyframe;
   C) the cost volumes, computed from the UN-augmented batch without a
      gradient and augmented afterwards: the stereo one
-     (``compute_stereo_pred``), then the mono one, whose coverage is
-     ``cv_uncovered``; with ``joint_cv`` both from one grouped launch of K1
-     (``MonoRec.cost_volume_pair``), the coverage then summed over the mono
-     and the stereo frames;
+     (``compute_stereo_pred``), then the mono one; with ``joint_cv`` both
+     from one grouped launch of K1 (``MonoRec.cost_volume_pair``);
   D) the MaskModule on the mono per-frame CVs (``compute_mask``; its
      dropout from the trainer's device generator), optionally attenuating
      the mono CV (``mult_mask_on_cv``);
@@ -131,16 +129,17 @@ class MonoRecTrainer(Trainer):
         cv_s = None
         with torch.no_grad():
             if self.compute_stereo_pred and self.joint_cv:
-                cv_m, sfcv_m, cv_s, sfcv_s, cv_uncov = model.cost_volume_pair(batch)
+                cv_m, sfcv_m, cv_s, sfcv_s = model.cost_volume_pair(batch)
                 cv_s, sfcv_s = aug_one(cv_s), aug_one(sfcv_s)
             else:
                 if self.compute_stereo_pred:
                     cv_s, sfcv_s = model.cost_volume(batch, use_mono=False, use_stereo=True)
                     cv_s, sfcv_s = aug_one(cv_s), aug_one(sfcv_s)
-                cv_m, sfcv_m, cv_uncov = model.cost_volume(  # mono frames only
-                    batch, return_coverage=True, use_mono=True, use_stereo=False)
+                cv_m, sfcv_m = model.cost_volume(batch, use_mono=True, use_stereo=False)
             cv_m, sfcv_m = aug_one(cv_m), aug_one(sfcv_m)
-        data["cv_uncovered"] = cv_uncov
+        # The JAX package's schema, as ``MonoRec.forward`` gives it: 0, the
+        # port's sweep is a gather, with full reach.
+        data["cv_uncovered"] = torch.zeros(b, device=cv_m.device)
 
         # --- D) the mask ---------------------------------------------------
         if self.compute_mask:

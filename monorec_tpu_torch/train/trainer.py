@@ -210,8 +210,8 @@ class Trainer:
         self.model.train()
         with parallel.batch_scope(sharded):
             loss_dict, data = self._feed(batch, True, alpha)
-            if "cv_uncovered" in data:
-                loss_dict["cv_uncovered"] = parallel.global_sum(data["cv_uncovered"].sum())
+            if "cv_uncovered" in data:  # the log schema's, always 0 (see MonoRec.forward)
+                loss_dict["cv_uncovered"] = loss_dict["loss"].new_zeros(())
         self.optimizer.zero_grad(set_to_none=True)
         with tracing.span("backward"):
             loss_dict["loss"].backward()

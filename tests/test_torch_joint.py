@@ -99,15 +99,15 @@ def _separate(bt, cfg, **kwargs):
     """The two ``compute_cost_volume`` calls the pair stands for."""
     key = [bt[k] for k in _PAIR_KEYS[:3]]
     m = compute_cost_volume(*key, bt["frames"], bt["intrinsics"], bt["poses"], INV_MAX,
-                            INV_MIN, cfg, return_coverage=True, **kwargs)
+                            INV_MIN, cfg, **kwargs)
     s = compute_cost_volume(*key, bt["stereoframe"][:, None],
                             bt["stereoframe_intrinsics"][:, None], bt["stereoframe_pose"][:, None],
-                            INV_MAX, INV_MIN, cfg, return_coverage=True, **kwargs)
-    return m[0], m[1], s[0], s[1], m[2] + s[2]
+                            INV_MAX, INV_MIN, cfg, **kwargs)
+    return (*m, *s)
 
 
 def _assert_equal_outputs(got, want):
-    assert len(got) == len(want) == 5
+    assert len(got) == len(want) == 4
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.shape == w.shape and torch.equal(g, w), i
 
@@ -124,12 +124,11 @@ def test_cost_volume_pair_matches_jax_kernel_and_separate_calls(monkeypatch, use
     got = compute_cost_volume_pair(*(bt[k] for k in _PAIR_KEYS), INV_MAX, INV_MIN, cfg)
     assert seen == [(F, 1)]
     assert [tuple(t.shape) for t in got] == [(B, D, H, W), (B, F, D, H, W), (B, D, H, W),
-                                             (B, 1, D, H, W), (B,)]
-    # JAX: fused (B, H, W, D), per-frame (B, F, H, W, D), coverage (B,).
+                                             (B, 1, D, H, W)]
+    # JAX: fused (B, H, W, D), per-frame (B, F, H, W, D), then its coverage.
     want = [np.moveaxis(np.asarray(j_out[i]), -1, 1 if i % 2 == 0 else 2) for i in range(4)]
-    for i, (g, w) in enumerate(zip(got[:4], want)):
+    for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=CV_ATOL, err_msg=str(i))
-    np.testing.assert_array_equal(got[4].numpy(), np.asarray(j_out[4]))
     _assert_equal_outputs(got, _separate(bt, cfg))
 
 

@@ -55,20 +55,20 @@ def _j_warp(images, homographies, border_radius=2, interpret=False):
 
 
 def _warp_both(images, homs, dtype, border_radius=2):
-    """K4 on both sides: (port warped, wmask, coverage), (JAX ...) as numpy."""
+    """K4 on both sides: (port warped, wmask), (JAX ...) as numpy."""
     tdtype, jdtype = DTYPES[dtype]
     port = warp_sweep.warp_plane_sweep(torch.from_numpy(images).to(tdtype),
                                        torch.from_numpy(homs), border_radius)
     assert port[0].dtype == tdtype and port[1].dtype == torch.float32
     ref = _j_warp(jnp.asarray(images, jdtype), jnp.asarray(homs, jnp.float32),
-                  border_radius=border_radius, interpret=True)
+                  border_radius=border_radius, interpret=True)[:2]
     assert ref[0].dtype == jdtype
     return ([t.float().numpy() for t in port],
             [np.asarray(jnp.asarray(t, jnp.float32)) for t in ref])
 
 
 def _assert_warps_close(port, ref, dtype):
-    (w, m, cov), (rw, rm, rcov) = port, ref
+    (w, m), (rw, rm) = port, ref
     assert w.shape == rw.shape and m.shape == rm.shape
     close = np.isclose(w, rw, rtol=1e-4, atol=5e-5)
     if dtype == "bfloat16":  # neighbouring bf16 roundings of equal-to-1e-5 float32 sums
@@ -78,7 +78,6 @@ def _assert_warps_close(port, ref, dtype):
         assert close.all(), np.abs(w - rw).max()
     np.testing.assert_allclose(m, rm, atol=5e-5)
     np.testing.assert_array_equal(m != 0, rm != 0)
-    assert not cov.any() and not rcov.any()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
